@@ -1,0 +1,106 @@
+"""Shared CLI plumbing (port of the parts of cli/common.py the sampler CLI
+needs): flag groups, NHWC closures over the NCHW models, diagnostics."""
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
+from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
+
+
+def add_common_flags(p: argparse.ArgumentParser):
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device: 'cuda' (default; fails without a "
+                        "GPU) or 'cpu'")
+    p.add_argument("--seed", type=int, default=42,
+                   help="Random seed for reproducibility")
+    p.add_argument("--dtype", type=str, default="f32",
+                   choices=["f32", "bf16"],
+                   help="Model activation dtype (params stay f32; guidance "
+                        "weight math is always f32)")
+
+
+def add_solver_flag(p: argparse.ArgumentParser):
+    """--solver / --time_grid / --grid_power (flow/cfm.py)."""
+    p.add_argument("--solver", type=str, default="euler",
+                   choices=["euler", "midpoint", "heun"],
+                   help="ODE integrator: 'euler' (reference protocol), "
+                        "'midpoint' (2 evals/step, 2nd order; composes "
+                        "with guidance), 'heun' (2nd order, unguided only)")
+    p.add_argument("--time_grid", type=str, default="uniform",
+                   choices=["uniform", "late", "early", "cosine"],
+                   help="ODE step placement (flow/cfm.py:make_time_grid)")
+    p.add_argument("--grid_power", type=float, default=2.0,
+                   help="warp exponent for --time_grid late/early")
+
+
+def dtype_of(args) -> torch.dtype:
+    return dtype_from_name(getattr(args, "dtype", "f32"))
+
+
+def velocity_fn(model):
+    """(x NHWC, t [B]) -> v NHWC through an NCHW velocity net. On the card
+    the NCHW view of an NHWC tensor is `channels_last`, so no copy."""
+    def fn(x, t):
+        return model(x.permute(0, 3, 1, 2), t).permute(0, 2, 3, 1).contiguous()
+    return fn
+
+
+def ratio_log_fn(model):
+    """(x NHWC, y NHWC) -> log r̂ [B] through an NCHW ratio net."""
+    def fn(x, y):
+        return model.log_ratio(x.permute(0, 3, 1, 2), y.permute(0, 3, 1, 2))
+    return fn
+
+
+def summarize_diagnostics(diags, num_steps: int, time_grid: str = "uniform",
+                          grid_power: float = 2.0) -> list:
+    """Per-step summary rows from stacked diagnostics ([T] or [T, B])."""
+    if not diags:
+        return []
+    ts = make_time_grid(num_steps, time_grid, grid_power)[0]
+    d = {k: v.detach().float().cpu().numpy() for k, v in diags.items()}
+    rows = []
+    for s in range(num_steps):
+        row = {"step": s, "t": round(float(ts[s]), 4)}
+        for k, v in sorted(d.items()):
+            if v.ndim == 0:
+                continue
+            if v.ndim == 1:
+                row[k] = float(v[s])
+            else:
+                row[f"{k}_mean"] = float(v[s].mean())
+                row[f"{k}_min"] = float(v[s].min())
+        rows.append(row)
+    return rows
+
+
+def report_guidance_diagnostics(diags, num_steps: int, save_path=None,
+                                log_fn=print, time_grid: str = "uniform",
+                                grid_power: float = 2.0) -> list:
+    """Print guidance diagnostics at ~30% marks (ESS → 1 is the weight
+    collapse) and optionally save the per-step trace as JSON."""
+    rows = summarize_diagnostics(diags, num_steps, time_grid, grid_power)
+    if not rows:
+        return rows
+    stride = max(1, int(0.3 * num_steps))
+    for s in range(stride, num_steps, stride):
+        r = rows[s]
+        parts = [f"t={r['t']:.2f}"]
+        if "ess_mean" in r:
+            parts.append(f"ESS mean={r['ess_mean']:.1f} "
+                         f"min={r['ess_min']:.1f}")
+        for k in ("v_x_norm", "v_y_norm", "g_x_norm", "g_y_norm"):
+            if k in r:
+                parts.append(f"{k.replace('_norm', '')}||={r[k]:.3f}")
+        if "w_max" in r:
+            parts.append(f"w∈[{r.get('w_min', 0):.2e},{r['w_max']:.2e}]")
+        log_fn("  [guidance diag] " + "  ".join(parts))
+    if save_path:
+        with open(save_path, "w") as f:
+            json.dump(rows, f, indent=1)
+        log_fn(f"  Diagnostics trace saved to: {save_path}")
+    return rows

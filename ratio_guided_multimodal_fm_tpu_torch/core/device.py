@@ -1,0 +1,54 @@
+"""Device selection: the card by default, the CPU only when asked for.
+
+Every entry point of the port resolves its device here. With no argument
+it is `cuda`; without a GPU that is an error, never a silent CPU run —
+tests and CPU users pass `device="cpu"` (CLI: `--device cpu`).
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def pin_fp32_precision() -> None:
+    """Keep float32 matrix products and convolutions in IEEE float32.
+
+    cuDNN runs float32 convolutions in TF32 by default (about three decimal
+    digits), and the JAX reference pins float32 dots to HIGHEST precision
+    (its sampler's guidance math loses ~3% in g otherwise). Both switches
+    are process-wide; the port's entry paths set them on every call.
+    """
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """Return the torch device an entry point runs on (default `cuda`).
+
+    Raises RuntimeError when a CUDA device is requested (explicitly or by
+    default) and none is available.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: this port runs on the GPU by "
+            "default; pass device='cpu' (CLI: --device cpu) to run on the "
+            "CPU instead")
+    pin_fp32_precision()
+    return dev
+
+
+def place_model(model: torch.nn.Module, device: torch.device):
+    """Move a model to `device` in eval mode, 4-D params in channels_last
+    memory (the layout the card's bf16 convolutions run in)."""
+    return model.to(device=device, memory_format=torch.channels_last).eval()
+
+
+def device_of(generator: Optional[torch.Generator]) -> torch.device:
+    """The device a `torch.Generator` draws on."""
+    if generator is None:
+        raise ValueError("a torch.Generator is required")
+    return resolve_device(generator.device)

@@ -1,0 +1,128 @@
+"""Weight bridge: flax variables (numpy arrays) -> the port's state dicts.
+
+The port's own copy of the layout rules of the JAX package's exporter
+(interop/torch_export.py), so weights trained with the JAX package load
+into the port with `load_state_dict(strict=True)`:
+
+  Conv2d      kernel (kh,kw,I,O) -> weight (O,I,kh,kw)
+  Linear      kernel (I,O)       -> weight (O,I)
+  Group/LayerNorm, BatchNorm  scale/bias -> weight/bias
+  BatchNorm   batch_stats mean/var -> running_mean/running_var, and
+              num_batches_tracked = 0 (inference never reads it)
+
+`variables` is {'params': ...} (plus 'batch_stats' for BatchNorm models) or
+a bare params tree; leaves are anything `np.asarray` accepts.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, order="C"))     # an owned copy
+
+
+def _conv(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _dense(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _norm(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(out: StateDict, name: str, p: Mapping[str, Any],
+        stats: Mapping[str, Any]) -> None:
+    _norm(out, name, p)
+    out[f"{name}.running_mean"] = _t(stats["mean"])
+    out[f"{name}.running_var"] = _t(stats["var"])
+    out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _resblock(out: StateDict, prefix: str, p: Mapping[str, Any]) -> None:
+    _norm(out, f"{prefix}.norm1", p["GroupNorm_0"])
+    _conv(out, f"{prefix}.conv1", p["conv1"])
+    _dense(out, f"{prefix}.time_mlp.1", p["time_mlp"])
+    _norm(out, f"{prefix}.norm2", p["GroupNorm_1"])
+    _conv(out, f"{prefix}.conv2", p["conv2"])
+    if "skip" in p:
+        _conv(out, f"{prefix}.skip", p["skip"])
+
+
+def unet_state_dict(variables: Mapping[str, Any], channel_mult=(1, 2),
+                    num_res_blocks: int = 2) -> StateDict:
+    """FlexibleUNet params -> models.unet.FlexibleUNet state dict."""
+    p = variables["params"]
+    out: StateDict = {}
+    _dense(out, "time_embed.0", p["time_dense1"])
+    _dense(out, "time_embed.2", p["time_dense2"])
+    _conv(out, "input_conv", p["input_conv"])
+    n_levels = len(channel_mult)
+    for i in range(n_levels * num_res_blocks):
+        _resblock(out, f"encoder_blocks.{i}", p[f"enc_{i}"])
+    for lvl in range(n_levels - 1):
+        _conv(out, f"downsamplers.{lvl}.conv", p[f"down_{lvl}"]["conv"])
+        _conv(out, f"upsamplers.{lvl}.conv", p[f"up_{lvl}"]["conv"])
+    _resblock(out, "middle_block1", p["middle_1"])
+    _resblock(out, "middle_block2", p["middle_2"])
+    for i in range(n_levels * (num_res_blocks + 1)):
+        _resblock(out, f"decoder_blocks.{i}", p[f"dec_{i}"])
+    _norm(out, "out_norm", p["GroupNorm_0"])
+    _conv(out, "out_conv", p["out_conv"])
+    return out
+
+
+def _bn_encoder(out: StateDict, prefix: str, p: Mapping[str, Any],
+                stats: Mapping[str, Any], convs) -> None:
+    for c in convs:
+        _conv(out, f"{prefix}.conv{c}", p[f"conv{c}"])
+        _bn(out, f"{prefix}.bn{c}", p[f"bn{c}"], stats[f"bn{c}"])
+    _dense(out, f"{prefix}.fc", p["fc"])
+
+
+def ratio_mnist_svhn_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """RatioEstimatorMNISTSVHN params + batch_stats -> port state dict."""
+    p, st = variables["params"], variables["batch_stats"]
+    out: StateDict = {}
+    _bn_encoder(out, "encoder_mnist", p["encoder_mnist"],
+                st["encoder_mnist"], ["1", "2", "3", "4"])
+    _bn_encoder(out, "encoder_svhn", p["encoder_svhn"], st["encoder_svhn"],
+                ["1a", "1b", "2a", "2b", "3a", "3b", "4a", "4b"])
+    s = p["score_net"]
+    for idx, name in ((0, "fc1"), (4, "fc2"), (8, "fc3"), (11, "fc4")):
+        _dense(out, f"score_net.{idx}", s[name])
+    for idx, name in ((1, "ln1"), (5, "ln2"), (9, "ln3")):
+        _norm(out, f"score_net.{idx}", s[name])
+    return out
+
+
+BRIDGES = {
+    "unet_mnist": lambda v: unet_state_dict(v, channel_mult=(1, 2)),
+    "unet_svhn": lambda v: unet_state_dict(v, channel_mult=(1, 2, 2)),
+    "ratio_mnist_svhn": ratio_mnist_svhn_state_dict,
+}
+
+
+def state_dict_from_jax(variables: Mapping[str, Any], model: str) -> StateDict:
+    """Convert flax variables of `model` ('unet_mnist' | 'unet_svhn' |
+    'ratio_mnist_svhn') into the port's state dict."""
+    if model not in BRIDGES:
+        raise ValueError(f"unknown model kind {model!r}; one of "
+                         f"{sorted(BRIDGES)}")
+    if "params" not in variables:
+        variables = {"params": variables}
+    if model == "ratio_mnist_svhn" and "batch_stats" not in variables:
+        raise ValueError("ratio_mnist_svhn uses BatchNorm: pass variables "
+                         "with 'batch_stats' alongside 'params'")
+    return BRIDGES[model](variables)

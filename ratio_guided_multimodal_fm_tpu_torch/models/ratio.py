@@ -1,0 +1,125 @@
+"""Density-ratio estimator r̂(x,y) for MNIST↔SVHN (port of models/ratio.py).
+
+`RatioEstimatorMNISTSVHN`: asymmetric BatchNorm conv encoders and a deep
+score MLP, 3,327,617 params, reference torch state-dict keys (the JAX
+exporter's `export_ratio_mnist_svhn`, including BatchNorm running stats and
+`num_batches_tracked`). Evaluation only: BatchNorm always normalises with
+its running statistics (training is a later slice of the port).
+
+Score is terminal-time only (t=1). `log_ratio` follows the training loss:
+  disc:   log r̂ = T
+  rulsif: log r̂ = log(softplus(T) + 1e-8)
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ratio_guided_multimodal_fm_tpu_torch.models.layers import Conv2d, Linear
+
+
+def log_ratio_from_scores(scores: torch.Tensor, loss_type: str) -> torch.Tensor:
+    """Map raw scores T(x,y) to log r̂(x,y)."""
+    if loss_type == "disc":
+        # logsigmoid(T) - logsigmoid(-T) == T exactly.
+        return scores
+    if loss_type == "rulsif":
+        return torch.log(F.softplus(scores) + 1e-8)
+    raise ValueError(f"Unknown loss_type: {loss_type}")
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode BatchNorm (eps 1e-5 as in both frameworks): float32
+    (x − mean)·rsqrt(var + eps)·scale + bias, cast to the compute dtype."""
+
+    def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
+        super().__init__(ch, eps=1e-5)
+        self.dtype = dtype
+
+    def forward(self, x):
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = ((x.to(torch.float32) - self.running_mean[None, :, None, None])
+             * mul[None, :, None, None] + self.bias[None, :, None, None])
+        return y.to(self.dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm with float32 statistics, output in the compute dtype."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.to(torch.float32), self.normalized_shape,
+                            self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class _BNEncoder(nn.Module):
+    """conv3x3 → BN → SiLU blocks (max-pooled where `pool_after`), global
+    average pool, fc. `spec` lists (name, in_ch, out_ch, pool_after)."""
+
+    def __init__(self, spec, feature_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.spec = [(name, pool) for name, _, _, pool in spec]
+        for name, cin, cout, _ in spec:
+            self.add_module(f"conv{name}",
+                            Conv2d(cin, cout, 3, padding=1, dtype=dtype))
+            self.add_module(f"bn{name}", BatchNorm2d(cout, dtype=dtype))
+        self.fc = Linear(spec[-1][2], feature_dim, dtype=dtype)
+
+    def forward(self, x):
+        for name, pool in self.spec:
+            x = F.silu(getattr(self, f"bn{name}")(
+                getattr(self, f"conv{name}")(x)))
+            if pool:
+                x = F.max_pool2d(x, 2)
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+def _mnist_encoder(feature_dim: int, dtype: torch.dtype) -> _BNEncoder:
+    """Light encoder for 1x32x32 (ref ratio_flexible.py:185-232)."""
+    return _BNEncoder([("1", 1, 32, True), ("2", 32, 64, True),
+                       ("3", 64, 128, True), ("4", 128, 128, False)],
+                      feature_dim, dtype)
+
+
+def _svhn_encoder(feature_dim: int, dtype: torch.dtype) -> _BNEncoder:
+    """VGG-ish double-conv encoder 3x32x32 -> 2x2 (ref :235-302)."""
+    spec, cin = [], 3
+    for i, ch in enumerate([64, 128, 256, 256], start=1):
+        spec += [(f"{i}a", cin, ch, False), (f"{i}b", ch, ch, True)]
+        cin = ch
+    return _BNEncoder(spec, feature_dim, dtype)
+
+
+class RatioEstimatorMNISTSVHN(nn.Module):
+    """Scores T(x, y) [B] for x [B,1,32,32] (MNIST) and y [B,3,32,32]
+    (SVHN), NCHW."""
+
+    def __init__(self, feature_dim: int = 256, hidden_dim: int = 512,
+                 loss_type: str = "disc", dtype: torch.dtype = torch.float32,
+                 norm_eps: float = 1e-6):
+        super().__init__()
+        self.loss_type = loss_type
+        self.dtype = dtype
+        self.encoder_mnist = _mnist_encoder(feature_dim, dtype)
+        self.encoder_svhn = _svhn_encoder(feature_dim, dtype)
+        h = hidden_dim
+        # Sequential indices 0/1/4/5/8/9/11 carry the reference's keys.
+        self.score_net = nn.Sequential(
+            Linear(2 * feature_dim, h, dtype), LayerNorm(h, norm_eps, dtype),
+            nn.SiLU(), nn.Dropout(0.1),
+            Linear(h, h, dtype), LayerNorm(h, norm_eps, dtype),
+            nn.SiLU(), nn.Dropout(0.1),
+            Linear(h, h // 2, dtype), LayerNorm(h // 2, norm_eps, dtype),
+            nn.SiLU(), Linear(h // 2, 1, dtype))
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        z = torch.cat([self.encoder_mnist(x), self.encoder_svhn(y)], dim=-1)
+        return self.score_net(z).squeeze(-1)
+
+    def log_ratio(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return log_ratio_from_scores(self(x, y), self.loss_type)

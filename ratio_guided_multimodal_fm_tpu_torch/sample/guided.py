@@ -1,0 +1,359 @@
+"""Ratio-guided bimodal sampling (port of sample/guided.py).
+
+Two phases, as in the JAX package:
+
+* Phase A draws N_mc independent pairs from the two flows and scores them
+  with the ratio net: the MC set (mc_x1, mc_y1, r̂ = exp(log r̂)).
+* Phase B integrates both flows from noise; with mc_feng guidance each step
+  mixes the velocities with the importance-weighted guidance term
+  (Feng et al. Alg. 2): v ← (1−γ)·v + γ·g, gated on t > 1e-3.
+
+The guidance runs through the `ops.guidance.flash_guidance` wrapper at every
+step (the JAX package's Pallas branch): the kernel on the card, its plain
+version on the CPU. The sampler state and the guidance math are float32;
+the velocity nets run in their own compute dtype. Public functions take
+and return NHWC tensors; random draws come from an explicit
+`torch.Generator`, on whose device the sampler runs. `init_noise=` and
+`mc_set=` inject the random inputs (random streams cannot cross
+frameworks, so the parity tests inject both).
+
+Not ported yet (raise): 'grad' and 'mc_feng+grad' guidance, mc_refresh > 1,
+merged-pair evaluation and a sharded MC axis.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ratio_guided_multimodal_fm_tpu_torch.core.device import (
+    device_of,
+    resolve_device,
+)
+from ratio_guided_multimodal_fm_tpu_torch.core.guards import check_finite
+from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import (
+    SOLVERS,
+    TIME_GRIDS,
+    euler_sample,
+    make_time_grid,
+)
+from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
+    EPS_T,   # guidance gate and sigma floor, ref flow_utils.py:224,279
+    flash_guidance,
+)
+
+# exp(log r̂) must stay float32-finite: cap log r̂ at 80 (e^80 ≈ 5.5e34).
+LOG_R_F32_MAX = 80.0
+
+GUIDANCE_METHODS = ("none", "mc_feng")
+
+
+def _flat(x):
+    return x.reshape(x.shape[0], -1)
+
+
+def _row_norm_mean(x):
+    return torch.linalg.vector_norm(_flat(x), dim=1).mean()
+
+
+def safe_exp_log_r(log_r: torch.Tensor) -> torch.Tensor:
+    """exp(log r̂) clamped to stay float32-finite (cap LOG_R_F32_MAX)."""
+    return torch.exp(torch.clamp(log_r, max=LOG_R_F32_MAX))
+
+
+def mc_feng_guidance(x_t, y_t, mc_x1, mc_y1, mc_ratios, t: float):
+    """One step of Feng et al. Alg. 2 guidance in the reference's ratio form
+    (three 1e-10 floors, per-row max stabilisation), float32 matmuls.
+
+    Returns (g_x, g_y, diagnostics) like the JAX function. Kept for API
+    parity and the tests; the sampler uses `flash_guidance`, whose softmax
+    form is the same function.
+    """
+    f32 = torch.float32
+    xt, yt = _flat(x_t).to(f32), _flat(y_t).to(f32)
+    X1, Y1 = _flat(mc_x1).to(f32), _flat(mc_y1).to(f32)
+    r = mc_ratios.to(f32)
+    n = X1.shape[0]
+    t32 = np.float32(t)
+    sigma = np.float32(1.0) - t32 + np.float32(EPS_T)
+
+    xt2 = (xt * xt).sum(1, keepdim=True)
+    yt2 = (yt * yt).sum(1, keepdim=True)
+    X12 = (X1 * X1).sum(1)[None, :]
+    Y12 = (Y1 * Y1).sum(1)[None, :]
+    cross = xt @ X1.T + yt @ Y1.T
+    sq = (xt2 + yt2 - float(np.float32(2.0) * t32) * cross
+          + float(t32 * t32) * (X12 + Y12))
+    log_p = -0.5 * sq / float(sigma * sigma)
+
+    m = log_p.max(dim=1, keepdim=True).values
+    p = torch.exp(log_p - m)
+    p_bar = p.sum(1, keepdim=True) / n + 1e-10
+    Z_bar = (r[None, :] * p).sum(1, keepdim=True) / n + 1e-10
+    w = (r[None, :] / Z_bar) * (p / p_bar)
+    w = w / (w.sum(1, keepdim=True) + 1e-10)
+    check_finite(w, "mc_feng importance weights")
+
+    w_total = w.sum(1, keepdim=True)
+    w_sq = (w * w).sum(1, keepdim=True)
+    g_x = (w @ X1 - w_total * xt) / float(sigma)
+    g_y = (w @ Y1 - w_total * yt) / float(sigma)
+    ess = (w_total * w_total) / (w_sq + 1e-10)
+    diag = {
+        "ess": ess[:, 0],
+        "w_argmax": w.argmax(dim=1),
+        "w_min": w.min(),
+        "w_max": w.max(),
+        "Z_bar_mean": Z_bar.mean(),
+        "g_x_norm": _row_norm_mean(g_x),
+        "g_y_norm": _row_norm_mean(g_y),
+    }
+    return g_x.reshape(x_t.shape), g_y.reshape(y_t.shape), diag
+
+
+@dataclasses.dataclass(frozen=True)
+class GuidedSamplerConfig:
+    """Same fields as the JAX config, minus `use_pallas` (dispatch follows
+    the tensors' device) and `scan_unroll` (no scan in eager PyTorch)."""
+
+    guidance_method: str = "none"     # 'none' | 'mc_feng'
+    guidance_strength: float = 0.0
+    num_steps: int = 100
+    mc_batch_size: int = 64
+    x_shape: Tuple[int, ...] = (28, 28, 1)   # HWC, per sample
+    y_shape: Tuple[int, ...] = (28, 28, 1)
+    # optional |log r̂| clip for the MC ratios (None = reference parity)
+    log_ratio_clip: Optional[float] = None
+    # optional ESS floor: per-trajectory γ_eff = γ·min(1, ESS/ess_floor)
+    ess_floor: Optional[float] = None
+    # grad-method knobs; the grad methods are not ported yet
+    grad_strength: Optional[float] = None
+    grad_scale: str = "const"
+    grad_t_max: float = 1.0
+    solver: str = "euler"             # 'euler' | 'midpoint' | 'heun'
+    time_grid: str = "uniform"        # flow/cfm.py:make_time_grid
+    grid_power: float = 2.0
+    mc_refresh: int = 1               # only 1 (the reference protocol)
+
+
+def _validate(cfg: GuidedSamplerConfig, guided: bool) -> None:
+    if cfg.guidance_method in ("grad", "mc_feng+grad"):
+        raise NotImplementedError(
+            f"guidance_method={cfg.guidance_method!r} is not yet ported to "
+            "PyTorch (use the JAX package)")
+    if cfg.guidance_method not in GUIDANCE_METHODS:
+        raise ValueError(f"guidance_method must be one of "
+                         f"{GUIDANCE_METHODS}, got {cfg.guidance_method!r}")
+    if cfg.mc_refresh != 1:
+        raise NotImplementedError("mc_refresh > 1 is not yet ported to "
+                                  "PyTorch (use the JAX package)")
+    if cfg.solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, "
+                         f"got {cfg.solver!r}")
+    if cfg.time_grid not in TIME_GRIDS:
+        raise ValueError(f"time_grid must be one of {TIME_GRIDS}, "
+                         f"got {cfg.time_grid!r}")
+    if cfg.solver == "heun" and guided:
+        raise ValueError(
+            "solver='heun' is unguided-only: its endpoint eval at t=1.0 "
+            "divides the mc_feng conditional velocity by ε — use "
+            "'midpoint' with guidance")
+
+
+def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
+                      cfg: GuidedSamplerConfig, mc_set) -> Callable:
+    """Build step(x_t, y_t, t, dt) -> (x_t, y_t, diag) for phase B. `t`,
+    `dt` are float32 scalars; `mc_set` is None unless guiding."""
+    if mc_set is not None:
+        mc_x1, mc_y1, mc_ratios = mc_set
+        mc_x1 = mc_x1.to(torch.float32).contiguous()
+        mc_y1 = mc_y1.to(torch.float32).contiguous()
+        # log r̂ hoisted out of the loop (invariant across steps)
+        mc_log_r = torch.log(torch.clamp(mc_ratios.to(torch.float32),
+                                         min=1e-30)).contiguous()
+        check_finite(mc_log_r, "mc_feng log ratios")
+
+    def mixed_velocity(x_t, y_t, t):
+        tb = torch.full((x_t.shape[0],), float(t), dtype=torch.float32,
+                        device=x_t.device)
+        v_x = fm_x_fn(x_t, tb).to(torch.float32)
+        v_y = fm_y_fn(y_t, tb).to(torch.float32)
+        diag = {}
+        if mc_set is not None:
+            g_x, g_y, ess, l = flash_guidance(x_t, y_t, mc_x1, mc_y1,
+                                              mc_log_r, float(t))
+            diag = {
+                "ess": ess,
+                "w_max": (1.0 / (l + 1e-30)).max(),
+                "g_x_norm": _row_norm_mean(g_x),
+                "g_y_norm": _row_norm_mean(g_y),
+                "v_x_norm": _row_norm_mean(v_x),
+                "v_y_norm": _row_norm_mean(v_y),
+            }
+            # guidance gate t > ε (ref :273), compared in float32; a float32
+            # per-trajectory tensor so 1 - gate rounds as in JAX
+            gate = torch.full((x_t.shape[0],) + (1,) * (x_t.dim() - 1),
+                              cfg.guidance_strength
+                              if t > np.float32(EPS_T) else 0.0,
+                              dtype=torch.float32, device=x_t.device)
+            if cfg.ess_floor is not None:
+                gate = gate * torch.clamp(ess / cfg.ess_floor, 0.0,
+                                          1.0).reshape(gate.shape)
+            v_x = (1.0 - gate) * v_x + gate * g_x
+            v_y = (1.0 - gate) * v_y + gate * g_y
+        return v_x, v_y, diag
+
+    def step(x_t, y_t, t, dt):
+        v_x, v_y, diag = mixed_velocity(x_t, y_t, t)
+        if cfg.solver == "midpoint":
+            # re-evaluate the full mixed field at the half step; the
+            # diagnostics stay on the t-grid (first evaluation)
+            half = np.float32(0.5) * dt
+            v_x, v_y, _ = mixed_velocity(x_t + float(half) * v_x,
+                                         y_t + float(half) * v_y, t + half)
+        elif cfg.solver == "heun":   # unguided only (validated)
+            v_x2, v_y2, _ = mixed_velocity(x_t + float(dt) * v_x,
+                                           y_t + float(dt) * v_y, t + dt)
+            v_x = 0.5 * (v_x + v_x2)
+            v_y = 0.5 * (v_y + v_y2)
+        return x_t + v_x * float(dt), y_t + v_y * float(dt), diag
+
+    return step
+
+
+def _stack_diags(diags: list) -> dict:
+    if not diags or not diags[0]:
+        return {}
+    return {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
+
+
+def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
+                          cfg: GuidedSamplerConfig,
+                          log_ratio_apply: Optional[Callable] = None):
+    """Build the guided sampler with the models as call arguments:
+
+        sampler(params, generator, num_samples, mc_set=None,
+                init_noise=None) -> (x1, y1, diags)
+
+    params = (model_x, model_y, ratio_model); fm_*_apply(model, x NHWC,
+    t [B]) -> v NHWC and log_ratio_apply(ratio_model, x, y) -> [B]. The
+    sampler runs on `generator.device`. diags holds per-step stacked
+    tensors ([num_steps] or [num_steps, B]) when guiding, else {}.
+    """
+    guided = cfg.guidance_method != "none" and log_ratio_apply is not None
+    _validate(cfg, guided)
+
+    @torch.no_grad()
+    def sampler(params, generator: torch.Generator, num_samples: int,
+                mc_set=None, init_noise=None):
+        device = device_of(generator)
+        model_x, model_y, ratio_model = params
+
+        def fm_x_fn(x, t):
+            return fm_x_apply(model_x, x, t)
+
+        def fm_y_fn(y, t):
+            return fm_y_apply(model_y, y, t)
+
+        f32 = torch.float32
+        if init_noise is not None:
+            x_t, y_t = (a.to(device=device, dtype=f32) for a in init_noise)
+        else:
+            x_t = torch.randn((num_samples,) + tuple(cfg.x_shape),
+                              generator=generator, dtype=f32, device=device)
+            y_t = torch.randn((num_samples,) + tuple(cfg.y_shape),
+                              generator=generator, dtype=f32, device=device)
+
+        if guided and mc_set is None:
+            # Phase A: N_mc independent pairs and their terminal ratios
+            mc_x1 = euler_sample(fm_x_fn, generator,
+                                 (cfg.mc_batch_size,) + tuple(cfg.x_shape),
+                                 cfg.num_steps, cfg.solver, cfg.time_grid,
+                                 cfg.grid_power)
+            mc_y1 = euler_sample(fm_y_fn, generator,
+                                 (cfg.mc_batch_size,) + tuple(cfg.y_shape),
+                                 cfg.num_steps, cfg.solver, cfg.time_grid,
+                                 cfg.grid_power)
+            log_r = log_ratio_apply(ratio_model, mc_x1, mc_y1).to(f32)
+            if cfg.log_ratio_clip is not None:
+                log_r = torch.clamp(log_r, -cfg.log_ratio_clip,
+                                    cfg.log_ratio_clip)
+            mc_set = (mc_x1, mc_y1, safe_exp_log_r(log_r))
+
+        step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
+                                 mc_set if guided else None)
+        diags = []
+        for t, dt in zip(*make_time_grid(cfg.num_steps, cfg.time_grid,
+                                         cfg.grid_power)):
+            x_t, y_t, diag = step(x_t, y_t, t, dt)
+            diags.append(diag)
+        return x_t, y_t, _stack_diags(diags)
+
+    return sampler
+
+
+def generate_mc_set(fm_x_fn: Callable, fm_y_fn: Callable,
+                    log_ratio_fn: Callable, generator: torch.Generator,
+                    mc_batch_size: int, x_shape, y_shape,
+                    num_steps: int = 100,
+                    log_ratio_clip: Optional[float] = None,
+                    solver: str = "euler", time_grid: str = "uniform",
+                    grid_power: float = 2.0):
+    """Phase A alone: (mc_x1, mc_y1, mc_ratios), so one MC set can serve
+    several guidance strengths (the set is independent of γ)."""
+    mc_x1 = euler_sample(fm_x_fn, generator,
+                         (mc_batch_size,) + tuple(x_shape), num_steps,
+                         solver, time_grid, grid_power)
+    mc_y1 = euler_sample(fm_y_fn, generator,
+                         (mc_batch_size,) + tuple(y_shape), num_steps,
+                         solver, time_grid, grid_power)
+    log_r = log_ratio_fn(mc_x1, mc_y1).to(torch.float32)
+    if log_ratio_clip is not None:
+        log_r = torch.clamp(log_r, -log_ratio_clip, log_ratio_clip)
+    return mc_x1, mc_y1, safe_exp_log_r(log_r)
+
+
+def sample_bimodal_guided(
+    fm_x_fn: Callable,
+    fm_y_fn: Callable,
+    log_ratio_fn: Optional[Callable] = None,
+    guidance_method: str = "none",
+    guidance_strength: float = 0.0,
+    num_samples: int = 16,
+    num_steps: int = 100,
+    mc_batch_size: int = 64,
+    x_shape: Tuple[int, ...] = (28, 28, 1),
+    y_shape: Tuple[int, ...] = (28, 28, 1),
+    generator: Optional[torch.Generator] = None,
+    return_diagnostics: bool = False,
+    mc_set=None,
+    log_ratio_clip: Optional[float] = None,
+    ess_floor: Optional[float] = None,
+    solver: str = "euler",
+    time_grid: str = "uniform",
+    grid_power: float = 2.0,
+    device=None,
+):
+    """The reference's argument surface (flow_utils.py:178-213) with closures
+    fm_*_fn(x NHWC, t [B]) and log_ratio_fn(x, y). Returns (x1, y1) NHWC
+    (plus diagnostics). Runs on `device` (default cuda) with a generator
+    seeded 42 unless `generator` is given."""
+    if generator is None:
+        generator = torch.Generator(resolve_device(device)).manual_seed(42)
+    cfg = GuidedSamplerConfig(
+        guidance_method=guidance_method,
+        guidance_strength=guidance_strength, num_steps=num_steps,
+        mc_batch_size=mc_batch_size, x_shape=tuple(x_shape),
+        y_shape=tuple(y_shape), log_ratio_clip=log_ratio_clip,
+        ess_floor=ess_floor, solver=solver, time_grid=time_grid,
+        grid_power=grid_power)
+    sampler = make_guided_sampler_p(
+        lambda _, x, t: fm_x_fn(x, t), lambda _, y, t: fm_y_fn(y, t), cfg,
+        None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)))
+    x1, y1, diags = sampler((None, None, None), generator, num_samples,
+                            mc_set)
+    if return_diagnostics:
+        return x1, y1, diags
+    return x1, y1
