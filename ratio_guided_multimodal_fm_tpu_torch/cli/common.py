@@ -1,14 +1,27 @@
-"""Shared CLI plumbing (port of the parts of cli/common.py the sampler CLI
-needs): flag groups, NHWC closures over the NCHW models, diagnostics."""
+"""Shared CLI plumbing (port of the parts of cli/common.py the sampler CLIs
+need): flag groups, model factory, checkpoint names and loading, NHWC
+closures over the NCHW models, diagnostics."""
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
+from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNet
+
+CHECKPOINT_DIR = "checkpoints"
+_EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
+                "ratio_guided_multimodal_fm_tpu.cli.export_torch "
+                "--checkpoint {ckpt} --model {model} --out {path}")
+
+
+def not_yet_ported(what: str):
+    raise NotImplementedError(f"{what} is not yet ported to PyTorch (use the "
+                              "JAX package)")
 
 
 def add_common_flags(p: argparse.ArgumentParser):
@@ -37,8 +50,84 @@ def add_solver_flag(p: argparse.ArgumentParser):
                    help="warp exponent for --time_grid late/early")
 
 
+def add_reflow_flag(p: argparse.ArgumentParser):
+    """--reflow: load the reflow-distilled flows (a `_reflow` name part)."""
+    p.add_argument("--reflow", action="store_true",
+                   help="use the reflow-distilled flows "
+                        "(checkpoints/flow_*_reflow_best.pth)")
+
+
+def add_ema_flag(p: argparse.ArgumentParser):
+    """--ema selects the EMA flow weights, --ratio_ema the EMA ratio
+    weights (an `_ema` name part before `best`)."""
+    p.add_argument("--ratio_ema", action="store_true",
+                   help="load EMA ratio-estimator weights "
+                        "(ratio_*_ema_best.pth)")
+    p.add_argument("--ema", action="store_true",
+                   help="load the EMA (Polyak-averaged) flow checkpoints "
+                        "(flow_*_ema_best.pth)")
+
+
+def add_smc_flags(p: argparse.ArgumentParser):
+    """--smc_* knobs of the SMC guidance method, with the JAX CLI's
+    defaults (the method itself is not ported yet)."""
+    p.add_argument("--smc_churn", type=float, default=1.0,
+                   help="Langevin churn coefficient (beta_t = churn*(1-t)^2)")
+    p.add_argument("--smc_churn_iters", type=int, default=1,
+                   help="Langevin iterations per ODE step")
+    p.add_argument("--smc_resample_tau", type=float, default=0.5,
+                   help="systematic-resample when population ESS < tau*B")
+    p.add_argument("--smc_t_min", type=float, default=0.2,
+                   help="no resampling before this t")
+    p.add_argument("--smc_t_max", type=float, default=0.9,
+                   help="no resampling after this t")
+    p.add_argument("--smc_resample_window", type=str, default="t",
+                   choices=["t", "step"],
+                   help="resample-window semantics: raw time or step "
+                        "fraction")
+    p.add_argument("--smc_group", type=int, default=16,
+                   help="stratified (island) selection group size; 0 = one "
+                        "global population")
+
+
+def add_merged_flag(p: argparse.ArgumentParser):
+    p.add_argument("--merged_unet", action="store_true",
+                   help="evaluate the two velocity nets as one merged "
+                        "grouped-conv program (not ported yet)")
+
+
 def dtype_of(args) -> torch.dtype:
     return dtype_from_name(getattr(args, "dtype", "f32"))
+
+
+def fm_model(kind: str, dtype: torch.dtype = torch.float32):
+    """'--model unet|original' factory: 'unet' is the MNIST-28
+    FlowMatchingUNet; the encoder-decoder 'original' is not ported yet."""
+    if kind == "unet":
+        return FlowMatchingUNet(dtype=dtype)
+    not_yet_ported(f"--model {kind}")
+
+
+def checkpoint_path(model_type: str, *parts, base_dir: str = CHECKPOINT_DIR):
+    """Reference-layout .pth name, None parts dropped:
+    ('flow', 'y', 'rotate90', None, 'ema', 'best') ->
+    checkpoints/flow_y_rotate90_ema_best.pth."""
+    name = "_".join([model_type] + [str(a) for a in parts if a is not None])
+    return os.path.join(base_dir, f"{name}.pth")
+
+
+def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
+    """Strict-load a reference-layout .pth (a bare state dict or a
+    {'model_state_dict': ...} training dict) into `model`."""
+    if not os.path.exists(path):
+        raise SystemExit(
+            f"ERROR: checkpoint not found: {path}\n" + _EXPORT_HINT.format(
+                ckpt=path[:-len(".pth")], model=model_kind, path=path))
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    model.load_state_dict(sd, strict=True)
+    return model
 
 
 def velocity_fn(model):

@@ -25,6 +25,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_solver_flag,
     dtype_of,
+    load_state_dict,
     ratio_log_fn,
     report_guidance_diagnostics,
     velocity_fn,
@@ -41,24 +42,6 @@ from ratio_guided_multimodal_fm_tpu_torch.models import (
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
     sample_bimodal_guided,
 )
-
-_EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
-                "ratio_guided_multimodal_fm_tpu.cli.export_torch "
-                "--checkpoint {ckpt} --model {model} --out {path}")
-
-
-def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
-    """Strict-load a reference-layout .pth (a bare state dict or a
-    {'model_state_dict': ...} training dict) into `model`."""
-    if not os.path.exists(path):
-        raise SystemExit(
-            f"ERROR: checkpoint not found: {path}\n" + _EXPORT_HINT.format(
-                ckpt=path[:-len(".pth")], model=model_kind, path=path))
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_state_dict" in sd:
-        sd = sd["model_state_dict"]
-    model.load_state_dict(sd, strict=True)
-    return model
 
 
 def load_mnist_svhn_models(loss_type: str, need_ratio: bool,

@@ -57,6 +57,14 @@ def _pair_grid(samples_x, samples_y, save_path, title,
     print(f"Saved visualization: {save_path}")
 
 
+def visualize_pairs(samples_x, samples_y, save_path,
+                    transform_type="rotate90", num_cols=8, num_rows=8):
+    """MNIST-transform pair grid (experiment 1), NHWC samples in [-1, 1]."""
+    _pair_grid(samples_x, samples_y, save_path,
+               f"Generated Pairs (x, y) — Transform: {transform_type}",
+               num_cols, num_rows)
+
+
 def visualize_pairs_mnist_svhn(samples_x, samples_y, save_path,
                                num_cols=8, num_rows=4, title=None):
     """Cross-modal pair grid for NHWC samples in [-1, 1]."""

@@ -83,6 +83,23 @@ def unet_state_dict(variables: Mapping[str, Any], channel_mult=(1, 2),
     return out
 
 
+def ratio_gn_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """FlexibleRatioEstimator params -> port state dict (experiment 1)."""
+    p = variables["params"]
+    out: StateDict = {}
+    for enc in ("encoder_x", "encoder_y"):
+        for i in range(1, 5):
+            _conv(out, f"{enc}.conv{i}", p[enc][f"conv{i}"])
+            _norm(out, f"{enc}.gn{i}", p[enc][f"gn{i}"])
+        _dense(out, f"{enc}.fc", p[enc]["fc"])
+    s = p["score_net"]
+    for idx, name in ((0, "fc1"), (4, "fc2"), (8, "fc3")):
+        _dense(out, f"score_net.{idx}", s[name])
+    for idx, name in ((1, "ln1"), (5, "ln2")):
+        _norm(out, f"score_net.{idx}", s[name])
+    return out
+
+
 def _bn_encoder(out: StateDict, prefix: str, p: Mapping[str, Any],
                 stats: Mapping[str, Any], convs) -> None:
     for c in convs:
@@ -110,13 +127,14 @@ def ratio_mnist_svhn_state_dict(variables: Mapping[str, Any]) -> StateDict:
 BRIDGES = {
     "unet_mnist": lambda v: unet_state_dict(v, channel_mult=(1, 2)),
     "unet_svhn": lambda v: unet_state_dict(v, channel_mult=(1, 2, 2)),
+    "ratio_mnist": ratio_gn_state_dict,
     "ratio_mnist_svhn": ratio_mnist_svhn_state_dict,
 }
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], model: str) -> StateDict:
     """Convert flax variables of `model` ('unet_mnist' | 'unet_svhn' |
-    'ratio_mnist_svhn') into the port's state dict."""
+    'ratio_mnist' | 'ratio_mnist_svhn') into the port's state dict."""
     if model not in BRIDGES:
         raise ValueError(f"unknown model kind {model!r}; one of "
                          f"{sorted(BRIDGES)}")

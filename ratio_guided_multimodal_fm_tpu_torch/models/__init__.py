@@ -1,4 +1,7 @@
 from ratio_guided_multimodal_fm_tpu_torch.models.ratio import (
+    FlexibleRatioEstimator,
+    RatioEstimator,
+    RatioEstimatorMNIST,
     RatioEstimatorMNISTSVHN,
     log_ratio_from_scores,
 )
@@ -11,7 +14,8 @@ from ratio_guided_multimodal_fm_tpu_torch.models.unet import (
 )
 
 __all__ = [
-    "FlexibleUNet", "FlowMatchingUNet", "FlowMatchingUNet64",
-    "FlowMatchingUNetMNIST", "FlowMatchingUNetSVHN",
-    "RatioEstimatorMNISTSVHN", "log_ratio_from_scores",
+    "FlexibleRatioEstimator", "FlexibleUNet", "FlowMatchingUNet",
+    "FlowMatchingUNet64", "FlowMatchingUNetMNIST", "FlowMatchingUNetSVHN",
+    "RatioEstimator", "RatioEstimatorMNIST", "RatioEstimatorMNISTSVHN",
+    "log_ratio_from_scores",
 ]

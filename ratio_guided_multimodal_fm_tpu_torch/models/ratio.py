@@ -1,10 +1,16 @@
-"""Density-ratio estimator r̂(x,y) for MNIST↔SVHN (port of models/ratio.py).
+"""Density-ratio estimators r̂(x,y) (port of models/ratio.py), NCHW.
 
-`RatioEstimatorMNISTSVHN`: asymmetric BatchNorm conv encoders and a deep
-score MLP, 3,327,617 params, reference torch state-dict keys (the JAX
-exporter's `export_ratio_mnist_svhn`, including BatchNorm running stats and
-`num_batches_tracked`). Evaluation only: BatchNorm always normalises with
-its running statistics (training is a later slice of the port).
+* `FlexibleRatioEstimator` (experiment 1, `RatioEstimatorMNIST` /
+  `RatioEstimator`): twin GroupNorm conv encoders and a score MLP, 943,745
+  params for 1x28x28 pairs; keys of the JAX exporter's `export_ratio_gn`.
+  Each encoder stage is conv3x3 → GroupNorm(8)+SiLU (the
+  `ops.groupnorm.group_norm_silu` kernel on the card) → 2x2 max-pool,
+  which floors 7 → 3 like flax's VALID `max_pool`.
+* `RatioEstimatorMNISTSVHN` (experiment 2): asymmetric BatchNorm conv
+  encoders and a deep score MLP, 3,327,617 params, keys of
+  `export_ratio_mnist_svhn` (including BatchNorm running stats and
+  `num_batches_tracked`). Evaluation only: BatchNorm always normalises
+  with its running statistics (training is a later slice of the port).
 
 Score is terminal-time only (t=1). `log_ratio` follows the training loss:
   disc:   log r̂ = T
@@ -16,7 +22,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ratio_guided_multimodal_fm_tpu_torch.models.layers import Conv2d, Linear
+from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
+    Conv2d,
+    GroupNormSiLU,
+    Linear,
+)
 
 
 def log_ratio_from_scores(scores: torch.Tensor, loss_type: str) -> torch.Tensor:
@@ -55,6 +65,74 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.to(torch.float32), self.normalized_shape,
                             self.weight, self.bias, self.eps).to(self.dtype)
+
+
+class _GNEncoder(nn.Module):
+    """conv3x3 → GroupNorm(8)+SiLU, max-pooled after the first three
+    stages, global average pool, fc (JAX _GNEncoder)."""
+
+    def __init__(self, in_ch: int, feature_dim: int, dtype: torch.dtype,
+                 norm_eps: float):
+        super().__init__()
+        for i, (cin, cout) in enumerate(
+                [(in_ch, 32), (32, 64), (64, 128), (128, 128)], start=1):
+            self.add_module(f"conv{i}",
+                            Conv2d(cin, cout, 3, padding=1, dtype=dtype))
+            self.add_module(f"gn{i}", GroupNormSiLU(cout, norm_eps, dtype))
+        self.fc = Linear(128, feature_dim, dtype=dtype)
+
+    def forward(self, x):
+        for i in range(1, 5):
+            x = getattr(self, f"gn{i}")(getattr(self, f"conv{i}")(x))
+            if i < 4:
+                x = F.max_pool2d(x, 2)
+        return self.fc(x.mean(dim=(2, 3)))
+
+
+def _score_mlp(feature_dim: int, h: int, dtype: torch.dtype, norm_eps: float):
+    """[2F → H → H/2 → 1] with LayerNorm+SiLU+Dropout (JAX _ScoreMLP);
+    Sequential indices 0/1/4/5/8 carry the reference's keys."""
+    return nn.Sequential(
+        Linear(2 * feature_dim, h, dtype), LayerNorm(h, norm_eps, dtype),
+        nn.SiLU(), nn.Dropout(0.1),
+        Linear(h, h // 2, dtype), LayerNorm(h // 2, norm_eps, dtype),
+        nn.SiLU(), nn.Dropout(0.1),
+        Linear(h // 2, 1, dtype))
+
+
+class FlexibleRatioEstimator(nn.Module):
+    """Scores T(x, y) [B] for x [B,x_channels,H,W] and y [B,y_channels,H,W],
+    NCHW, from two GroupNorm encoders and a score MLP."""
+
+    def __init__(self, x_channels: int = 1, y_channels: int = 1,
+                 feature_dim: int = 256, hidden_dim: int = 512,
+                 loss_type: str = "disc", dtype: torch.dtype = torch.float32,
+                 norm_eps: float = 1e-6):
+        super().__init__()
+        self.loss_type = loss_type
+        self.dtype = dtype
+        self.encoder_x = _GNEncoder(x_channels, feature_dim, dtype, norm_eps)
+        self.encoder_y = _GNEncoder(y_channels, feature_dim, dtype, norm_eps)
+        self.score_net = _score_mlp(feature_dim, hidden_dim, dtype, norm_eps)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        z = torch.cat([self.encoder_x(x.to(self.dtype)),
+                       self.encoder_y(y.to(self.dtype))], dim=-1)
+        return self.score_net(z).squeeze(-1)
+
+    def log_ratio(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        return log_ratio_from_scores(self(x, y), self.loss_type)
+
+
+def RatioEstimatorMNIST(loss_type: str = "disc",
+                        **kw) -> FlexibleRatioEstimator:
+    """MNIST-transform ratio net, 1x28x28 both streams (943,745 params)."""
+    return FlexibleRatioEstimator(x_channels=1, y_channels=1, feature_dim=256,
+                                  hidden_dim=512, loss_type=loss_type, **kw)
+
+
+# Alias of the reference's experiment-1 class name.
+RatioEstimator = RatioEstimatorMNIST
 
 
 class _BNEncoder(nn.Module):

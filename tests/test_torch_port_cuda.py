@@ -6,7 +6,9 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: flash_guidance rtol 1e-3 / atol 1e-4 (the Pallas kernel's own
-bound); group_norm_silu 1e-4 in float32 and 0.05 in bfloat16.
+bound); group_norm_silu 1e-4 in float32 and 0.05 in bfloat16;
+fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
+against the float32 plain version (tests/test_resblock_pallas.py).
 """
 import pytest
 import torch
@@ -18,6 +20,10 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
 from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
     flash_guidance,
     flash_guidance_reference,
+)
+from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
+    fused_gn_silu_conv,
+    fused_gn_silu_conv_reference,
 )
 
 pytestmark = pytest.mark.cuda
@@ -79,6 +85,39 @@ def test_group_norm_silu_kernel(card, dtype, tol, B, C, H, channels_last):
     assert got.dtype == dtype and got.stride() == x.stride()
     want = group_norm_silu_reference(x, w, b, 8)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,H,W,C,O", [(512, 32, 32, 64, 64),
+                                       (256, 14, 14, 96, 32),
+                                       (5, 7, 9, 40, 70), (3, 8, 4, 8, 24)])
+def test_fused_gn_silu_conv_kernel(card, B, H, W, C, O):
+    """Kernel C against its plain version: float32 to 2e-4, bfloat16 to
+    rtol 0.1 / atol 0.15 against the float32 plain version (the bounds of
+    tests/test_resblock_pallas.py). The shapes cover a group spanning two
+    K tiles (C=40), O > 64 and not a multiple of 16, odd B and H != W."""
+    groups = 8 if C % 8 == 0 else 4
+    g = torch.Generator(card).manual_seed(C + O)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=g, device=card) * scale
+
+    x = rnd(B, H, W, C)
+    params = (1.0 + rnd(C, scale=0.1), rnd(C, scale=0.1),
+              rnd(3, 3, C, O, scale=0.2), rnd(O, scale=0.1))
+    before = fused_gn_silu_conv.launches
+    got = fused_gn_silu_conv(x, *params, groups)
+    torch.cuda.synchronize()
+    assert fused_gn_silu_conv.launches == before + 1
+    torch.testing.assert_close(
+        got, fused_gn_silu_conv_reference(x, *params, groups),
+        rtol=2e-4, atol=2e-4)
+    xb = x.to(torch.bfloat16)
+    got = fused_gn_silu_conv(xb, *params, groups)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, W, O)
+    torch.testing.assert_close(
+        got.float(), fused_gn_silu_conv_reference(xb.float(), *params, groups),
+        rtol=0.1, atol=0.15)
 
 
 @pytest.mark.parametrize("solver", ["euler", "midpoint"])

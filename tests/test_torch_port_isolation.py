@@ -48,7 +48,7 @@ def test_importing_the_port_loads_no_jax():
         "'ratio_guided_multimodal_fm_tpu') or m.startswith(('jax.', "
         "'ratio_guided_multimodal_fm_tpu.'))]\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 15 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 19 else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
@@ -69,7 +69,11 @@ def test_no_source_imports_jax():
 
 
 def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
-    from ratio_guided_multimodal_fm_tpu_torch.cli import sample_mnist_svhn
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        resblock_kernel_bench,
+        sample,
+        sample_mnist_svhn,
+    )
     from ratio_guided_multimodal_fm_tpu_torch.core.device import (
         resolve_device,
     )
@@ -82,6 +86,8 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     for call in (lambda: resolve_device(),
                  lambda: sample_mnist_svhn.main(["--num_steps", "1"]),
+                 lambda: sample.main(["--num_steps", "1"]),
+                 lambda: resblock_kernel_bench.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y)):
         with pytest.raises(RuntimeError, match="no CUDA device"):
