@@ -68,44 +68,16 @@ def add_ema_flag(p: argparse.ArgumentParser):
                         "(flow_*_ema_best.pth)")
 
 
-def add_smc_flags(p: argparse.ArgumentParser):
-    """--smc_* knobs of the SMC guidance method, with the JAX CLI's
-    defaults (the method itself is not ported yet)."""
-    p.add_argument("--smc_churn", type=float, default=1.0,
-                   help="Langevin churn coefficient (beta_t = churn*(1-t)^2)")
-    p.add_argument("--smc_churn_iters", type=int, default=1,
-                   help="Langevin iterations per ODE step")
-    p.add_argument("--smc_resample_tau", type=float, default=0.5,
-                   help="systematic-resample when population ESS < tau*B")
-    p.add_argument("--smc_t_min", type=float, default=0.2,
-                   help="no resampling before this t")
-    p.add_argument("--smc_t_max", type=float, default=0.9,
-                   help="no resampling after this t")
-    p.add_argument("--smc_resample_window", type=str, default="t",
-                   choices=["t", "step"],
-                   help="resample-window semantics: raw time or step "
-                        "fraction")
-    p.add_argument("--smc_group", type=int, default=16,
-                   help="stratified (island) selection group size; 0 = one "
-                        "global population")
-
-
-def add_merged_flag(p: argparse.ArgumentParser):
-    p.add_argument("--merged_unet", action="store_true",
-                   help="evaluate the two velocity nets as one merged "
-                        "grouped-conv program (not ported yet)")
-
-
 def dtype_of(args) -> torch.dtype:
     return dtype_from_name(getattr(args, "dtype", "f32"))
 
 
 def fm_model(kind: str, dtype: torch.dtype = torch.float32):
-    """'--model unet|original' factory: 'unet' is the MNIST-28
-    FlowMatchingUNet; the encoder-decoder 'original' is not ported yet."""
-    if kind == "unet":
-        return FlowMatchingUNet(dtype=dtype)
-    not_yet_ported(f"--model {kind}")
+    """'--model' factory: 'unet' is the MNIST-28 FlowMatchingUNet (the
+    encoder-decoder 'original' is not ported yet)."""
+    if kind != "unet":
+        not_yet_ported(f"--model {kind}")
+    return FlowMatchingUNet(dtype=dtype)
 
 
 def checkpoint_path(model_type: str, *parts, base_dir: str = CHECKPOINT_DIR):

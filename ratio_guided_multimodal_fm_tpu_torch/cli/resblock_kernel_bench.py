@@ -14,7 +14,9 @@ around ITERS back-to-back calls after WARMUP calls:
 
 beside the bound max(FLOPs / dense bf16 tensor peak, bytes / memory rate),
 FLOPs = 2·B·H·W·9·C·O and bytes = one read of x and one write of out, and
-the kernel's max |err| against the plain version. It writes the rows as
+the kernel's max |err| against the plain version. It raises where the
+kernel and the plain version differ by more than about two bfloat16 steps
+(ops/resblock.py:TOL_BF16). It writes the rows as
 JSON with the card's name and power limit; it decides nothing for the
 U-Net (no model calls kernel C).
 
@@ -29,16 +31,20 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
-import time
 
 import torch
 import torch.nn.functional as F
 
+from ratio_guided_multimodal_fm_tpu_torch.core.card import (
+    card_info,
+    peaks_for,
+    time_ms,
+)
 from ratio_guided_multimodal_fm_tpu_torch.core.device import resolve_device
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import group_norm_silu
 from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
     EPS,
+    TOL_BF16,
     fused_gn_silu_conv,
     fused_gn_silu_conv_reference,
 )
@@ -46,50 +52,6 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
 BATCH, GROUPS = 512, 8
 SHAPES = ((32, 32, 64, 64), (16, 16, 128, 128), (32, 32, 32, 64))  # H W C O
 ITERS, WARMUP = 20, 3    # per variant and shape: launches = 1 + WARMUP + ITERS
-# Published dense peaks at the full power limit (NVIDIA data sheets):
-# (bf16 tensor-core FLOP/s, memory bytes/s) by the name the card reports,
-# most specific names first.
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
-         "H100": (989e12, 3.35e12), "H200": (989e12, 4.8e12)}
-
-
-def peaks_for(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100", PEAKS["H100"]
-
-
-def card_info() -> str:
-    """`name, power.limit` of the first card as nvidia-smi reports them."""
-    try:
-        out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=60).stdout.strip().splitlines()
-    except (OSError, subprocess.SubprocessError) as e:
-        return f"nvidia-smi not available ({e})"
-    return out[0] if out else "nvidia-smi printed nothing"
-
-
-def time_ms(fn, device: torch.device) -> float:
-    """Mean time of fn() in ms over ITERS back-to-back calls after WARMUP
-    calls: CUDA events on the card, the host clock on the CPU."""
-    for _ in range(WARMUP):
-        fn()
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(ITERS):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / ITERS
-    t0 = time.perf_counter()
-    for _ in range(ITERS):
-        fn()
-    return (time.perf_counter() - t0) * 1e3 / ITERS
 
 
 def bench_shape(B, H, W, C, O, device, peaks):
@@ -120,9 +82,13 @@ def bench_shape(B, H, W, C, O, device, peaks):
     want = variants["plain"]().float()
     errs = {"kernel": variants["kernel"]().float(),
             "port": variants["port"]().permute(0, 2, 3, 1).float()}
+    torch.testing.assert_close(
+        errs["kernel"], want, **TOL_BF16,
+        msg=lambda m: f"fused_gn_silu_conv disagrees with its plain version "
+                      f"at {B}x{H}x{W}x{C}->{O} bf16\n{m}")
     flops = 2.0 * B * H * W * 9 * C * O
     nbytes = float(B * H * W * (C + O) * x.element_size())
-    peak_flops, peak_bw = peaks
+    _, peak_bw, peak_flops = peaks
     row = dict(shape=f"{B}x{H}x{W}x{C}->{O}", groups=GROUPS, dtype="bf16",
                flops=flops, bytes=nbytes,
                bound_ms=max(flops / peak_flops, nbytes / peak_bw) * 1e3,
@@ -131,7 +97,7 @@ def bench_shape(B, H, W, C, O, device, peaks):
     for name, got in errs.items():
         row[f"{name}_max_abs_err_vs_plain"] = float((got - want).abs().max())
     for name, fn in variants.items():
-        row[f"{name}_ms"] = time_ms(fn, device)
+        row[f"{name}_ms"] = time_ms(fn, device, ITERS, WARMUP)
     return row
 
 
@@ -158,7 +124,7 @@ def main(argv=None):
             print(json.dumps(row), flush=True)
             rows.append(row)
     out = dict(device=name, nvidia_smi=smi, peaks_of=peak_key,
-               peak_bf16_flops=peaks[0], peak_bytes_per_s=peaks[1],
+               peak_bf16_flops=peaks[2], peak_bytes_per_s=peaks[1],
                protocol=f"{timer}; warmup {WARMUP}, iters {ITERS}",
                rows=rows)
     d = os.path.dirname(args.out)

@@ -26,15 +26,12 @@ import torch
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_ema_flag,
-    add_merged_flag,
     add_reflow_flag,
-    add_smc_flags,
     add_solver_flag,
     checkpoint_path,
     dtype_of,
     fm_model,
     load_state_dict,
-    not_yet_ported,
     ratio_log_fn,
     report_guidance_diagnostics,
     velocity_fn,
@@ -78,9 +75,9 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Sample bimodal pairs")
     parser.add_argument("--transform_type", type=str, default="rotate90")
     parser.add_argument("--guidance_method", type=str, default="none",
-                        choices=["none", "mc_feng", "grad", "smc"],
+                        choices=["none", "mc_feng", "grad"],
                         help="none=independent, mc_feng=Feng MC guidance "
-                             "(grad and smc are not ported yet)")
+                             "(grad is not ported yet: the sampler raises)")
     parser.add_argument("--guidance_strength", type=float, default=0.5)
     parser.add_argument("--mc_batch_size", type=int, default=128)
     parser.add_argument("--loss_type", type=str, default="disc")
@@ -89,27 +86,22 @@ def main(argv=None):
     add_solver_flag(parser)
     add_reflow_flag(parser)
     add_ema_flag(parser)
-    add_smc_flags(parser)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
     parser.add_argument("--mc_refresh", type=int, default=1,
                         help="fresh MC sets per trajectory (only 1, the "
-                             "reference protocol, is ported)")
+                             "reference protocol, is ported: the sampler "
+                             "raises for more)")
     parser.add_argument("--ess_floor", type=float, default=None,
                         help="Adaptive guidance: per-trajectory gamma_eff = "
                              "gamma*min(1, ESS/ess_floor)")
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet", "original"])
-    add_merged_flag(parser)
+                        choices=["unet"],
+                        help="the MNIST-28 U-Net (the encoder-decoder "
+                             "'original' is not ported yet)")
     add_common_flags(parser)
     args = parser.parse_args(argv)
 
-    if args.guidance_method in ("grad", "smc"):
-        not_yet_ported(f"--guidance_method {args.guidance_method}")
-    if args.mc_refresh != 1:
-        not_yet_ported("--mc_refresh > 1")
-    if args.merged_unet:
-        not_yet_ported("--merged_unet")
     device = resolve_device(args.device)   # also pins float32 (no TF32)
     generator = torch.Generator(device).manual_seed(args.seed)
     print(f"Random seed: {args.seed}")
@@ -132,7 +124,7 @@ def main(argv=None):
         generator=generator, log_ratio_clip=args.ratio_clip,
         ess_floor=args.ess_floor, solver=args.solver,
         time_grid=args.time_grid, grid_power=args.grid_power,
-        return_diagnostics=True)
+        mc_refresh=args.mc_refresh, return_diagnostics=True)
 
     os.makedirs("outputs", exist_ok=True)
     tag = (f"{args.guidance_method}"

@@ -335,6 +335,7 @@ def sample_bimodal_guided(
     time_grid: str = "uniform",
     grid_power: float = 2.0,
     device=None,
+    mc_refresh: int = 1,
 ):
     """The reference's argument surface (flow_utils.py:178-213) with closures
     fm_*_fn(x NHWC, t [B]) and log_ratio_fn(x, y). Returns (x1, y1) NHWC
@@ -348,7 +349,7 @@ def sample_bimodal_guided(
         mc_batch_size=mc_batch_size, x_shape=tuple(x_shape),
         y_shape=tuple(y_shape), log_ratio_clip=log_ratio_clip,
         ess_floor=ess_floor, solver=solver, time_grid=time_grid,
-        grid_power=grid_power)
+        grid_power=grid_power, mc_refresh=mc_refresh)
     sampler = make_guided_sampler_p(
         lambda _, x, t: fm_x_fn(x, t), lambda _, y, t: fm_y_fn(y, t), cfg,
         None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)))

@@ -8,7 +8,9 @@ machine that has only the port's dependencies:
 Tolerances: flash_guidance rtol 1e-3 / atol 1e-4 (the Pallas kernel's own
 bound); group_norm_silu 1e-4 in float32 and 0.05 in bfloat16;
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
-against the float32 plain version (tests/test_resblock_pallas.py).
+against the float32 plain version (tests/test_resblock_pallas.py), and
+rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
+the same points.
 """
 import pytest
 import torch
@@ -22,6 +24,7 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
     flash_guidance_reference,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
+    TOL_BF16,
     fused_gn_silu_conv,
     fused_gn_silu_conv_reference,
 )
@@ -93,8 +96,9 @@ def test_group_norm_silu_kernel(card, dtype, tol, B, C, H, channels_last):
 def test_fused_gn_silu_conv_kernel(card, B, H, W, C, O):
     """Kernel C against its plain version: float32 to 2e-4, bfloat16 to
     rtol 0.1 / atol 0.15 against the float32 plain version (the bounds of
-    tests/test_resblock_pallas.py). The shapes cover a group spanning two
-    K tiles (C=40), O > 64 and not a multiple of 16, odd B and H != W."""
+    tests/test_resblock_pallas.py) and to TOL_BF16 against the bfloat16
+    one. The shapes cover a group spanning two K tiles (C=40), O > 64 and
+    not a multiple of 16, odd B and H != W."""
     groups = 8 if C % 8 == 0 else 4
     g = torch.Generator(card).manual_seed(C + O)
 
@@ -118,6 +122,9 @@ def test_fused_gn_silu_conv_kernel(card, B, H, W, C, O):
     torch.testing.assert_close(
         got.float(), fused_gn_silu_conv_reference(xb.float(), *params, groups),
         rtol=0.1, atol=0.15)
+    torch.testing.assert_close(
+        got.float(), fused_gn_silu_conv_reference(xb, *params, groups).float(),
+        **TOL_BF16)
 
 
 @pytest.mark.parametrize("solver", ["euler", "midpoint"])
