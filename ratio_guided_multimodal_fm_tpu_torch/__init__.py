@@ -13,8 +13,8 @@ Conventions:
 * Entry points run on `cuda` unless the caller asks for `cpu`
   (`core/device.py`); they never fall back to the CPU silently.
 * Every Pallas kernel of the JAX package on the ported path has a
-  hand-written Hopper counterpart in `ops/` (CUDA C++ sources in `csrc/`,
-  Triton kernels inline), each beside its plain PyTorch version. A kernel
+  hand-written Hopper counterpart in `ops/` (CUDA C++ sources in `csrc/`),
+  each beside its plain PyTorch version. A kernel
   wrapper runs the plain version only for CPU tensors.
 """
 

@@ -5,9 +5,10 @@ scripts/resblock_kernel_bench.py).
 At the U-Net's hot shapes (B=512, bf16, groups=8) it times, by CUDA events
 around ITERS back-to-back calls after WARMUP calls:
 
-* `kernel`  — fused_gn_silu_conv (statistics pass + implicit-GEMM conv);
-* `port`    — what the port's ResBlock runs today: the Triton
-  group_norm_silu, then cuDNN F.conv2d with its bias;
+* `kernel`  — fused_gn_silu_conv (statistics, weight layout, halo-tile
+  convolution);
+* `port`    — what the port's ResBlock runs today: group_norm_silu
+  (kernel B), then cuDNN F.conv2d with its bias;
 * `library` — F.conv2d(F.silu(F.group_norm(...))), PyTorch alone;
 * `plain`   — fused_gn_silu_conv_reference (float32 conv of the rounded
   operands);

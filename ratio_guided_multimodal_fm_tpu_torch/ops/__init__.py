@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
 * `guidance.flash_guidance`        — CUDA C++ (csrc/flash_guidance.cu)
-* `groupnorm.group_norm_silu`      — Triton
+* `groupnorm.group_norm_silu`      — CUDA C++ (csrc/group_norm_silu.cu)
 * `resblock.fused_gn_silu_conv`    — CUDA C++ (csrc/fused_gn_silu_conv.cu)
 
 Each wrapper counts its kernel launches in `<wrapper>.launches`.

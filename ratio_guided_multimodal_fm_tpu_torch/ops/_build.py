@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` exposes a plain C interface (no PyTorch headers), so
 one `nvcc` run takes seconds. Sources are compiled on first use into
 `build/kernels/` at the repository root (listed in .gitignore), one shared
-library per source, named by a hash of the source and the flags so an edit
-rebuilds. `build_all()` starts one nvcc process per source, all at once.
+library per source, named by a hash of the source, of every header
+`csrc/*.cuh` and of the flags, so an edit of any of them rebuilds.
+`build_all()` starts one nvcc process per source, all at once.
 """
 from __future__ import annotations
 
@@ -38,6 +39,9 @@ def _nvcc() -> str:
 
 def _lib_path(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(src.parent.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 

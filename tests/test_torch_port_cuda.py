@@ -1,12 +1,14 @@
 """The PyTorch port's hand-written kernels against their plain PyTorch
-versions, on the card. Every test here needs a CUDA device (plus nvcc and
-triton) and skips without one. This file imports no JAX, so it runs on a
+versions, on the card. Every test here needs a CUDA device (and nvcc) and
+skips without one. This file imports no JAX, so it runs on a
 machine that has only the port's dependencies:
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: flash_guidance rtol 1e-3 / atol 1e-4 (the Pallas kernel's own
-bound); group_norm_silu 1e-4 in float32 and 0.05 in bfloat16;
+bound); group_norm_silu 1e-4 in float32 and one bfloat16 step in bfloat16
+(rtol 2**-7, atol 1e-3: kernel and plain version take the same statistics
+and round at the same points, see ops/groupnorm.py);
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
 against the float32 plain version (tests/test_resblock_pallas.py), and
 rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
@@ -15,6 +17,9 @@ the same points.
 import pytest
 import torch
 
+from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
+    TOL_BF16 as TOL_GN_BF16,
+)
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     group_norm_silu,
     group_norm_silu_reference,
@@ -35,7 +40,7 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (and nvcc/triton) to run the kernels")
+        pytest.skip("needs a CUDA card (and nvcc) to run the kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -69,11 +74,13 @@ def test_flash_guidance_kernel(card, B, N, H, t):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
-                                       (torch.bfloat16, 0.05)])
-@pytest.mark.parametrize("B,C,H,channels_last", [(7, 96, 16, True),
-                                                 (512, 64, 32, True),
-                                                 (3, 32, 8, False)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, dict(rtol=1e-4,
+                                                              atol=1e-4)),
+                                       (torch.bfloat16, TOL_GN_BF16)])
+@pytest.mark.parametrize("B,C,H,channels_last", [
+    (7, 96, 16, True), (512, 64, 32, True), (3, 32, 8, False),
+    (512, 128, 32, True), (64, 192, 32, False), (512, 128, 8, True),
+    (256, 128, 3, False), (5, 40, 7, True)])
 def test_group_norm_silu_kernel(card, dtype, tol, B, C, H, channels_last):
     g = torch.Generator(card).manual_seed(C)
     x = torch.randn(B, C, H, H, generator=g, device=card).to(dtype)
@@ -87,18 +94,23 @@ def test_group_norm_silu_kernel(card, dtype, tol, B, C, H, channels_last):
     assert group_norm_silu.launches == before + 1
     assert got.dtype == dtype and got.stride() == x.stride()
     want = group_norm_silu_reference(x, w, b, 8)
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
 @pytest.mark.parametrize("B,H,W,C,O", [(512, 32, 32, 64, 64),
                                        (256, 14, 14, 96, 32),
-                                       (5, 7, 9, 40, 70), (3, 8, 4, 8, 24)])
+                                       (5, 7, 9, 40, 70), (3, 8, 4, 8, 24),
+                                       (512, 16, 16, 128, 128),
+                                       (2, 4, 200, 16, 24),
+                                       (4, 6, 5, 12, 20)])
 def test_fused_gn_silu_conv_kernel(card, B, H, W, C, O):
     """Kernel C against its plain version: float32 to 2e-4, bfloat16 to
     rtol 0.1 / atol 0.15 against the float32 plain version (the bounds of
     tests/test_resblock_pallas.py) and to TOL_BF16 against the bfloat16
     one. The shapes cover a group spanning two K tiles (C=40), O > 64 and
-    not a multiple of 16, odd B and H != W."""
+    not a multiple of 16, odd B, H != W, W > 128 (column tiles), and
+    C = 12, whose bf16 pixel rows are not 16-byte multiples (no bulk copy:
+    the CTA stages its rows with plain loads)."""
     groups = 8 if C % 8 == 0 else 4
     g = torch.Generator(card).manual_seed(C + O)
 
