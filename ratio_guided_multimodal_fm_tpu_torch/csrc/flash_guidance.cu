@@ -1,333 +1,782 @@
-// mc_feng guidance (Feng et al. Alg. 2) for Hopper, IEEE float32 throughout.
+// mc_feng guidance (Feng et al. Alg. 2) for Hopper (sm_90a), IEEE float32
+// FMA throughout (no tensor cores: there is no float32 mma, and a split
+// product would change the rounding of scores that are ~2000 in magnitude at
+// D = 4096).
 //
 // Replaces: ratio_guided_multimodal_fm_tpu/ops/guidance_pallas.py:flash_guidance
 // (body `_kernel`), which walks the MC axis N as a sequential grid with a
-// [TB, Dx+Dy] float32 accumulator in VMEM. At the main-path width
-// (Dx+Dy = 1024+3072 floats a row) that accumulator does not fit a CTA, and
-// CTAs cannot carry a sum from one grid step to the next, so the function is
-// computed here in three kernels instead of one online softmax:
+// [TB, Dx+Dy] float32 accumulator in VMEM and an online softmax. A CTA can
+// neither hold that accumulator nor carry a sum from one grid step to the
+// next, so the function is two kernels here:
 //
-//   1. scores_partial: a tiled GEMM of A = [x_t | y_t] (B rows) against
-//      V = [X1 | Y1] (N rows) over the concatenated feature axis, split over
-//      K so that the B=512, N=256 product fills the card. Each split writes
-//      its partial cross products and the partial squared row norms of V
-//      (computed from the tiles already in shared memory).
-//   2. row_softmax: one CTA per trajectory b sums the K-splits, forms
-//        s[n] = log r[n] - (t^2 |v_n|^2 - 2t cross[n]) / (2 sigma^2),
-//      sigma = 1 - t + 1e-3, then m = max s, l = sum e^{s-m},
-//      q = sum e^{2(s-m)}, ESS = l^2/(q+1e-30) and W = e^{s-m}/(l+1e-30).
-//      The row constant |a|^2 of |a - t v_n|^2 cancels in the softmax and is
-//      left out: at D = 4096 it is ~4096, and its float32 rounding alone
-//      would move s by ~1e-4. Materialising W [B, N] costs 512 KB.
-//   3. weighted_sum: a tiled GEMM G = (W V - [x_t | y_t]) / sigma, written
-//      back split into g_x and g_y.
+//   1. scores_kernel:  S[b, n] = log r[n] - (t^2 |v_n|^2 - 2t <a_b, v_n>) / (2 sigma^2)
+//      with a_b = [x_t | y_t][b], v_n = [X1 | Y1][n], sigma = 1 - t + 1e-3.
+//      The row constant |a_b|^2 of |a_b - t v_n|^2 cancels in the softmax and
+//      is left out: at D = 4096 it is ~4096 and its float32 rounding alone
+//      would move s by ~1e-4.
+//   2. weighted_sum_kernel:  m = max_n S, l = sum e^{S-m}, q = sum e^{2(S-m)},
+//      ESS = l^2/(q+1e-30), W = e^{S-m}/(l+1e-30), G = (W V - [x_t | y_t])/sigma,
+//      written split into g_x and g_y.
 //
-// Masked edges stand in for the TPU kernel's -1e30 log-ratio and zero
-// feature padding: rows n >= N and features d >= Dx+Dy are never read.
-// t is a kernel argument, so nothing is rebuilt per ODE step.
+// Bound on the card: operations. 2*B*N*D FMAs (2.15 GFLOP at B=512, N=256,
+// D=4096) at the H100 SXM's 67 TFLOP/s non-tensor float32 rate are ~32 us;
+// the ~21 MB of inputs and outputs take ~6 us at 3.35 TB/s. A float32 FMA
+// GEMM cannot reach that rate on this card: with 8x8 outputs per thread every
+// 64 FMAs need four 16-byte shared-memory reads, which keeps the SM's one
+// load/store unit as busy as its four FMA pipes.
 //
-// Bound on the card: 2*B*N*D FMAs, 2.15 GFLOP at B=512, N=256, D=4096,
-// which at the H100 SXM's 67 TFLOP/s non-tensor float32 rate is ~32 us;
-// the ~21 MB of inputs and outputs take ~6 us at 3.35 TB/s. So the bound
-// is operations. The design keeps both GEMMs in plain FMA (no TF32: the
-// JAX reference pins float32 dots to HIGHEST) with a 4x4 register tile per
-// thread, float4 shared-memory reads, and enough CTAs (K-split for the
-// first GEMM) to cover all SMs. wgmma/TMA are left for a later change.
+// What the design does about that:
+//   * Both products run from a ring of kStages shared-memory stages filled by
+//     16-byte cp.async copies (zero-filled past the edges), so the next stages
+//     load while the current one multiplies, with one CTA barrier per stage.
+//   * Operands whose rows run along the reduction axis (x_t|y_t, X1|Y1 in
+//     kernel 1, W in kernel 2) stay row-major in shared memory with a row
+//     stride of 36 floats: the copies need no transposition, and the float4
+//     reads along k of 8 consecutive rows fall into 8 different bank groups.
+//   * Kernel 1: 8x8 outputs per thread, 8 warps a CTA. The two halves of the
+//     CTA take the two halves of each 32-deep stage and add their 64 x 128
+//     tiles through shared memory at the end. The feature axis is split over
+//     a thread-block cluster of up to 8 CTAs per tile. The ranks exchange
+//     their partial tiles and partial |v_n|^2 through distributed shared
+//     memory and add them in rank order, each rank finishing its share of the
+//     tile's rows: no [slices, B, N] workspace, and the same bits every run.
+//     The cluster size comes from what the card holds at once: an H100 80GB
+//     HBM3 holds 15 clusters of 8 such CTAs but 17 of 6, so the 16 tiles of
+//     B=512, N=256 take clusters of 6 (one wave) rather than 8 (two).
+//   * The finishing ranks of kernel 1 also leave, behind S, the softmax
+//     partials (max, sum e, sum e^2) of every 32 columns of a row. Kernel 2
+//     folds them into m, l and q per row in its prologue (taking them from the
+//     scores again costs 131 K exponentials in each of the 32 column blocks),
+//     then forms each W stage on the fly while it writes it to shared memory:
+//     W never exists in device memory.
+//   * Kernel 2 takes 64 x 128 tiles with 4x8 outputs per thread, two CTAs an
+//     SM: 16 warps hide the barriers and shared-memory latency better than
+//     8 warps with 8x8 outputs did (measured). Where its grid fills the card
+//     it is launched as a programmatic dependent of kernel 1 and prefetches
+//     its first V stages before it waits for S.
+//   * Rows that are not 16-byte aligned take a generic loader (template
+//     parameter) with scalar loads inside the same kernels.
+//
+// The plan (cluster size, kernel 2's tile, loader, shared-memory bytes) is
+// made by ops/guidance.py:guidance_plan; the constants below mirror it.
+// Masked edges stand in for the TPU kernel's -1e30 log-ratio and zero feature
+// padding. t is a kernel argument, so nothing is rebuilt per ODE step.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr float kEpsT = 1e-3f;   // sigma floor, ref flow_utils.py:279
-constexpr int kBM = 64;          // tile rows (trajectories b)
-constexpr int kBN = 64;          // tile cols (MC rows n, or features d)
-constexpr int kBK = 16;          // reduction depth per shared-memory stage
-constexpr int kThreads = 256;    // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kRowThreads = 256;
+constexpr int kThreads = 256;
+constexpr int kBK = 32;          // reduction depth of a stage
+constexpr int kLd = kBK + 4;     // row stride of a row-major stage (floats)
+constexpr int kStages = 4;       // ring depth
+constexpr int kBM1 = 64;         // kernel 1 tile: trajectories b
+constexpr int kBN1 = 128;        // kernel 1 tile: MC rows n
+constexpr int kStage1 = (kBM1 + kBN1) * kLd;   // floats of one kernel-1 stage
+constexpr int kLdP = kBN1 + 16;  // row stride of the partial tile
+constexpr unsigned kFull = 0xffffffffu;
 
-// Element (row, k) of the virtual concat [P | Q] with row widths Dp, Dq.
-__device__ __forceinline__ float concat_at(const float* __restrict__ P,
-                                           const float* __restrict__ Q,
-                                           int row, int k, int Dp, int Dq) {
-  return k < Dp ? P[(size_t)row * Dp + k] : Q[(size_t)row * Dq + (k - Dp)];
+static_assert(kBM1 * kLdP <= kStages * kStage1, "partial tile aliases the ring");
+
+__host__ __device__ constexpr int smem1_floats() {
+  return kStages * kStage1 + 3 * kBN1;   // ring, |v|^2 partials (double), sums
+}
+__host__ __device__ constexpr int smem2_floats(int BM, int BD) {
+  return kStages * kBK * BD + 2 * BM * kLd + 2 * BM;
 }
 
-// Kernel 1. grid (ceil(N/kBN), ceil(B/kBM), slices), block kThreads.
-// cross_ws[z][b][n] = sum_{k in slice z} A[b,k] V[n,k];
-// vnorm_ws[z][n] = sum_{k in slice z} V[n,k]^2 (written by blockIdx.y == 0).
-__global__ void __launch_bounds__(kThreads)
-scores_partial_kernel(const float* __restrict__ xt, const float* __restrict__ yt,
-                      const float* __restrict__ X1, const float* __restrict__ Y1,
-                      int B, int N, int Dx, int Dy, int k_per_slice,
-                      float* __restrict__ cross_ws,
-                      float* __restrict__ vnorm_ws) {
-  __shared__ __align__(16) float As[kBK][kBM];
-  __shared__ __align__(16) float Vs[kBK][kBN];
+struct Args {
+  const float* xt;
+  const float* yt;
+  const float* X1;
+  const float* Y1;
+  const float* log_r;
+  float* S;
+  float* gx;
+  float* gy;
+  float* ess;
+  float* l;
+  int B, N, Dx, Dy, K;
+  float t;
+};
+
+// 16-byte asynchronous copy global -> shared; zero-fills when !ok (src must
+// still be a valid address).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = ok ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Tile [ROWS][COLS] of the virtual concat [P | Q] (row widths Dp, Dq) at
+// (row0, col0) into dst with row stride LD; rows >= nrows and columns >=
+// col_end are zero. AL: every row of P and Q is 16-byte aligned and col_end is
+// a multiple of 4, so a 4-float chunk lies wholly in P or in Q.
+template <bool AL, int ROWS, int COLS, int LD>
+__device__ __forceinline__ void load_tile(float* dst,
+                                          const float* __restrict__ P,
+                                          const float* __restrict__ Q, int Dp,
+                                          int Dq, int nrows, int row0, int col0,
+                                          int col_end, int tid) {
+  if (AL) {
+    constexpr int CPR = COLS / 4;
+    static_assert((ROWS * CPR) % kThreads == 0, "whole chunks per thread");
+#pragma unroll
+    for (int i = 0; i < ROWS * CPR / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / CPR, c = (e % CPR) * 4;
+      const int row = row0 + r, col = col0 + c;
+      const bool ok = row < nrows && col < col_end;
+      const float* src = P;
+      if (ok)
+        src = col < Dp ? P + (size_t)row * Dp + col
+                       : Q + (size_t)row * Dq + (col - Dp);
+      cp_async16(dst + r * LD + c, src, ok);
+    }
+  } else {
+    static_assert((ROWS * COLS) % kThreads == 0, "whole elements per thread");
+#pragma unroll 4
+    for (int i = 0; i < ROWS * COLS / kThreads; ++i) {
+      const int e = tid + i * kThreads;
+      const int r = e / COLS, c = e % COLS;
+      const int row = row0 + r, col = col0 + c;
+      float v = 0.f;
+      if (row < nrows && col < col_end)
+        v = col < Dp ? P[(size_t)row * Dp + col]
+                     : Q[(size_t)row * Dq + (col - Dp)];
+      dst[r * LD + c] = v;
+    }
+  }
+}
+
+// Kernel 1. grid K * tiles (1-D), cluster K along x, block kThreads.
+// Rank r of a cluster multiplies over stages [r*T/K, (r+1)*T/K) of the T =
+// ceil(D/kBK) stages of the feature axis.
+template <bool AL>
+__global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;
+  // this rank's partial |v_n|^2, in float64: |v_n|^2 ~ D shifts the score of
+  // column n for every row alike, so its rounding does not cancel in the
+  // softmax; the ranks' partials are added exactly and rounded once
+  double* vn_s = reinterpret_cast<double*>(smem + kStages * kStage1);
+  float* vn_tot = smem + kStages * kStage1 + 2 * kBN1;   // over the ranks
+  float* P = smem;                          // partial tile, after the loop
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int z = blockIdx.z;
-  const int D = Dx + Dy;
-  const int k_begin = z * k_per_slice;
-  const int k_end = min(D, k_begin + k_per_slice);
+  const int K = a.K;
+  const int rank = blockIdx.x % K;
+  const int tile = blockIdx.x / K;
+  const int tiles_n = (a.N + kBN1 - 1) / kBN1;
+  const int n0 = (tile % tiles_n) * kBN1;
+  const int m0 = (tile / tiles_n) * kBM1;
+  const int D = a.Dx + a.Dy;
+  const int total = (D + kBK - 1) / kBK;
+  const int s_begin = (int)((long long)rank * total / K);
+  const int s_end = (int)((long long)(rank + 1) * total / K);
+  const int nst = s_end - s_begin;
+  const int k_end = min(D, s_end * kBK);
 
-  // Loader mapping: each thread stages 4 consecutive k of one tile row.
-  const int ld_row = tid / 4;          // 0..63
-  const int ld_k = (tid % 4) * 4;      // 0, 4, 8, 12
-  const int a_row = m0 + ld_row;
-  const int v_row = n0 + ld_row;
+  auto load_stage = [&](int st) {
+    float* As = ring + (st % kStages) * kStage1;
+    float* Vs = As + kBM1 * kLd;
+    const int k0 = (s_begin + st) * kBK;
+    load_tile<AL, kBM1, kBK, kLd>(As, a.xt, a.yt, a.Dx, a.Dy, a.B, m0, k0,
+                                  k_end, tid);
+    load_tile<AL, kBN1, kBK, kLd>(Vs, a.X1, a.Y1, a.Dx, a.Dy, a.N, n0, k0,
+                                  k_end, tid);
+  };
 
-  const bool norm_v = blockIdx.y == 0 && tid < kBN;
-  float nrm = 0.f;
+  // compute mapping: half h of the CTA takes k in [16h, 16h+16) of a stage;
+  // thread (ty, tx) of a half owns rows ty + 8i and columns tx + 16j
+  const int h = tid >> 7;
+  const int tx = tid & 15;
+  const int ty = (tid & 127) >> 4;
+  // |v_n|^2 mapping: row tid/2, k in [16 (tid&1), +16)
+  const int vrow = tid >> 1;
+  const int vk = (tid & 1) * 16;
 
-  float acc[4][4];
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int k = k0 + ld_k + j;
-      const bool kin = k < k_end;
-      As[ld_k + j][ld_row] =
-          (kin && a_row < B) ? concat_at(xt, yt, a_row, k, Dx, Dy) : 0.f;
-      Vs[ld_k + j][ld_row] =
-          (kin && v_row < N) ? concat_at(X1, Y1, v_row, k, Dx, Dy) : 0.f;
-    }
-    __syncthreads();
-
-    if (norm_v) {
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) nrm = fmaf(Vs[kk][tid], Vs[kk][tid], nrm);
-    }
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  double nrm = 0.0;
 
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 v = *reinterpret_cast<const float4*>(&Vs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float vv[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nst) load_stage(p);
+    cp_async_commit();
   }
 
-  if (norm_v && n0 + tid < N) vnorm_ws[(size_t)z * N + n0 + tid] = nrm;
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // stage `it` has landed; stage it-1 is free again
+    if (it + kStages - 1 < nst) load_stage(it + kStages - 1);
+    cp_async_commit();
 
+    const float* As = ring + (it % kStages) * kStage1;
+    const float* Vs = As + kBM1 * kLd;
+    {
+      const float* p = Vs + vrow * kLd + vk;
+      float part = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = m0 + ty * 4 + i;
-    if (b >= B) continue;
-    float* out = cross_ws + ((size_t)z * B + b) * N;
+      for (int c = 0; c < 4; ++c) {
+        const float4 v = *reinterpret_cast<const float4*>(p + 4 * c);
+        part = fmaf(v.x, v.x, part);
+        part = fmaf(v.y, v.y, part);
+        part = fmaf(v.z, v.z, part);
+        part = fmaf(v.w, v.w, part);
+      }
+      nrm += (double)part;
+    }
+    const float* ap = As + ty * kLd + h * 16;
+    const float* vp = Vs + tx * kLd + h * 16;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) out[n] = acc[i][j];
+    for (int c = 0; c < 4; ++c) {
+      float4 af[8], vf[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        af[i] = *reinterpret_cast<const float4*>(ap + i * 8 * kLd + 4 * c);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        vf[j] = *reinterpret_cast<const float4*>(vp + j * 16 * kLd + 4 * c);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float s = acc[i][j];
+          s = fmaf(af[i].x, vf[j].x, s);
+          s = fmaf(af[i].y, vf[j].y, s);
+          s = fmaf(af[i].z, vf[j].z, s);
+          s = fmaf(af[i].w, vf[j].w, s);
+          acc[i][j] = s;
+        }
     }
   }
-}
 
-// Block-wide reduction of one float over kRowThreads threads.
-template <bool kMax>
-__device__ float block_reduce(float v, float* scratch) {
+  cp_async_wait<0>();
+  __syncthreads();   // every thread is done with the ring: P may alias it
+  // the dependent kernel may start its set-up (it waits for S all the same)
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  if (h == 1) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = kMax ? fmaxf(v, o) : v + o;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        P[(ty + 8 * i) * kLdP + tx + 16 * j] = acc[i][j];
   }
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (lane == 0) scratch[warp] = v;
+  nrm += __shfl_xor_sync(kFull, nrm, 1);
+  if ((tid & 1) == 0) vn_s[vrow] = nrm;
   __syncthreads();
-  if (warp == 0) {
-    v = lane < kRowThreads / 32 ? scratch[lane] : (kMax ? -INFINITY : 0.f);
+  if (h == 0) {
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float o = __shfl_xor_sync(0xffffffffu, v, off);
-      v = kMax ? fmaxf(v, o) : v + o;
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float* p = &P[(ty + 8 * i) * kLdP + tx + 16 * j];
+        *p = acc[i][j] + *p;
+      }
+  }
+
+  cg::cluster_group cluster = cg::this_cluster();
+  if (K > 1) cluster.sync(); else __syncthreads();
+
+  if (tid < kBN1) {
+    double v = 0.0;
+    for (int q = 0; q < K; ++q) {
+      const double* p = K > 1 ? cluster.map_shared_rank(vn_s, q) : vn_s;
+      v += p[tid];
     }
-    if (lane == 0) scratch[0] = v;
+    vn_tot[tid] = (float)v;
   }
   __syncthreads();
-  v = scratch[0];
-  __syncthreads();  // scratch is reused by the next reduction
-  return v;
-}
 
-// Kernel 2. grid B, block kRowThreads. Writes W[b][n], ess[b], l[b].
-// Each thread touches only its own n's of W, so W doubles as the buffer
-// for s and then e^{s-m} without extra synchronisation.
-__global__ void __launch_bounds__(kRowThreads)
-row_softmax_kernel(const float* __restrict__ cross_ws,
-                   const float* __restrict__ vnorm_ws,
-                   const float* __restrict__ log_r, int B, int N, int slices,
-                   float t, float* __restrict__ W, float* __restrict__ ess,
-                   float* __restrict__ l_out) {
-  __shared__ float scratch[kRowThreads / 32];
-  const int b = blockIdx.x;
-  const float sigma = 1.0f - t + kEpsT;
+  // rank r finishes rows r, r + K, ... of the tile (each half of the CTA every
+  // other one of them), adding the ranks' partial sums in rank order
+  const float sigma = 1.0f - a.t + kEpsT;
   const float inv_2s2 = 0.5f / (sigma * sigma);
-  const float two_t = 2.0f * t;
-  const float t2 = t * t;
-
-  float* w = W + (size_t)b * N;
-  float m = -INFINITY;
-  for (int n = threadIdx.x; n < N; n += kRowThreads) {
-    float cross = 0.f;
-    float vn = 0.f;
-    for (int z = 0; z < slices; ++z) {
-      cross += cross_ws[((size_t)z * B + b) * N + n];
-      vn += vnorm_ws[(size_t)z * N + n];
+  const float two_t = 2.0f * a.t;
+  const float t2 = a.t * a.t;
+  const int n = tid & 127;
+  const int nn = n0 + n;
+  const bool in = nn < a.N;
+  const int C = (a.N + 31) / 32;
+  float* part = a.S + (size_t)a.B * a.N;
+  const size_t plane = (size_t)a.B * C;
+  const float vn = vn_tot[n];
+  const float lr = in ? a.log_r[nn] : 0.f;
+  const float* peer[8];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+    peer[q] = K > 1 ? cluster.map_shared_rank(P, q < K ? q : 0) : P;
+  // four rows at a time: all their loads from the peers go first
+  for (int mb = rank + h * K; mb < kBM1; mb += 8 * K) {
+    float pv[4][8];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = min(mb + 2 * K * r, kBM1 - 1);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        pv[r][q] = q < K ? peer[q][m * kLdP + n] : 0.f;
     }
-    // Rounded step by step, without FMA contraction, in the order of the
-    // plain PyTorch version: s = log r - (t^2 |v|^2 - 2t cross) / (2 sigma^2).
-    const float sq = __fsub_rn(__fmul_rn(t2, vn), __fmul_rn(two_t, cross));
-    const float s = __fsub_rn(log_r[n], __fmul_rn(sq, inv_2s2));
-    w[n] = s;
-    m = fmaxf(m, s);
-  }
-  m = block_reduce<true>(m, scratch);
-
-  float l = 0.f;
-  float q = 0.f;
-  for (int n = threadIdx.x; n < N; n += kRowThreads) {
-    const float e = expf(w[n] - m);
-    w[n] = e;
-    l += e;
-    q = fmaf(e, e, q);
-  }
-  l = block_reduce<false>(l, scratch);
-  q = block_reduce<false>(q, scratch);
-
-  const float inv_l = 1.0f / (l + 1e-30f);
-  for (int n = threadIdx.x; n < N; n += kRowThreads) w[n] *= inv_l;
-  if (threadIdx.x == 0) {
-    ess[b] = (l * l) / (q + 1e-30f);
-    l_out[b] = l;
-  }
-}
-
-// Kernel 3. grid (ceil(D/kBN), ceil(B/kBM)), block kThreads.
-// G[b][d] = (sum_n W[b][n] V[n][d] - A[b][d]) / sigma, split into gx | gy.
-__global__ void __launch_bounds__(kThreads)
-weighted_sum_kernel(const float* __restrict__ W, const float* __restrict__ X1,
-                    const float* __restrict__ Y1, const float* __restrict__ xt,
-                    const float* __restrict__ yt, int B, int N, int Dx, int Dy,
-                    float t, float* __restrict__ gx, float* __restrict__ gy) {
-  __shared__ __align__(16) float Ws[kBK][kBM];
-  __shared__ __align__(16) float Vs[kBK][kBN];
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int d0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int D = Dx + Dy;
-
-  // W tile [kBM rows b][kBK cols n]: each thread stages 4 consecutive n.
-  const int w_row = tid / 4;
-  const int w_k = (tid % 4) * 4;
-  // V tile [kBK rows n][kBN cols d]: each thread stages 4 consecutive d.
-  const int v_k = tid / 16;
-  const int v_col = (tid % 16) * 4;
-
-  float acc[4][4];
+    float s[4], mx[4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int r = 0; r < 4; ++r) {
+      float cross = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kBK) {
-    const int b = m0 + w_row;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = k0 + w_k + j;
-      Ws[w_k + j][w_row] = (b < B && n < N) ? W[(size_t)b * N + n] : 0.f;
+      for (int q = 0; q < 8; ++q)
+        if (q < K) cross += pv[r][q];
+      // Rounded step by step, without FMA contraction, in the order of the
+      // plain PyTorch version: s = log r - (t^2 |v|^2 - 2t cross) / (2 sigma^2).
+      const float sq = __fsub_rn(__fmul_rn(t2, vn), __fmul_rn(two_t, cross));
+      s[r] = in ? __fsub_rn(lr, __fmul_rn(sq, inv_2s2)) : -FLT_MAX;
+      mx[r] = s[r];
     }
-    const int n = k0 + v_k;
+    // softmax partials of this warp's 32 columns of each row
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + v_col + j;
-      Vs[v_k][v_col + j] =
-          (n < N && d < D) ? concat_at(X1, Y1, n, d, Dx, Dy) : 0.f;
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], off));
+    float l[4], q2[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float e = in ? __expf(s[r] - mx[r]) : 0.f;
+      l[r] = e;
+      q2[r] = e * e;
     }
-    __syncthreads();
-
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&Ws[kk][ty * 4]);
-      const float4 v = *reinterpret_cast<const float4*>(&Vs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float vv[4] = {v.x, v.y, v.z, v.w};
+    for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int r = 0; r < 4; ++r) {
+        l[r] += __shfl_xor_sync(kFull, l[r], off);
+        q2[r] += __shfl_xor_sync(kFull, q2[r], off);
+      }
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], vv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  const float inv_sigma = 1.0f / (1.0f - t + kEpsT);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int b = m0 + ty * 4 + i;
-    if (b >= B) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int d = d0 + tx * 4 + j;
-      if (d < Dx) {
-        const size_t o = (size_t)b * Dx + d;
-        gx[o] = (acc[i][j] - xt[o]) * inv_sigma;
-      } else if (d < D) {
-        const size_t o = (size_t)b * Dy + (d - Dx);
-        gy[o] = (acc[i][j] - yt[o]) * inv_sigma;
+    for (int r = 0; r < 4; ++r) {
+      const int m = mb + 2 * K * r;
+      const int b = m0 + m;
+      if (m >= kBM1 || b >= a.B || !in) continue;
+      a.S[(size_t)b * a.N + nn] = s[r];
+      if ((tid & 31) == 0) {
+        const size_t idx = (size_t)b * C + nn / 32;
+        part[idx] = mx[r];
+        part[plane + idx] = l[r];
+        part[2 * plane + idx] = q2[r];
       }
     }
   }
+  // no CTA leaves while a peer reads its partial sums
+  if (K > 1) cluster.sync();
+}
+
+// Kernel 2. grid tiles_d * tiles_b (1-D), block kThreads. One CTA per BM x BD
+// tile of G; K = N in stages of kBK. Thread (ty, tx) owns rows ty + 16i
+// (i < BM/16) and columns 64g + 4tx .. +3 (g < BD/64).
+template <bool AL, int BM, int BD>
+__global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
+  constexpr int TM = BM / 16;
+  constexpr int TG = BD / 64;
+  constexpr int kStage2 = kBK * BD;
+  constexpr int WR = BM / 32;      // W rows a thread fills per stage
+  constexpr int SR = BM / 8;       // rows a warp takes statistics of
+
+  extern __shared__ __align__(16) float smem[];
+  float* Vs = smem;
+  float* Ws = smem + kStages * kStage2;     // [2][BM][kLd]
+  float* row_m = Ws + 2 * BM * kLd;
+  float* row_il = row_m + BM;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+  const int B = a.B, N = a.N, Dx = a.Dx;
+  const int D = a.Dx + a.Dy;
+  const int tiles_d = (D + BD - 1) / BD;
+  const int d0 = (blockIdx.x % tiles_d) * BD;
+  const int m0 = (blockIdx.x / tiles_d) * BM;
+  const int nst = (N + kBK - 1) / kBK;
+  const bool s_vec = AL && (N % 4 == 0);
+
+  auto load_v = [&](int st) {
+    load_tile<AL, kBK, BD, BD>(Vs + (st % kStages) * kStage2, a.X1, a.Y1, a.Dx,
+                               a.Dy, N, st * kBK, d0, D, tid);
+  };
+
+  // V does not depend on kernel 1: its first stages go before the wait
+#pragma unroll
+  for (int p = 0; p < kStages - 1; ++p) {
+    if (p < nst) load_v(p);
+    cp_async_commit();
+  }
+  // S is complete and visible after this (a no-op in a plain launch)
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+
+  // softmax statistics of the tile's rows from the partials (max, sum e,
+  // sum e^2 per 32 columns) that kernel 1 left behind S: warp w takes rows
+  // w + 8j, all at once, lane j the j-th partial
+  const int C = (N + 31) / 32;
+  const float* part = a.S + (size_t)B * N;
+  const size_t plane = (size_t)B * C;
+  {
+    float M[SR], l[SR], q[SR];
+#pragma unroll
+    for (int rr = 0; rr < SR; ++rr) {
+      M[rr] = -FLT_MAX;
+      l[rr] = 0.f;
+      q[rr] = 0.f;
+    }
+    for (int cb = 0; cb < C; cb += 32) {
+      const bool have = cb + lane < C;
+      float pm[SR], pl[SR], pq[SR];
+#pragma unroll
+      for (int rr = 0; rr < SR; ++rr) {
+        const size_t idx = (size_t)min(m0 + warp + 8 * rr, B - 1) * C +
+                           min(cb + lane, C - 1);
+        pm[rr] = part[idx];
+        pl[rr] = part[plane + idx];
+        pq[rr] = part[2 * plane + idx];
+      }
+#pragma unroll
+      for (int rr = 0; rr < SR; ++rr) {
+        if (!have) continue;
+        if (pm[rr] > M[rr]) {
+          const float c = __expf(M[rr] - pm[rr]);
+          l[rr] *= c;
+          q[rr] *= c * c;
+          M[rr] = pm[rr];
+        }
+        const float c = __expf(pm[rr] - M[rr]);
+        l[rr] = fmaf(pl[rr], c, l[rr]);
+        q[rr] = fmaf(pq[rr], c * c, q[rr]);
+      }
+    }
+    float Mw[SR];
+#pragma unroll
+    for (int rr = 0; rr < SR; ++rr) Mw[rr] = M[rr];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int rr = 0; rr < SR; ++rr)
+        Mw[rr] = fmaxf(Mw[rr], __shfl_xor_sync(kFull, Mw[rr], off));
+#pragma unroll
+    for (int rr = 0; rr < SR; ++rr) {
+      const float c = __expf(M[rr] - Mw[rr]);
+      l[rr] *= c;
+      q[rr] *= c * c;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int rr = 0; rr < SR; ++rr) {
+        l[rr] += __shfl_xor_sync(kFull, l[rr], off);
+        q[rr] += __shfl_xor_sync(kFull, q[rr], off);
+      }
+    // every lane holds every row's totals: lane rr finishes row warp + 8 rr
+    float Mv = Mw[0], lv = l[0], qv = q[0];
+#pragma unroll
+    for (int rr = 1; rr < SR; ++rr)
+      if (lane == rr) {
+        Mv = Mw[rr];
+        lv = l[rr];
+        qv = q[rr];
+      }
+    if (lane < SR) {
+      const int r = warp + 8 * lane;
+      const int b = m0 + r;
+      const bool in = b < B;
+      row_m[r] = in ? Mv : 0.f;
+      row_il[r] = in ? __frcp_rn(lv + 1e-30f) : 0.f;
+      if (in && d0 == 0) {
+        a.ess[b] = __fdividef(lv * lv, qv + 1e-30f);
+        a.l[b] = lv;
+      }
+    }
+  }
+  __syncthreads();
+
+  // W stage: thread fills chunk wc (4 consecutive n) of rows wr + 32i
+  const int wc = (tid & 7) * 4;
+  const int wr = tid >> 3;
+  float4 sv[WR];
+  auto load_s = [&](int st) {
+    const int n = st * kBK + wc;
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const int b = m0 + wr + 32 * i;
+      float4 v = make_float4(-FLT_MAX, -FLT_MAX, -FLT_MAX, -FLT_MAX);
+      if (b < B) {
+        const float* p = a.S + (size_t)b * N + n;
+        if (s_vec) {
+          if (n < N) v = *reinterpret_cast<const float4*>(p);
+        } else {
+          if (n < N) v.x = p[0];
+          if (n + 1 < N) v.y = p[1];
+          if (n + 2 < N) v.z = p[2];
+          if (n + 3 < N) v.w = p[3];
+        }
+      }
+      sv[i] = v;
+    }
+  };
+  auto store_w = [&](int st) {
+    float* dst = Ws + (st & 1) * BM * kLd + wc;
+#pragma unroll
+    for (int i = 0; i < WR; ++i) {
+      const int r = wr + 32 * i;
+      const float m = row_m[r], il = row_il[r];
+      float4 w;
+      w.x = sv[i].x > -FLT_MAX ? __expf(sv[i].x - m) * il : 0.f;
+      w.y = sv[i].y > -FLT_MAX ? __expf(sv[i].y - m) * il : 0.f;
+      w.z = sv[i].z > -FLT_MAX ? __expf(sv[i].z - m) * il : 0.f;
+      w.w = sv[i].w > -FLT_MAX ? __expf(sv[i].w - m) * il : 0.f;
+      *reinterpret_cast<float4*>(dst + r * kLd) = w;
+    }
+  };
+
+  float acc[TM][4 * TG];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * TG; ++j) acc[i][j] = 0.f;
+
+  load_s(0);
+  store_w(0);
+
+  for (int it = 0; it < nst; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // V stage `it` and W stage `it` are in shared memory
+    if (it + kStages - 1 < nst) load_v(it + kStages - 1);
+    cp_async_commit();
+    const bool more = it + 1 < nst;
+    if (more) load_s(it + 1);     // in flight while this stage multiplies
+
+    const float* Wb = Ws + (it & 1) * BM * kLd + ty * kLd;
+    const float* Vb = Vs + (it % kStages) * kStage2 + tx * 4;
+#pragma unroll
+    for (int c = 0; c < kBK / 4; ++c) {
+      float4 wf[TM];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+        wf[i] = *reinterpret_cast<const float4*>(Wb + i * 16 * kLd + 4 * c);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float4 vf[TG];
+#pragma unroll
+        for (int g = 0; g < TG; ++g)
+          vf[g] = *reinterpret_cast<const float4*>(Vb + (4 * c + kk) * BD +
+                                                   64 * g);
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+          const float w = kk == 0 ? wf[i].x
+                          : kk == 1 ? wf[i].y
+                          : kk == 2 ? wf[i].z
+                                    : wf[i].w;
+#pragma unroll
+          for (int g = 0; g < TG; ++g) {
+            acc[i][4 * g + 0] = fmaf(w, vf[g].x, acc[i][4 * g + 0]);
+            acc[i][4 * g + 1] = fmaf(w, vf[g].y, acc[i][4 * g + 1]);
+            acc[i][4 * g + 2] = fmaf(w, vf[g].z, acc[i][4 * g + 2]);
+            acc[i][4 * g + 3] = fmaf(w, vf[g].w, acc[i][4 * g + 3]);
+          }
+        }
+      }
+    }
+    // buffer (it+1)&1 was last read in stage it-1, before this stage's barrier
+    if (more) store_w(it + 1);
+  }
+  cp_async_wait<0>();
+
+  const float inv_sigma = 1.0f / (1.0f - a.t + kEpsT);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int b = m0 + ty + 16 * i;
+    if (b >= B) continue;
+#pragma unroll
+    for (int g = 0; g < TG; ++g) {
+      const int d = d0 + 64 * g + 4 * tx;
+      if (AL) {
+        if (d >= D) continue;
+        const size_t o = d < Dx ? (size_t)b * Dx + d
+                                : (size_t)b * a.Dy + (d - Dx);
+        const float4 x =
+            *reinterpret_cast<const float4*>((d < Dx ? a.xt : a.yt) + o);
+        float4 out;
+        out.x = (acc[i][4 * g + 0] - x.x) * inv_sigma;
+        out.y = (acc[i][4 * g + 1] - x.y) * inv_sigma;
+        out.z = (acc[i][4 * g + 2] - x.z) * inv_sigma;
+        out.w = (acc[i][4 * g + 3] - x.w) * inv_sigma;
+        *reinterpret_cast<float4*>((d < Dx ? a.gx : a.gy) + o) = out;
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int dj = d + j;
+          if (dj < Dx) {
+            const size_t o = (size_t)b * Dx + dj;
+            a.gx[o] = (acc[i][4 * g + j] - a.xt[o]) * inv_sigma;
+          } else if (dj < D) {
+            const size_t o = (size_t)b * a.Dy + (dj - Dx);
+            a.gy[o] = (acc[i][4 * g + j] - a.yt[o]) * inv_sigma;
+          }
+        }
+      }
+    }
+  }
+}
+
+// Raises the kernel's dynamic shared-memory limit once per instantiation.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, int& set) {
+  if (bytes > 48 * 1024 && bytes > set) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    set = bytes;
+  }
+  return cudaSuccess;
+}
+
+cudaLaunchConfig_t scores_config(const Args& a, cudaStream_t s,
+                                 cudaLaunchAttribute* attr) {
+  const int tiles = ((a.N + kBN1 - 1) / kBN1) * ((a.B + kBM1 - 1) / kBM1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.K * tiles);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem1_floats() * sizeof(float);
+  cfg.stream = s;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.K > 1 ? 1 : 0;
+  return cfg;
+}
+
+// Launches the score kernel, or with `occupancy` only asks how many of its
+// clusters the card holds at once.
+template <bool AL>
+int launch_scores(const Args& a, cudaStream_t s, int* occupancy) {
+  auto kernel = scores_kernel<AL>;
+  static int smem_set = 0;
+  cudaError_t err =
+      allow_smem(kernel, smem1_floats() * (int)sizeof(float), smem_set);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = scores_config(a, s, attr);
+  if (occupancy)
+    return (int)cudaOccupancyMaxActiveClusters(occupancy, kernel, &cfg);
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <bool AL, int BM, int BD>
+int launch_sum(const Args& a, int pdl, cudaStream_t s) {
+  auto kernel = weighted_sum_kernel<AL, BM, BD>;
+  static int smem_set = 0;
+  const int bytes = smem2_floats(BM, BD) * (int)sizeof(float);
+  cudaError_t err = allow_smem(kernel, bytes, smem_set);
+  if (err != cudaSuccess) return (int)err;
+  const int D = a.Dx + a.Dy;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((D + BD - 1) / BD) * ((a.B + BM - 1) / BM));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = pdl ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <bool AL>
+int dispatch_sum(const Args& a, int bm, int bd, int pdl, cudaStream_t s) {
+  if (bm == 64 && bd == 128) return launch_sum<AL, 64, 128>(a, pdl, s);
+  if (bm == 64 && bd == 64) return launch_sum<AL, 64, 64>(a, pdl, s);
+  if (bm == 32 && bd == 64) return launch_sum<AL, 32, 64>(a, pdl, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the three kernels on `stream`. Workspaces are allocated by the
-// caller: cross_ws [slices, B, N], vnorm_ws [slices, N], W [B, N].
-// Returns cudaGetLastError() (0 = launched).
+// Launch both kernels on `stream` with the plan of
+// ops/guidance.py:guidance_plan: `cluster` CTAs split the feature axis of each
+// score tile, kernel 2 takes bm x bd tiles, `aligned` picks the 16-byte
+// loader, `pdl` launches kernel 2 as a programmatic dependent of kernel 1. S is the only
+// workspace: [B, N] scores followed by [3, B, ceil(N/32)] softmax partials. smem1 and smem2 are the plan's dynamic shared-memory bytes
+// and must equal this file's. Returns a CUDA error code (0 = launched);
+// cudaErrorInvalidValue for a plan the kernels cannot run.
 int rgmf_flash_guidance(const float* xt, const float* yt, const float* X1,
                         const float* Y1, const float* log_r, int B, int N,
-                        int Dx, int Dy, float t, int slices, int k_per_slice,
-                        float* cross_ws, float* vnorm_ws,
-                        float* W, float* gx, float* gy, float* ess, float* l,
+                        int Dx, int Dy, float t, int cluster, int aligned,
+                        int bm, int bd, int pdl, int smem1, int smem2,
+                        float* S, float* gx, float* gy, float* ess, float* l,
                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int D = Dx + Dy;
-
-  const dim3 g1((N + kBN - 1) / kBN, (B + kBM - 1) / kBM, slices);
-  scores_partial_kernel<<<g1, kThreads, 0, s>>>(xt, yt, X1, Y1, B, N, Dx, Dy,
-                                               k_per_slice, cross_ws, vnorm_ws);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  row_softmax_kernel<<<B, kRowThreads, 0, s>>>(cross_ws, vnorm_ws, log_r, B, N,
-                                               slices, t, W, ess, l);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const dim3 g3((D + kBN - 1) / kBN, (B + kBM - 1) / kBM);
-  weighted_sum_kernel<<<g3, kThreads, 0, s>>>(W, X1, Y1, xt, yt, B, N, Dx, Dy,
-                                              t, gx, gy);
+  const int total = (D + kBK - 1) / kBK;
+  if (B < 1 || N < 1 || Dx < 1 || Dy < 1 || cluster < 1 || cluster > 8 ||
+      cluster > total || smem1 != smem1_floats() * (int)sizeof(float) ||
+      (bm != 64 && bm != 32) || (bd != 128 && bd != 64) ||
+      smem2 != smem2_floats(bm, bd) * (int)sizeof(float))
+    return (int)cudaErrorInvalidValue;
+  if (aligned &&
+      (Dx % 4 || Dy % 4 ||
+       (((uintptr_t)xt | (uintptr_t)yt | (uintptr_t)X1 | (uintptr_t)Y1 |
+         (uintptr_t)S | (uintptr_t)gx | (uintptr_t)gy) & 15)))
+    return (int)cudaErrorInvalidValue;
+  const Args a{xt, yt, X1, Y1, log_r, S, gx, gy, ess, l, B, N, Dx, Dy,
+               cluster, t};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = aligned ? launch_scores<true>(a, s, nullptr)
+                   : launch_scores<false>(a, s, nullptr);
+  if (rc != 0) return rc;
+  rc = (int)cudaGetLastError();
+  if (rc != 0) return rc;
+  rc = aligned ? dispatch_sum<true>(a, bm, bd, pdl, s)
+               : dispatch_sum<false>(a, bm, bd, pdl, s);
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
+}
+
+// Clusters of `cluster` CTAs of the score kernel that the card can hold at
+// once (cudaOccupancyMaxActiveClusters), or minus a CUDA error code.
+int rgmf_flash_guidance_max_clusters(int cluster, int aligned, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return -(int)err;
+  Args a = {};
+  a.B = kBM1;
+  a.N = kBN1 * 1024;     // 1024 tiles: the grid does not limit the answer
+  a.K = cluster;
+  int n = 0;
+  const int rc = aligned ? launch_scores<true>(a, 0, &n)
+                         : launch_scores<false>(a, 0, &n);
+  return rc == 0 ? n : -rc;
 }
 
 const char* rgmf_cuda_error_string(int err) {

@@ -10,9 +10,12 @@ and the guidance term is g = (Σ_i w_i X1_i - x_t)/σ (likewise for y).
 `flash_guidance` returns (g_x, g_y, ess, l): ESS = l²/q of the weights and
 the softmax normaliser l (the largest weight is 1/l).
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-csrc/flash_guidance.cu (three kernels: split-K score GEMM with fused row
-norms, per-row softmax statistics, weighted-sum GEMM — all IEEE float32).
+On a CUDA tensor the wrapper launches the hand-written kernels in
+csrc/flash_guidance.cu, all IEEE float32: a score kernel whose split over the
+feature axis is reduced inside a thread-block cluster, and a weighted-sum
+kernel that forms the softmax weights on the fly. The scores S [B, N], with
+the softmax partials of every 32 columns behind them, are the only
+workspace; the launch plan (`guidance_plan`) is pure Python.
 Both versions leave the row constant |x_t|² + |y_t|² out of the scores: it
 cancels in the softmax, and at the main-path width (D = 4096) its float32
 rounding alone would move the scores by ~1e-4.
@@ -22,7 +25,9 @@ version of the same function. Any other device raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from dataclasses import dataclass
+from typing import Iterator, List, Tuple
 
 import numpy as np
 import torch
@@ -31,9 +36,21 @@ from ratio_guided_multimodal_fm_tpu_torch.ops import _build
 
 EPS_T = 1e-3  # sigma floor, matches ref flow_utils.py:279
 
-_BM = _BN = 64           # kernel tile (csrc/flash_guidance.cu kBM/kBN)
-_BK = 16                 # kernel reduction stage (kBK)
-_TARGET_CTAS = 264       # two CTAs per SM on a 132-SM H100
+# Mirrors of the constants of csrc/flash_guidance.cu
+THREADS = 256
+BK = 32                  # reduction depth of a shared-memory stage (kBK)
+LD = BK + 4              # row stride of a row-major stage, floats (kLd)
+STAGES = 4               # ring depth (kStages)
+BM1, BN1 = 64, 128       # score tile: trajectories b x MC rows n
+SUM_TILES = ((64, 128), (64, 64), (32, 64))   # kernel 2, b x d
+SMEM_MAX = 232_448       # dynamic shared memory one block can use
+MAX_CLUSTER = 8          # largest portable cluster
+SMS = 132                # H100 SXM; the wrapper passes the card's own count
+# Clusters of 1..8 score-kernel CTAs that the card holds at once, as
+# cudaOccupancyMaxActiveClusters reported them on an NVIDIA H100 80GB HBM3
+# (its GPCs do not all hold two clusters of 7 or 8). The wrapper asks the
+# card it runs on.
+CAPACITY = (132, 66, 39, 30, 22, 17, 15, 15)
 
 
 def _scalars(t: float):
@@ -45,16 +62,18 @@ def _scalars(t: float):
             np.float32(1.0) / sigma)
 
 
-def flash_guidance_reference(x_t, y_t, mc_x1, mc_y1, mc_log_r, t: float):
-    """Plain PyTorch version of the kernel: softmax form, float32,
-    torch.matmul for both products. Same signature and outputs."""
-    f32 = torch.float32
+def flash_guidance_reference(x_t, y_t, mc_x1, mc_y1, mc_log_r, t: float,
+                             dtype: torch.dtype = torch.float32):
+    """Plain PyTorch version of the kernel: softmax form, torch.matmul for
+    both products. Same signature and outputs. `dtype` is the working type:
+    float32 is the function; float64 (same float32 scalars, outputs in
+    float64) is the accuracy yardstick of the tests and chip_smoke.py."""
     B, N = x_t.shape[0], mc_x1.shape[0]
-    xt = x_t.reshape(B, -1).to(f32)
-    yt = y_t.reshape(B, -1).to(f32)
-    X1 = mc_x1.reshape(N, -1).to(f32)
-    Y1 = mc_y1.reshape(N, -1).to(f32)
-    lr = mc_log_r.to(f32)
+    xt = x_t.reshape(B, -1).to(dtype)
+    yt = y_t.reshape(B, -1).to(dtype)
+    X1 = mc_x1.reshape(N, -1).to(dtype)
+    Y1 = mc_y1.reshape(N, -1).to(dtype)
+    lr = mc_log_r.to(dtype)
     t32, _, inv_2s2, inv_sigma = _scalars(t)
 
     # |x_t - t X1_n|² + |y_t - t Y1_n|² without the row constant
@@ -85,49 +104,160 @@ def _kernel_fn():
         lib = _build.load("flash_guidance")
         fn = lib.rgmf_flash_guidance
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i] * 4 + [ctypes.c_float] + [i] * 2
-                       + [p] * 7 + [i, p])
+        fn.argtypes = ([p] * 5 + [i] * 4 + [ctypes.c_float] + [i] * 7
+                       + [p] * 5 + [i, p])
         fn.restype = i
+        lib.rgmf_flash_guidance_max_clusters.argtypes = [i, i, i]
+        lib.rgmf_flash_guidance_max_clusters.restype = i
         lib.rgmf_cuda_error_string.argtypes = [i]
         lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
         _c_fn = (fn, lib.rgmf_cuda_error_string)
     return _c_fn
 
 
+def max_active_clusters(cluster: int, aligned: bool, index: int = 0) -> int:
+    """Clusters of `cluster` score-kernel CTAs that card `index` holds at
+    once (cudaOccupancyMaxActiveClusters); builds the kernel if needed."""
+    _kernel_fn()
+    n = _build.load("flash_guidance").rgmf_flash_guidance_max_clusters(
+        cluster, int(aligned), index)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
+    return n
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-def k_split(B: int, N: int, D: int) -> Tuple[int, int]:
-    """(slices, k_per_slice) for the score GEMM: enough CTAs to cover the
-    card, at least 512 features a slice, slices a multiple of the stage."""
-    tiles = _cdiv(B, _BM) * _cdiv(N, _BN)
-    slices = max(1, min(_cdiv(_TARGET_CTAS, tiles), _cdiv(D, 512)))
-    kps = _cdiv(_cdiv(D, slices), _BK) * _BK
-    return _cdiv(D, kps), kps
+@dataclass(frozen=True)
+class GuidancePlan:
+    """Launch plan of both kernels (see csrc/flash_guidance.cu)."""
+    aligned: bool        # 16-byte cp.async loader, else the generic one
+    k_stages: int        # ceil(D / BK) stages of the feature axis
+    cluster: int         # CTAs that split those stages for one score tile
+    tiles_b1: int        # score tiles along b (BM1 rows) ...
+    tiles_n1: int        # ... and along n (BN1 columns)
+    grid1: int
+    smem1: int           # bytes
+    bm2: int             # weighted-sum tile, rows b ...
+    bd2: int             # ... and features d
+    tiles_b2: int
+    tiles_d2: int
+    grid2: int
+    smem2: int           # bytes
+    stages: int = STAGES
+    threads: int = THREADS
+    pdl: bool = True     # kernel 2 is a programmatic dependent of kernel 1
+
+
+@functools.lru_cache(maxsize=256)
+def guidance_plan(B: int, N: int, Dx: int, Dy: int, aligned_ptrs: bool = True,
+                  sms: int = SMS,
+                  capacity: Tuple[int, ...] = CAPACITY) -> GuidancePlan:
+    """Plan for x_t|y_t [B, Dx|Dy] against X1|Y1 [N, Dx|Dy].
+
+    The aligned loader needs every row of the four inputs (and of g_x, g_y)
+    to start on a 16-byte boundary: Dx and Dy multiples of 4 and aligned
+    base pointers (`aligned_ptrs`). The score kernel's cluster size K
+    (at most 8, at most one rank per stage) is the one with the fewest
+    stages in sequence, waves x ceil(stages / K), where a wave is the
+    `capacity[K - 1]` clusters of K CTAs that the card holds at once; the
+    smaller K wins a tie. The weighted sum takes the largest tile of SUM_TILES
+    that still gives three quarters of the SMs a CTA, else the smallest.
+    It starts as a programmatic dependent of the score kernel only where it
+    has a CTA for every SM: its CTAs fit two to an SM, and a smaller grid
+    started early piles up on the SMs the score kernel leaves free."""
+    if min(B, N, Dx, Dy) < 1:
+        raise ValueError(f"guidance_plan: empty shape {(B, N, Dx, Dy)}")
+    D = Dx + Dy
+    aligned = bool(aligned_ptrs) and Dx % 4 == 0 and Dy % 4 == 0
+    k_stages = _cdiv(D, BK)
+    tiles_b1, tiles_n1 = _cdiv(B, BM1), _cdiv(N, BN1)
+    tiles1 = tiles_b1 * tiles_n1
+    cluster = min(
+        range(1, min(MAX_CLUSTER, k_stages, len(capacity)) + 1),
+        key=lambda k: (_cdiv(tiles1, max(1, capacity[k - 1]))
+                       * _cdiv(k_stages, k), k))
+    smem1 = 4 * (STAGES * (BM1 + BN1) * LD + 3 * BN1)
+    bm2, bd2 = SUM_TILES[-1]
+    for bm, bd in SUM_TILES:
+        if _cdiv(B, bm) * _cdiv(D, bd) >= (3 * sms) // 4:
+            bm2, bd2 = bm, bd
+            break
+    tiles_b2, tiles_d2 = _cdiv(B, bm2), _cdiv(D, bd2)
+    smem2 = 4 * (STAGES * BK * bd2 + 2 * bm2 * LD + 2 * bm2)
+    assert max(smem1, smem2) <= SMEM_MAX
+    return GuidancePlan(aligned, k_stages, cluster, tiles_b1, tiles_n1,
+                        cluster * tiles1, smem1, bm2, bd2, tiles_b2, tiles_d2,
+                        tiles_b2 * tiles_d2, smem2,
+                        pdl=tiles_b2 * tiles_d2 >= sms)
+
+
+def workspace_floats(B: int, N: int) -> int:
+    """Floats of the one workspace: the scores S [B, N], then the softmax
+    partials (max, sum e, sum e²) of every 32 columns, [3, B, ceil(N/32)]."""
+    return B * N + 3 * B * _cdiv(N, 32)
+
+
+def score_slices(plan: GuidancePlan, D: int) -> List[Tuple[int, int]]:
+    """[k_lo, k_hi) of the feature axis that each cluster rank multiplies
+    over, as the score kernel computes it."""
+    K, T = plan.cluster, plan.k_stages
+    return [(r * T // K * BK, min(D, (r + 1) * T // K * BK))
+            for r in range(K)]
+
+
+def score_tiles(plan: GuidancePlan, B: int,
+                N: int) -> Iterator[Tuple[int, range, range]]:
+    """(first CTA, rows b, columns n) of every score tile; the tile's CTAs
+    are first CTA + rank."""
+    for tile in range(plan.tiles_b1 * plan.tiles_n1):
+        n0 = tile % plan.tiles_n1 * BN1
+        b0 = tile // plan.tiles_n1 * BM1
+        yield (tile * plan.cluster, range(b0, min(B, b0 + BM1)),
+               range(n0, min(N, n0 + BN1)))
+
+
+def sum_tiles(plan: GuidancePlan, B: int,
+              D: int) -> Iterator[Tuple[int, range, range]]:
+    """(CTA, rows b, features d) of every weighted-sum tile."""
+    for cta in range(plan.grid2):
+        d0 = cta % plan.tiles_d2 * plan.bd2
+        b0 = cta // plan.tiles_d2 * plan.bm2
+        yield (cta, range(b0, min(B, b0 + plan.bm2)),
+               range(d0, min(D, d0 + plan.bd2)))
+
+
+@functools.lru_cache(maxsize=None)
+def card_capacity(index: int) -> Tuple[int, Tuple[int, ...]]:
+    """(SMs, clusters of 1..8 score-kernel CTAs held at once) of a card."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return sms, (sms,) + tuple(max_active_clusters(k, True, index)
+                               for k in range(2, MAX_CLUSTER + 1))
 
 
 def _launch(xt, yt, X1, Y1, lr, t: float):
     fn, err_str = _kernel_fn()
     B, Dx = xt.shape
     N, Dy = Y1.shape
-    slices, kps = k_split(B, N, Dx + Dy)
     dev = xt.device
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
     f32 = torch.float32
-    cross_ws = torch.empty((slices, B, N), dtype=f32, device=dev)
-    vnorm_ws = torch.empty((slices, N), dtype=f32, device=dev)
-    w = torch.empty((B, N), dtype=f32, device=dev)
+    sms, capacity = card_capacity(index)
+    ws = torch.empty((workspace_floats(B, N),), dtype=f32, device=dev)
     gx = torch.empty_like(xt)
     gy = torch.empty_like(yt)
     ess = torch.empty((B,), dtype=f32, device=dev)
     l = torch.empty((B,), dtype=f32, device=dev)
+    ptrs = [a.data_ptr() for a in (xt, yt, X1, Y1, lr, ws, gx, gy, ess, l)]
+    # the rows the 16-byte loader and the vector stores touch
+    aligned = all(p % 16 == 0 for p in ptrs[:4] + ptrs[5:8])
+    plan = guidance_plan(B, N, Dx, Dy, aligned, sms, capacity)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(xt.data_ptr(), yt.data_ptr(), X1.data_ptr(), Y1.data_ptr(),
-             lr.data_ptr(), B, N, Dx, Dy, float(np.float32(t)), slices, kps,
-             cross_ws.data_ptr(), vnorm_ws.data_ptr(),
-             w.data_ptr(), gx.data_ptr(), gy.data_ptr(), ess.data_ptr(),
-             l.data_ptr(), dev.index if dev.index is not None else
-             torch.cuda.current_device(), stream)
+    err = fn(*ptrs[:5], B, N, Dx, Dy, float(np.float32(t)), plan.cluster,
+             int(plan.aligned), plan.bm2, plan.bd2, int(plan.pdl), plan.smem1,
+             plan.smem2, *ptrs[5:], index, stream)
     if err != 0:
         raise RuntimeError(f"flash_guidance kernel launch failed: CUDA error "
                            f"{err} ({err_str(err).decode()})")

@@ -6,7 +6,9 @@ machine that has only the port's dependencies:
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
 Tolerances: flash_guidance rtol 1e-3 / atol 1e-4 (the Pallas kernel's own
-bound); group_norm_silu 1e-4 in float32 and one bfloat16 step in bfloat16
+bound) on inputs that float32 sums exactly, and on N(0,1) images at most
+twice the float32 plain version's error against the float64 plain version;
+group_norm_silu 1e-4 in float32 and one bfloat16 step in bfloat16
 (rtol 2**-7, atol 1e-3: kernel and plain version take the same statistics
 and round at the same points, see ops/groupnorm.py);
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
@@ -48,7 +50,8 @@ def card():
 
 @pytest.mark.parametrize("B,N,H,t", [(512, 256, 32, 0.05), (512, 256, 32, 0.5),
                                      (512, 256, 32, 0.95), (5, 300, 5, 0.7),
-                                     (3, 7, 2, 0.95)])
+                                     (3, 7, 2, 0.95), (512, 256, 28, 0.5),
+                                     (70, 1100, 8, 0.3), (1, 1, 1, 0.5)])
 def test_flash_guidance_kernel(card, B, N, H, t):
     """At the main-path width (D=4096) the images are quarter-integers in
     [-2, 2]: every product and partial sum is then exact in float32, so the
@@ -58,7 +61,7 @@ def test_flash_guidance_kernel(card, B, N, H, t):
     g = torch.Generator(card).manual_seed(B + N)
 
     def rnd(*shape):
-        if H < 32:
+        if H < 28:
             return torch.randn(shape, generator=g, device=card)
         return torch.randint(-8, 9, shape, generator=g, device=card) / 4.0
 
@@ -72,6 +75,59 @@ def test_flash_guidance_kernel(card, B, N, H, t):
     want = flash_guidance_reference(*args, t)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-4)
+
+
+def _normal_guidance_inputs(card, H, y_ch, seed):
+    g = torch.Generator(card).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=card)
+
+    return (rnd(512, H, H, 1), rnd(512, H, H, y_ch), rnd(256, H, H, 1),
+            rnd(256, H, H, y_ch), rnd(256))
+
+
+@pytest.mark.parametrize("t", [0.05, 0.5, 0.95])
+@pytest.mark.parametrize("H,y_ch", [(32, 3), (28, 1)])
+def test_flash_guidance_kernel_float64_yardstick(card, H, y_ch, t):
+    """N(0,1) images at both main widths (D = 4096 and 1568): the scores
+    are ~D/2 in magnitude, so float32 rounding moves near-tied weights and
+    no fixed tolerance holds. The yardstick is the plain version in
+    float64: the kernel's max |err| in g may be at most twice the float32
+    plain version's. Twice, because both are float32 sums of the same
+    length in different orders: their errors are draws of one distribution,
+    and the maximum over 2M outputs of one draw exceeds another's by tens
+    of percent, not by a factor."""
+    args = _normal_guidance_inputs(card, H, y_ch, H)
+    got = flash_guidance(*args, t)
+    torch.cuda.synchronize()
+    plain = flash_guidance_reference(*args, t)
+    exact = flash_guidance_reference(*args, t, torch.float64)
+    for i in range(2):
+        err_k = float((got[i].double() - exact[i]).abs().max())
+        err_p = float((plain[i].double() - exact[i]).abs().max())
+        assert err_k <= 2.0 * err_p + 1e-6, (err_k, err_p)
+    for i in (2, 3):      # ess, l: the same rounding moves them by ~1e-3
+        torch.testing.assert_close(got[i].double(), exact[i], rtol=2e-2,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("B,N,H,y_ch", [(512, 256, 32, 3), (512, 256, 28, 1),
+                                        (5, 300, 5, 3)])
+def test_flash_guidance_kernel_is_deterministic(card, B, N, H, y_ch):
+    """Two launches on the same inputs give the same bits: the cluster's
+    ranks add their partial sums in rank order, no atomics."""
+    g = torch.Generator(card).manual_seed(7)
+    args = tuple(torch.randn(s, generator=g, device=card) for s in (
+        (B, H, H, 1), (B, H, H, y_ch), (N, H, H, 1), (N, H, H, y_ch), (N,)))
+    first = flash_guidance(*args, 0.5)
+    torch.cuda.synchronize()
+    filler = torch.empty(64 << 20, dtype=torch.uint8, device=card).zero_()
+    second = flash_guidance(*args, 0.5)
+    torch.cuda.synchronize()
+    del filler
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, dict(rtol=1e-4,

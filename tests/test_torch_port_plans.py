@@ -1,7 +1,14 @@
-"""Launch plans of the port's GroupNorm kernels, on the CPU.
+"""Launch plans of the port's kernels, on the CPU.
+
+`ops/guidance.py:guidance_plan` (kernel A) is pure Python: at both main-path
+shapes, a ragged one, the smallest one and a short and a long MC axis it is
+held to what the kernels assume — every (b, n) score, every feature and
+every (b, d) output covered exactly once, slices that are whole stages,
+clusters of at most 8 CTAs, dynamic shared memory within one block's
+232,448 bytes, the 16-byte loader only where every row is 16-byte aligned.
 
 `ops/groupnorm.py:gn_plan` (kernel B) and `ops/resblock.py:conv_plan`
-(kernel C) are pure Python: here they are held, at every GroupNorm and
+(kernel C) are pure Python too: here they are held, at every GroupNorm and
 ResBlock norm1 -> conv1 shape of both experiments' main paths, at B=5 and
 at the float32 shapes of the experiment-1 ratio net, to what the kernels
 assume — every sample, pixel row and channel covered exactly once, dynamic
@@ -30,6 +37,13 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     SMEM_MAX,
     gn_plan,
     gn_slices,
+)
+from ratio_guided_multimodal_fm_tpu_torch.ops import guidance
+from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
+    guidance_plan,
+    score_slices,
+    score_tiles,
+    sum_tiles,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
     conv_plan,
@@ -61,6 +75,104 @@ GN_CASES = sorted(
     | {(B, C, H, 4) for C, H in EXP1_RATIO_GN for B in (256, 5)})
 RB_CASES = sorted({(B, C, H, O, s) for C, H, O in EXP2_RB + EXP1_RB + BENCH_RB
                    for B in (512, 5) for s in (2, 4)})
+
+
+# (B, N, Dx, Dy): experiment 2, experiment 1, ragged, smallest, a short and
+# a long MC axis, a wide ragged one, a batch of one
+GUIDANCE_CASES = [(512, 256, 1024, 3072), (512, 256, 784, 784),
+                  (5, 300, 25, 75), (1, 1, 1, 1), (512, 64, 1024, 3072),
+                  (512, 4096, 1024, 3072), (70, 1100, 64, 192),
+                  (3, 7, 4, 12), (1, 256, 1024, 3072), (1000, 33, 6, 10)]
+
+
+@pytest.mark.parametrize("aligned_ptrs", [True, False])
+@pytest.mark.parametrize("B,N,Dx,Dy", GUIDANCE_CASES)
+def test_guidance_plan_covers_every_score_and_output_once(B, N, Dx, Dy,
+                                                          aligned_ptrs):
+    plan = guidance_plan(B, N, Dx, Dy, aligned_ptrs)
+    D = Dx + Dy
+    assert plan.aligned == (aligned_ptrs and Dx % 4 == 0 and Dy % 4 == 0)
+    assert 1 <= plan.cluster <= min(8, plan.k_stages)
+    tiles1 = plan.tiles_b1 * plan.tiles_n1
+    waves = -(-tiles1 // guidance.CAPACITY[plan.cluster - 1])
+    for k in range(1, min(8, plan.k_stages) + 1):     # no k runs fewer stages
+        assert (waves * -(-plan.k_stages // plan.cluster)
+                <= -(-tiles1 // guidance.CAPACITY[k - 1])
+                * -(-plan.k_stages // k))
+    assert plan.grid1 % plan.cluster == 0 and plan.threads == 256
+    assert 3 <= plan.stages <= 4
+    assert max(plan.smem1, plan.smem2) <= guidance.SMEM_MAX == SMEM_MAX
+    # every feature in exactly one rank's slice; slices are whole stages
+    slices = score_slices(plan, D)
+    assert len(slices) == plan.cluster
+    assert slices[0][0] == 0 and slices[-1][1] == D
+    for (lo, hi), (lo2, _) in zip(slices, slices[1:] + [(D, D)]):
+        assert lo < hi == lo2 and lo % guidance.BK == 0
+        assert hi % guidance.BK == 0 or hi == D
+    # every (b, n) in exactly one score tile, every tile a whole cluster
+    seen = torch.zeros(B, N, dtype=torch.int32)
+    first = []
+    for cta, bs, ns in score_tiles(plan, B, N):
+        assert len(bs) <= guidance.BM1 and len(ns) <= guidance.BN1
+        seen[bs.start:bs.stop, ns.start:ns.stop] += 1
+        first.append(cta)
+    assert bool((seen == 1).all())
+    assert first == list(range(0, plan.grid1, plan.cluster))
+    # every (b, d) in exactly one weighted-sum tile
+    assert (plan.bm2, plan.bd2) in guidance.SUM_TILES
+    out = torch.zeros(B, D, dtype=torch.int32)
+    ctas = []
+    for cta, bs, ds in sum_tiles(plan, B, D):
+        assert len(bs) <= plan.bm2 and len(ds) <= plan.bd2
+        out[bs.start:bs.stop, ds.start:ds.stop] += 1
+        ctas.append(cta)
+    assert bool((out == 1).all()) and ctas == list(range(plan.grid2))
+
+
+def test_guidance_plan_main_shapes_cover_the_card():
+    """B=512, N=256: 16 score tiles. The H100 holds only 15 clusters of 8
+    (or 7) CTAs at once but 17 of 6, so a cluster of 6 (96 CTAs, one wave)
+    beats 8 (two waves); a card that holds 16 clusters of 8 gets 8. The
+    weighted sum takes 64 x 128 tiles at both widths: 256 CTAs at D=4096,
+    two to an SM and started as a programmatic dependent, and 104 at
+    D=1568, which wait for the score kernel's end."""
+    main = guidance_plan(512, 256, 1024, 3072)
+    assert (main.cluster, main.grid1, main.aligned) == (6, 96, True)
+    assert (main.bm2, main.bd2, main.grid2, main.pdl) == (64, 128, 256, True)
+    roomy = guidance_plan(512, 256, 1024, 3072,
+                          capacity=(132, 66, 44, 33, 26, 22, 18, 16))
+    assert (roomy.cluster, roomy.grid1) == (8, 128)
+    exp1 = guidance_plan(512, 256, 784, 784)
+    assert (exp1.cluster, exp1.grid1, exp1.k_stages) == (6, 96, 49)
+    assert (exp1.bm2, exp1.bd2, exp1.grid2, exp1.pdl) == (64, 128, 104, False)
+    assert (guidance_plan(5, 300, 25, 75).bm2,
+            guidance_plan(5, 300, 25, 75).bd2) == (32, 64)
+    assert [hi - lo for lo, hi in score_slices(exp1, 1568)] == [
+        256, 256, 256, 256, 256, 288]
+    assert guidance.workspace_floats(512, 256) == 512 * 256 + 3 * 512 * 8
+    # a short MC axis (8 tiles) fits clusters of 8; a long one fills the
+    # card without a split of the feature axis
+    assert guidance_plan(512, 64, 1024, 3072).cluster == 8
+    assert guidance_plan(512, 4096, 1024, 3072).cluster == 1
+    # the shared-memory formulas of csrc/flash_guidance.cu
+    assert main.smem1 == 4 * (4 * (64 + 128) * 36 + 3 * 128)
+    assert main.smem2 == 4 * (4 * 32 * 128 + 2 * 64 * 36 + 2 * 64)
+    with pytest.raises(ValueError, match="empty"):
+        guidance_plan(0, 4, 4, 4)
+
+
+def test_guidance_bench_needs_a_card_and_names_kernels():
+    """cli/guidance_kernel_bench.py times kernels of the card only: on the
+    CPU it refuses; its kernel labels drop namespaces and arguments."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        guidance_kernel_bench as bench,
+    )
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench.main([])
+    assert bench.short("void (anonymous namespace)::scores_kernel<true>("
+                       "(anonymous namespace)::Args)") == "scores_kernel<true>"
+    assert bench.short("weighted_sum_kernel<true, 64, 128>(Args)") == (
+        "weighted_sum_kernel<true, 64, 128>")
 
 
 def _shapes(models, xs, ys):
