@@ -13,8 +13,8 @@ which fails the script (non-zero exit) on error:
    experiment-1 D = 1568) for t in {0.05, 0.5, 0.95} plus a ragged shape
    (rtol 1e-3, atol 1e-4, on images that float32 sums exactly), on N(0,1)
    images against the plain version run in float64 (the kernel's max |err|
-   in g at most twice the float32 plain version's), and two launches on
-   the same inputs bit for bit; group_norm_silu at every (B, C, H) shape the
+   in g at most twice the float32 plain version's, ess and l within rtol
+   2e-2), and two launches on the same inputs bit for bit; group_norm_silu at every (B, C, H) shape the
    U-Nets and the experiment-1 ratio net run, in channels_last and NCHW
    memory, in bfloat16 (one bf16 step: rtol 2**-7, atol 1e-3) and float32
    (1e-4), plus an odd batch; fused_gn_silu_conv at every
@@ -37,7 +37,7 @@ which fails the script (non-zero exit) on error:
    beside the kernel's bound at the card's published peak rates;
    flash_guidance at both widths four ways (CUDA events, device time by
    the profiler with L2 warm and cold, host time per call:
-   cli/guidance_kernel_bench.py), and
+   core/card.py:call_times), and
    group_norm_silu at every main-path GN shape (CUDA events, and device
    time by the profiler) beside its bytes bound, summed over one sampler
    call;
@@ -315,13 +315,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is false)")
     try:
-        from ratio_guided_multimodal_fm_tpu_torch.cli.guidance_kernel_bench import (
+        from ratio_guided_multimodal_fm_tpu_torch.core.card import (
+            call_times,
+            card_info,
             device_ms,
             l2_flusher,
-            measure_call,
-        )
-        from ratio_guided_multimodal_fm_tpu_torch.core.card import (
-            card_info,
             peaks_for,
             time_ms,
         )
@@ -431,7 +429,17 @@ def main(argv=None) -> int:
             exact = flash_guidance_reference(*normal_in, t, torch.float64)
             err_k, err_p = (max(float((r[i].double() - exact[i]).abs().max())
                                 for i in (0, 1)) for r in (got, plain))
-            yardstick[f"{tag}_t{t}"] = dict(kernel=err_k, plain_f32=err_p)
+            # ess and l: the same rounding moves them by ~1e-3 of their value
+            rel_k, rel_p = (max(float(((r[i].double() - exact[i]).abs()
+                                       / exact[i].abs()).max())
+                                for i in (2, 3)) for r in (got, plain))
+            yardstick[f"{tag}_t{t}"] = dict(kernel=err_k, plain_f32=err_p,
+                                            kernel_ess_l_rel=rel_k,
+                                            plain_f32_ess_l_rel=rel_p)
+            for i, nm in ((2, "ess"), (3, "l")):
+                check_close(f"flash_guidance {nm} {tag} t={t} on N(0,1) images "
+                            "against float64", got[i].double(), exact[i],
+                            rtol=2e-2, atol=1e-4)
             if err_k > 2.0 * err_p + 1e-6:
                 fail(f"flash_guidance {tag} t={t} on N(0,1) images: max |err| "
                      f"in g against float64 {err_k:.3g} exceeds twice the "
@@ -439,7 +447,11 @@ def main(argv=None) -> int:
     print("flash_guidance against the float64 plain version, N(0,1) images, "
           "max |err| in g (kernel / float32 plain): " + ", ".join(
               f"{k} {v['kernel']:.3g} / {v['plain_f32']:.3g}"
-              for k, v in yardstick.items()))
+              for k, v in yardstick.items())
+          + "; ess and l within rtol 2e-2 of float64, largest relative error "
+          + "(kernel / float32 plain) "
+          + " / ".join(f"{max(v[key] for v in yardstick.values()):.3g}"
+                       for key in ("kernel_ess_l_rel", "plain_f32_ess_l_rel")))
     details["flash_guidance_float64_yardstick"] = yardstick
     # the cluster's ranks add in rank order and nothing is atomic: two
     # launches on the same inputs, the L2 flushed in between, give the same bits
@@ -626,17 +638,17 @@ def main(argv=None) -> int:
                                  gy.reshape(B_MAIN, -1)], 1))
         return sdpa, err
 
-    # flash_guidance at both widths: the four times of
-    # cli/guidance_kernel_bench.py, the plain version, the library call and
-    # the bound
-    sms, capacity = card_capacity(dev.index or 0)
+    # flash_guidance at both widths: the four times of core/card.py:
+    # call_times, the plain version, the library call and the bound
+    capacity = card_capacity(dev.index or 0)
     fg_times = {}
     for tag, inputs in (("D4096", main_in), ("D1568", e1_in)):
         Dx, Dy = inputs[0][0].numel(), inputs[1][0].numel()
         D = Dx + Dy
         fl = 2.0 * 2 * B_MAIN * N_MC * D             # two GEMMs, 2 flop/FMA
         by = 4.0 * (2 * B_MAIN * D + N_MC * D + N_MC + 2 * B_MAIN)
-        row = measure_call(lambda: flash_guidance(*inputs, t_mid), dev)
+        row = call_times(lambda: flash_guidance(*inputs, t_mid), dev,
+                         ("scores_kernel", "weighted_sum_kernel"))
         sdpa, sdpa_err = sdpa_for(inputs)
         row.update(
             D=D, plain_ms=time_ms(
@@ -644,8 +656,7 @@ def main(argv=None) -> int:
             library_ms=time_ms(sdpa, dev), library_max_abs_err_g=sdpa_err,
             bound_ms=max(fl / peak_f32, by / peak_bw) * 1e3,
             bound_by="operations" if fl / peak_f32 > by / peak_bw else "bytes",
-            plan=vars(guidance_plan(B_MAIN, N_MC, Dx, Dy, True, sms,
-                                    capacity)))
+            plan=vars(guidance_plan(B_MAIN, N_MC, Dx, Dy, True, capacity)))
         fg_times[tag] = row
         print(f"  flash_guidance B={B_MAIN} N={N_MC} D={D} f32: device "
               f"{row['device_ms']:.4f} ms (profiler, both kernels; L2 cold "

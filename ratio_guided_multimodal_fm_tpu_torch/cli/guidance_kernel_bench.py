@@ -2,7 +2,8 @@
 so that the host does not set the number.
 
 At both main-path widths (B=512, N=256; D=4096 of experiment 2 and D=1568
-of experiment 1, float32, t=0.5) it reports, per wrapper call:
+of experiment 1, float32, t=0.5) it reports, per wrapper call, the times of
+core/card.py:call_times:
 
 * `event_ms`       — CUDA events around 20 back-to-back calls (at ~0.05 ms
   this follows the host's enqueue rate as much as the kernels);
@@ -17,83 +18,22 @@ of experiment 1, float32, t=0.5) it reports, per wrapper call:
 and `kernels`, the device time by kernel name.
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.guidance_kernel_bench \
-        [--trees DIR [DIR ...]] [--out outputs/guidance_kernel_bench.json]
+        [--out outputs/guidance_kernel_bench.json]
 
-`--trees` compares checkouts of this repository inside one run, on one
-card: each DIR is measured in a process of its own (its own package, its own
-kernel build), in the order given; name a tree twice to see the spread
-(parent, change, change, parent). It needs a CUDA card.
+It needs a CUDA card. To compare two commits, run it from a checkout of
+each in turn on the same card and read the two files.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import subprocess
-import sys
-import time
 
 import torch
 
 B_MAIN, N_MC, T_MID = 512, 256, 0.5
 WIDTHS = {"D4096": (32, 3), "D1568": (28, 1)}     # image size, y channels
-# kernel names of the wrapper, in this tree and in earlier ones
-KERNEL_NAMES = ("scores_", "row_softmax", "weighted_sum")
-
-
-def device_ms(fn, names, n: int = 20, between=None):
-    """(device ms per call, {kernel name: ms per call}) of the kernels whose
-    name contains one of `names`, by torch.profiler over n calls of fn();
-    `between()` runs before each call and is not counted. The first number
-    is the time during which at least one of those kernels ran (a dependent
-    kernel launched early overlaps its predecessor's tail, so the kernels'
-    own times can add up to more)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if isinstance(names, str):
-        names = (names,)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
-    by = {e.key: e.device_time_total / 1e3 / n for e in prof.key_averages()
-          if any(k in e.key for k in names)}
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(e.device_type).endswith("CUDA")
-                   and any(k in e.name for k in names))
-    if not spans:            # no timeline in this profiler: the plain sum
-        return sum(by.values()), by
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo, hi = busy + hi - lo, start, end
-        else:
-            hi = max(hi, end)
-    return (busy + hi - lo) / 1e3 / n, by
-
-
-def host_ms(fn, n: int = 200) -> float:
-    """Host time per call of fn(): n enqueues on the host clock with no
-    synchronise in between (the card drains afterwards)."""
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt * 1e3 / n
-
-
-def l2_flusher(device):
-    """A call that writes 64 MiB, more than the card's 50 MB L2."""
-    buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
-    return buf.zero_
+KERNEL_NAMES = ("scores_kernel", "weighted_sum_kernel")
 
 
 def short(name: str) -> str:
@@ -105,19 +45,8 @@ def short(name: str) -> str:
     return name[:40]
 
 
-def measure_call(fn, device) -> dict:
-    """The four times of one wrapper call fn()."""
-    from ratio_guided_multimodal_fm_tpu_torch.core.card import time_ms
-
-    event = time_ms(fn, device)
-    warm, by = device_ms(fn, KERNEL_NAMES)
-    cold, _ = device_ms(fn, KERNEL_NAMES, between=l2_flusher(device))
-    return dict(event_ms=event, device_ms=warm, device_cold_ms=cold,
-                host_ms=host_ms(fn),
-                kernels={short(k): v for k, v in by.items()})
-
-
 def measure(device) -> dict:
+    from ratio_guided_multimodal_fm_tpu_torch.core.card import call_times
     from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
         flash_guidance,
     )
@@ -128,19 +57,16 @@ def measure(device) -> dict:
         inputs = tuple(torch.randn(s, generator=g, device=device) for s in (
             (B_MAIN, H, H, 1), (B_MAIN, H, H, y_ch), (N_MC, H, H, 1),
             (N_MC, H, H, y_ch), (N_MC,)))
-        out[tag] = measure_call(lambda: flash_guidance(*inputs, T_MID),
-                                device)
+        row = call_times(lambda: flash_guidance(*inputs, T_MID), device,
+                         KERNEL_NAMES)
+        row["kernels"] = {short(k): v for k, v in row["kernels"].items()}
+        out[tag] = row
     return out
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--trees", nargs="*", default=[],
-                    help="checkouts to measure in turn, each in its own "
-                         "process (default: this one, in this process)")
     ap.add_argument("--out", default="outputs/guidance_kernel_bench.json")
-    ap.add_argument("--worker", action="store_true",
-                    help="measure the package on PYTHONPATH and print JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("guidance_kernel_bench: needs a CUDA card")
@@ -151,35 +77,17 @@ def main(argv=None):
     )
 
     device = resolve_device("cuda")        # pins float32 (no TF32)
-    if args.worker:
-        print("RESULT " + json.dumps(measure(device)), flush=True)
-        return None
     smi = card_info()
-    runs = []
-    if not args.trees:
-        runs.append(dict(tree=".", times=measure(device)))
-    for tree in args.trees:
-        tree = os.path.abspath(tree)
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--worker"], cwd=tree,
-            env=dict(os.environ, PYTHONPATH=tree), capture_output=True,
-            text=True, timeout=900)
-        lines = [ln for ln in proc.stdout.splitlines()
-                 if ln.startswith("RESULT ")]
-        if proc.returncode != 0 or not lines:
-            raise SystemExit(f"guidance_kernel_bench: {tree} failed\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
-        runs.append(dict(tree=tree, times=json.loads(lines[-1][7:])))
-    for run in runs:
-        for tag, r in run["times"].items():
-            print(f"{run['tree']} {tag}: events {r['event_ms']:.4f} ms, "
-                  f"device {r['device_ms']:.4f} (L2 cold "
-                  f"{r['device_cold_ms']:.4f}), host {r['host_ms']:.4f}; "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in
-                              sorted(r["kernels"].items()))
-                  + f"  [{smi}]", flush=True)
+    times = measure(device)
+    for tag, r in times.items():
+        print(f"{tag}: events {r['event_ms']:.4f} ms, device "
+              f"{r['device_ms']:.4f} (L2 cold {r['device_cold_ms']:.4f}), "
+              f"host {r['host_ms']:.4f}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in
+                          sorted(r["kernels"].items()))
+              + f"  [{smi}]", flush=True)
     out = dict(device=torch.cuda.get_device_name(device), nvidia_smi=smi,
-               shape=f"B={B_MAIN} N={N_MC} float32 t={T_MID}", runs=runs)
+               shape=f"B={B_MAIN} N={N_MC} float32 t={T_MID}", times=times)
     d = os.path.dirname(args.out)
     if d:
         os.makedirs(d, exist_ok=True)

@@ -1,7 +1,8 @@
 """The card's published peak rates, its name and power limit, and the
-device-time protocol: the one source that the tier-C bench
-(cli/resblock_kernel_bench.py) and chip_smoke.py compute bounds and times
-from."""
+timers (CUDA events, device time by torch.profiler with the L2 warm or
+cold, host time per call): the one source that the kernel benches
+(cli/resblock_kernel_bench.py, cli/guidance_kernel_bench.py) and
+chip_smoke.py compute bounds and times from."""
 from __future__ import annotations
 
 import subprocess
@@ -57,3 +58,70 @@ def time_ms(fn, device: torch.device, iters: int = 20,
     for _ in range(iters):
         fn()
     return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def device_ms(fn, names, n: int = 20, between=None):
+    """(device ms per call, {kernel name: ms per call}) of the kernels whose
+    name contains one of `names`, by torch.profiler over n calls of fn();
+    `between()` runs before each call and is not counted. The first number
+    is the time during which at least one of those kernels ran, from the
+    profiler's timeline; it raises where the profiler recorded no such
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if isinstance(names, str):
+        names = (names,)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            if between is not None:
+                between()
+            fn()
+        torch.cuda.synchronize()
+    by = {e.key: e.device_time_total / 1e3 / n for e in prof.key_averages()
+          if any(k in e.key for k in names)}
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA")
+                   and any(k in e.name for k in names))
+    if not spans:
+        raise RuntimeError(f"device_ms: the profiler recorded no kernel "
+                           f"named like {names}")
+    busy, (lo, hi) = 0.0, spans[0]
+    for start, end in spans[1:]:
+        if start > hi:
+            busy, lo, hi = busy + hi - lo, start, end
+        else:
+            hi = max(hi, end)
+    return (busy + hi - lo) / 1e3 / n, by
+
+
+def host_ms(fn, n: int = 200) -> float:
+    """Host time per call of fn(): n enqueues on the host clock with no
+    synchronise in between (the card drains afterwards)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt * 1e3 / n
+
+
+def l2_flusher(device):
+    """A call that writes 64 MiB, more than the card's 50 MB L2."""
+    buf = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+    return buf.zero_
+
+
+def call_times(fn, device, names) -> dict:
+    """Four times of one call fn() whose kernels are named like `names`:
+    `event_ms` (CUDA events around 20 back-to-back calls), `device_ms`
+    (profiler, L2 warm), `device_cold_ms` (the L2 flushed before each call),
+    `host_ms`, and `kernels`, the device time by kernel name."""
+    warm, by = device_ms(fn, names)
+    cold, _ = device_ms(fn, names, between=l2_flusher(device))
+    return dict(event_ms=time_ms(fn, device), device_ms=warm,
+                device_cold_ms=cold, host_ms=host_ms(fn), kernels=by)

@@ -1,7 +1,8 @@
 // mc_feng guidance (Feng et al. Alg. 2) for Hopper (sm_90a), IEEE float32
 // FMA throughout (no tensor cores: there is no float32 mma, and a split
 // product would change the rounding of scores that are ~2000 in magnitude at
-// D = 4096).
+// D = 4096). Exponentials are expf and the ESS quotient is an IEEE division:
+// no approximate intrinsic (__expf, __fdividef) is used.
 //
 // Replaces: ratio_guided_multimodal_fm_tpu/ops/guidance_pallas.py:flash_guidance
 // (body `_kernel`), which walks the MC axis N as a sequential grid with a
@@ -51,14 +52,14 @@
 //     W never exists in device memory.
 //   * Kernel 2 takes 64 x 128 tiles with 4x8 outputs per thread, two CTAs an
 //     SM: 16 warps hide the barriers and shared-memory latency better than
-//     8 warps with 8x8 outputs did (measured). Where its grid fills the card
-//     it is launched as a programmatic dependent of kernel 1 and prefetches
-//     its first V stages before it waits for S.
+//     8 warps with 8x8 outputs did (measured). That is 256 CTAs at D = 4096
+//     and 104 at D = 1568; its first V stages load while the prologue folds
+//     the softmax partials.
 //   * Rows that are not 16-byte aligned take a generic loader (template
 //     parameter) with scalar loads inside the same kernels.
 //
-// The plan (cluster size, kernel 2's tile, loader, shared-memory bytes) is
-// made by ops/guidance.py:guidance_plan; the constants below mirror it.
+// The plan (cluster size, loader, grids, shared-memory bytes) is made by
+// ops/guidance.py:guidance_plan; the constants below mirror it.
 // Masked edges stand in for the TPU kernel's -1e30 log-ratio and zero feature
 // padding. t is a kernel argument, so nothing is rebuilt per ODE step.
 
@@ -80,6 +81,8 @@ constexpr int kStages = 4;       // ring depth
 constexpr int kBM1 = 64;         // kernel 1 tile: trajectories b
 constexpr int kBN1 = 128;        // kernel 1 tile: MC rows n
 constexpr int kStage1 = (kBM1 + kBN1) * kLd;   // floats of one kernel-1 stage
+constexpr int kBM2 = 64;         // kernel 2 tile: trajectories b
+constexpr int kBD2 = 128;        // kernel 2 tile: features d
 constexpr int kLdP = kBN1 + 16;  // row stride of the partial tile
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -88,8 +91,8 @@ static_assert(kBM1 * kLdP <= kStages * kStage1, "partial tile aliases the ring")
 __host__ __device__ constexpr int smem1_floats() {
   return kStages * kStage1 + 3 * kBN1;   // ring, |v|^2 partials (double), sums
 }
-__host__ __device__ constexpr int smem2_floats(int BM, int BD) {
-  return kStages * kBK * BD + 2 * BM * kLd + 2 * BM;
+__host__ __device__ constexpr int smem2_floats() {
+  return kStages * kBK * kBD2 + 2 * kBM2 * kLd + 2 * kBM2;
 }
 
 struct Args {
@@ -274,8 +277,6 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
 
   cp_async_wait<0>();
   __syncthreads();   // every thread is done with the ring: P may alias it
-  // the dependent kernel may start its set-up (it waits for S all the same)
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   if (h == 1) {
 #pragma unroll
@@ -360,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
     float l[4], q2[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float e = in ? __expf(s[r] - mx[r]) : 0.f;
+      const float e = in ? expf(s[r] - mx[r]) : 0.f;
       l[r] = e;
       q2[r] = e * e;
     }
@@ -392,8 +393,10 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
 // Kernel 2. grid tiles_d * tiles_b (1-D), block kThreads. One CTA per BM x BD
 // tile of G; K = N in stages of kBK. Thread (ty, tx) owns rows ty + 16i
 // (i < BM/16) and columns 64g + 4tx .. +3 (g < BD/64).
-template <bool AL, int BM, int BD>
+template <bool AL>
 __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
+  constexpr int BM = kBM2;
+  constexpr int BD = kBD2;
   constexpr int TM = BM / 16;
   constexpr int TG = BD / 64;
   constexpr int kStage2 = kBK * BD;
@@ -424,14 +427,12 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
                                a.Dy, N, st * kBK, d0, D, tid);
   };
 
-  // V does not depend on kernel 1: its first stages go before the wait
+  // the first V stages load while the prologue takes the rows' statistics
 #pragma unroll
   for (int p = 0; p < kStages - 1; ++p) {
     if (p < nst) load_v(p);
     cp_async_commit();
   }
-  // S is complete and visible after this (a no-op in a plain launch)
-  asm volatile("griddepcontrol.wait;" ::: "memory");
 
   // softmax statistics of the tile's rows from the partials (max, sum e,
   // sum e^2 per 32 columns) that kernel 1 left behind S: warp w takes rows
@@ -462,12 +463,12 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
       for (int rr = 0; rr < SR; ++rr) {
         if (!have) continue;
         if (pm[rr] > M[rr]) {
-          const float c = __expf(M[rr] - pm[rr]);
+          const float c = expf(M[rr] - pm[rr]);
           l[rr] *= c;
           q[rr] *= c * c;
           M[rr] = pm[rr];
         }
-        const float c = __expf(pm[rr] - M[rr]);
+        const float c = expf(pm[rr] - M[rr]);
         l[rr] = fmaf(pl[rr], c, l[rr]);
         q[rr] = fmaf(pq[rr], c * c, q[rr]);
       }
@@ -482,7 +483,7 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
         Mw[rr] = fmaxf(Mw[rr], __shfl_xor_sync(kFull, Mw[rr], off));
 #pragma unroll
     for (int rr = 0; rr < SR; ++rr) {
-      const float c = __expf(M[rr] - Mw[rr]);
+      const float c = expf(M[rr] - Mw[rr]);
       l[rr] *= c;
       q[rr] *= c * c;
     }
@@ -509,7 +510,7 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
       row_m[r] = in ? Mv : 0.f;
       row_il[r] = in ? __frcp_rn(lv + 1e-30f) : 0.f;
       if (in && d0 == 0) {
-        a.ess[b] = __fdividef(lv * lv, qv + 1e-30f);
+        a.ess[b] = (lv * lv) / (qv + 1e-30f);
         a.l[b] = lv;
       }
     }
@@ -547,10 +548,10 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
       const int r = wr + 32 * i;
       const float m = row_m[r], il = row_il[r];
       float4 w;
-      w.x = sv[i].x > -FLT_MAX ? __expf(sv[i].x - m) * il : 0.f;
-      w.y = sv[i].y > -FLT_MAX ? __expf(sv[i].y - m) * il : 0.f;
-      w.z = sv[i].z > -FLT_MAX ? __expf(sv[i].z - m) * il : 0.f;
-      w.w = sv[i].w > -FLT_MAX ? __expf(sv[i].w - m) * il : 0.f;
+      w.x = sv[i].x > -FLT_MAX ? expf(sv[i].x - m) * il : 0.f;
+      w.y = sv[i].y > -FLT_MAX ? expf(sv[i].y - m) * il : 0.f;
+      w.z = sv[i].z > -FLT_MAX ? expf(sv[i].z - m) * il : 0.f;
+      w.w = sv[i].w > -FLT_MAX ? expf(sv[i].w - m) * il : 0.f;
       *reinterpret_cast<float4*>(dst + r * kLd) = w;
     }
   };
@@ -690,33 +691,17 @@ int launch_scores(const Args& a, cudaStream_t s, int* occupancy) {
   return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <bool AL, int BM, int BD>
-int launch_sum(const Args& a, int pdl, cudaStream_t s) {
-  auto kernel = weighted_sum_kernel<AL, BM, BD>;
+template <bool AL>
+int launch_sum(const Args& a, cudaStream_t s) {
+  auto kernel = weighted_sum_kernel<AL>;
   static int smem_set = 0;
-  const int bytes = smem2_floats(BM, BD) * (int)sizeof(float);
+  const int bytes = smem2_floats() * (int)sizeof(float);
   cudaError_t err = allow_smem(kernel, bytes, smem_set);
   if (err != cudaSuccess) return (int)err;
   const int D = a.Dx + a.Dy;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((D + BD - 1) / BD) * ((a.B + BM - 1) / BM));
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = bytes;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = pdl ? 1 : 0;
-  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
-}
-
-template <bool AL>
-int dispatch_sum(const Args& a, int bm, int bd, int pdl, cudaStream_t s) {
-  if (bm == 64 && bd == 128) return launch_sum<AL, 64, 128>(a, pdl, s);
-  if (bm == 64 && bd == 64) return launch_sum<AL, 64, 64>(a, pdl, s);
-  if (bm == 32 && bd == 64) return launch_sum<AL, 32, 64>(a, pdl, s);
-  return (int)cudaErrorInvalidValue;
+  const int grid = ((D + kBD2 - 1) / kBD2) * ((a.B + kBM2 - 1) / kBM2);
+  kernel<<<grid, kThreads, bytes, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -725,25 +710,23 @@ extern "C" {
 
 // Launch both kernels on `stream` with the plan of
 // ops/guidance.py:guidance_plan: `cluster` CTAs split the feature axis of each
-// score tile, kernel 2 takes bm x bd tiles, `aligned` picks the 16-byte
-// loader, `pdl` launches kernel 2 as a programmatic dependent of kernel 1. S is the only
-// workspace: [B, N] scores followed by [3, B, ceil(N/32)] softmax partials. smem1 and smem2 are the plan's dynamic shared-memory bytes
-// and must equal this file's. Returns a CUDA error code (0 = launched);
-// cudaErrorInvalidValue for a plan the kernels cannot run.
+// score tile and `aligned` picks the 16-byte loader. S is the only workspace:
+// [B, N] scores followed by [3, B, ceil(N/32)] softmax partials. smem1 and
+// smem2 are the plan's dynamic shared-memory bytes and must equal this file's.
+// Returns a CUDA error code (0 = launched); cudaErrorInvalidValue for a plan
+// the kernels cannot run.
 int rgmf_flash_guidance(const float* xt, const float* yt, const float* X1,
                         const float* Y1, const float* log_r, int B, int N,
                         int Dx, int Dy, float t, int cluster, int aligned,
-                        int bm, int bd, int pdl, int smem1, int smem2,
-                        float* S, float* gx, float* gy, float* ess, float* l,
-                        int device, void* stream) {
+                        int smem1, int smem2, float* S, float* gx, float* gy,
+                        float* ess, float* l, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int D = Dx + Dy;
   const int total = (D + kBK - 1) / kBK;
   if (B < 1 || N < 1 || Dx < 1 || Dy < 1 || cluster < 1 || cluster > 8 ||
       cluster > total || smem1 != smem1_floats() * (int)sizeof(float) ||
-      (bm != 64 && bm != 32) || (bd != 128 && bd != 64) ||
-      smem2 != smem2_floats(bm, bd) * (int)sizeof(float))
+      smem2 != smem2_floats() * (int)sizeof(float))
     return (int)cudaErrorInvalidValue;
   if (aligned &&
       (Dx % 4 || Dy % 4 ||
@@ -758,10 +741,7 @@ int rgmf_flash_guidance(const float* xt, const float* yt, const float* X1,
   if (rc != 0) return rc;
   rc = (int)cudaGetLastError();
   if (rc != 0) return rc;
-  rc = aligned ? dispatch_sum<true>(a, bm, bd, pdl, s)
-               : dispatch_sum<false>(a, bm, bd, pdl, s);
-  if (rc != 0) return rc;
-  return (int)cudaGetLastError();
+  return aligned ? launch_sum<true>(a, s) : launch_sum<false>(a, s);
 }
 
 // Clusters of `cluster` CTAs of the score kernel that the card can hold at

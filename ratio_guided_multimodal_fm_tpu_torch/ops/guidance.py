@@ -42,10 +42,9 @@ BK = 32                  # reduction depth of a shared-memory stage (kBK)
 LD = BK + 4              # row stride of a row-major stage, floats (kLd)
 STAGES = 4               # ring depth (kStages)
 BM1, BN1 = 64, 128       # score tile: trajectories b x MC rows n
-SUM_TILES = ((64, 128), (64, 64), (32, 64))   # kernel 2, b x d
+BM2, BD2 = 64, 128       # weighted-sum tile: trajectories b x features d
 SMEM_MAX = 232_448       # dynamic shared memory one block can use
 MAX_CLUSTER = 8          # largest portable cluster
-SMS = 132                # H100 SXM; the wrapper passes the card's own count
 # Clusters of 1..8 score-kernel CTAs that the card holds at once, as
 # cudaOccupancyMaxActiveClusters reported them on an NVIDIA H100 80GB HBM3
 # (its GPCs do not all hold two clusters of 7 or 8). The wrapper asks the
@@ -104,7 +103,7 @@ def _kernel_fn():
         lib = _build.load("flash_guidance")
         fn = lib.rgmf_flash_guidance
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i] * 4 + [ctypes.c_float] + [i] * 7
+        fn.argtypes = ([p] * 5 + [i] * 4 + [ctypes.c_float] + [i] * 4
                        + [p] * 5 + [i, p])
         fn.restype = i
         lib.rgmf_flash_guidance_max_clusters.argtypes = [i, i, i]
@@ -140,20 +139,16 @@ class GuidancePlan:
     tiles_n1: int        # ... and along n (BN1 columns)
     grid1: int
     smem1: int           # bytes
-    bm2: int             # weighted-sum tile, rows b ...
-    bd2: int             # ... and features d
-    tiles_b2: int
-    tiles_d2: int
+    tiles_b2: int        # weighted-sum tiles along b (BM2 rows) ...
+    tiles_d2: int        # ... and along d (BD2 features)
     grid2: int
     smem2: int           # bytes
     stages: int = STAGES
     threads: int = THREADS
-    pdl: bool = True     # kernel 2 is a programmatic dependent of kernel 1
 
 
 @functools.lru_cache(maxsize=256)
 def guidance_plan(B: int, N: int, Dx: int, Dy: int, aligned_ptrs: bool = True,
-                  sms: int = SMS,
                   capacity: Tuple[int, ...] = CAPACITY) -> GuidancePlan:
     """Plan for x_t|y_t [B, Dx|Dy] against X1|Y1 [N, Dx|Dy].
 
@@ -163,11 +158,8 @@ def guidance_plan(B: int, N: int, Dx: int, Dy: int, aligned_ptrs: bool = True,
     (at most 8, at most one rank per stage) is the one with the fewest
     stages in sequence, waves x ceil(stages / K), where a wave is the
     `capacity[K - 1]` clusters of K CTAs that the card holds at once; the
-    smaller K wins a tie. The weighted sum takes the largest tile of SUM_TILES
-    that still gives three quarters of the SMs a CTA, else the smallest.
-    It starts as a programmatic dependent of the score kernel only where it
-    has a CTA for every SM: its CTAs fit two to an SM, and a smaller grid
-    started early piles up on the SMs the score kernel leaves free."""
+    smaller K wins a tie. The weighted sum takes BM2 x BD2 tiles, two CTAs
+    to an SM: 256 CTAs at D = 4096 and 104 at D = 1568 (B = 512)."""
     if min(B, N, Dx, Dy) < 1:
         raise ValueError(f"guidance_plan: empty shape {(B, N, Dx, Dy)}")
     D = Dx + Dy
@@ -180,18 +172,12 @@ def guidance_plan(B: int, N: int, Dx: int, Dy: int, aligned_ptrs: bool = True,
         key=lambda k: (_cdiv(tiles1, max(1, capacity[k - 1]))
                        * _cdiv(k_stages, k), k))
     smem1 = 4 * (STAGES * (BM1 + BN1) * LD + 3 * BN1)
-    bm2, bd2 = SUM_TILES[-1]
-    for bm, bd in SUM_TILES:
-        if _cdiv(B, bm) * _cdiv(D, bd) >= (3 * sms) // 4:
-            bm2, bd2 = bm, bd
-            break
-    tiles_b2, tiles_d2 = _cdiv(B, bm2), _cdiv(D, bd2)
-    smem2 = 4 * (STAGES * BK * bd2 + 2 * bm2 * LD + 2 * bm2)
+    tiles_b2, tiles_d2 = _cdiv(B, BM2), _cdiv(D, BD2)
+    smem2 = 4 * (STAGES * BK * BD2 + 2 * BM2 * LD + 2 * BM2)
     assert max(smem1, smem2) <= SMEM_MAX
     return GuidancePlan(aligned, k_stages, cluster, tiles_b1, tiles_n1,
-                        cluster * tiles1, smem1, bm2, bd2, tiles_b2, tiles_d2,
-                        tiles_b2 * tiles_d2, smem2,
-                        pdl=tiles_b2 * tiles_d2 >= sms)
+                        cluster * tiles1, smem1, tiles_b2, tiles_d2,
+                        tiles_b2 * tiles_d2, smem2)
 
 
 def workspace_floats(B: int, N: int) -> int:
@@ -223,18 +209,17 @@ def sum_tiles(plan: GuidancePlan, B: int,
               D: int) -> Iterator[Tuple[int, range, range]]:
     """(CTA, rows b, features d) of every weighted-sum tile."""
     for cta in range(plan.grid2):
-        d0 = cta % plan.tiles_d2 * plan.bd2
-        b0 = cta // plan.tiles_d2 * plan.bm2
-        yield (cta, range(b0, min(B, b0 + plan.bm2)),
-               range(d0, min(D, d0 + plan.bd2)))
+        d0 = cta % plan.tiles_d2 * BD2
+        b0 = cta // plan.tiles_d2 * BM2
+        yield (cta, range(b0, min(B, b0 + BM2)), range(d0, min(D, d0 + BD2)))
 
 
 @functools.lru_cache(maxsize=None)
-def card_capacity(index: int) -> Tuple[int, Tuple[int, ...]]:
-    """(SMs, clusters of 1..8 score-kernel CTAs held at once) of a card."""
+def card_capacity(index: int) -> Tuple[int, ...]:
+    """Clusters of 1..8 score-kernel CTAs that a card holds at once."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    return sms, (sms,) + tuple(max_active_clusters(k, True, index)
-                               for k in range(2, MAX_CLUSTER + 1))
+    return (sms,) + tuple(max_active_clusters(k, True, index)
+                          for k in range(2, MAX_CLUSTER + 1))
 
 
 def _launch(xt, yt, X1, Y1, lr, t: float):
@@ -244,7 +229,7 @@ def _launch(xt, yt, X1, Y1, lr, t: float):
     dev = xt.device
     index = dev.index if dev.index is not None else torch.cuda.current_device()
     f32 = torch.float32
-    sms, capacity = card_capacity(index)
+    capacity = card_capacity(index)
     ws = torch.empty((workspace_floats(B, N),), dtype=f32, device=dev)
     gx = torch.empty_like(xt)
     gy = torch.empty_like(yt)
@@ -253,11 +238,11 @@ def _launch(xt, yt, X1, Y1, lr, t: float):
     ptrs = [a.data_ptr() for a in (xt, yt, X1, Y1, lr, ws, gx, gy, ess, l)]
     # the rows the 16-byte loader and the vector stores touch
     aligned = all(p % 16 == 0 for p in ptrs[:4] + ptrs[5:8])
-    plan = guidance_plan(B, N, Dx, Dy, aligned, sms, capacity)
+    plan = guidance_plan(B, N, Dx, Dy, aligned, capacity)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*ptrs[:5], B, N, Dx, Dy, float(np.float32(t)), plan.cluster,
-             int(plan.aligned), plan.bm2, plan.bd2, int(plan.pdl), plan.smem1,
-             plan.smem2, *ptrs[5:], index, stream)
+             int(plan.aligned), plan.smem1, plan.smem2, *ptrs[5:], index,
+             stream)
     if err != 0:
         raise RuntimeError(f"flash_guidance kernel launch failed: CUDA error "
                            f"{err} ({err_str(err).decode()})")

@@ -119,11 +119,12 @@ def test_guidance_plan_covers_every_score_and_output_once(B, N, Dx, Dy,
     assert bool((seen == 1).all())
     assert first == list(range(0, plan.grid1, plan.cluster))
     # every (b, d) in exactly one weighted-sum tile
-    assert (plan.bm2, plan.bd2) in guidance.SUM_TILES
+    assert (plan.tiles_b2, plan.tiles_d2) == (-(-B // guidance.BM2),
+                                              -(-D // guidance.BD2))
     out = torch.zeros(B, D, dtype=torch.int32)
     ctas = []
     for cta, bs, ds in sum_tiles(plan, B, D):
-        assert len(bs) <= plan.bm2 and len(ds) <= plan.bd2
+        assert len(bs) <= guidance.BM2 and len(ds) <= guidance.BD2
         out[bs.start:bs.stop, ds.start:ds.stop] += 1
         ctas.append(cta)
     assert bool((out == 1).all()) and ctas == list(range(plan.grid2))
@@ -133,20 +134,18 @@ def test_guidance_plan_main_shapes_cover_the_card():
     """B=512, N=256: 16 score tiles. The H100 holds only 15 clusters of 8
     (or 7) CTAs at once but 17 of 6, so a cluster of 6 (96 CTAs, one wave)
     beats 8 (two waves); a card that holds 16 clusters of 8 gets 8. The
-    weighted sum takes 64 x 128 tiles at both widths: 256 CTAs at D=4096,
-    two to an SM and started as a programmatic dependent, and 104 at
-    D=1568, which wait for the score kernel's end."""
+    weighted sum takes 64 x 128 tiles at every shape: 256 CTAs at D=4096,
+    two to an SM, and 104 at D=1568."""
     main = guidance_plan(512, 256, 1024, 3072)
     assert (main.cluster, main.grid1, main.aligned) == (6, 96, True)
-    assert (main.bm2, main.bd2, main.grid2, main.pdl) == (64, 128, 256, True)
+    assert (guidance.BM2, guidance.BD2, main.grid2) == (64, 128, 256)
     roomy = guidance_plan(512, 256, 1024, 3072,
                           capacity=(132, 66, 44, 33, 26, 22, 18, 16))
     assert (roomy.cluster, roomy.grid1) == (8, 128)
     exp1 = guidance_plan(512, 256, 784, 784)
     assert (exp1.cluster, exp1.grid1, exp1.k_stages) == (6, 96, 49)
-    assert (exp1.bm2, exp1.bd2, exp1.grid2, exp1.pdl) == (64, 128, 104, False)
-    assert (guidance_plan(5, 300, 25, 75).bm2,
-            guidance_plan(5, 300, 25, 75).bd2) == (32, 64)
+    assert (exp1.tiles_b2, exp1.tiles_d2, exp1.grid2) == (8, 13, 104)
+    assert guidance_plan(5, 300, 25, 75).grid2 == 1
     assert [hi - lo for lo, hi in score_slices(exp1, 1568)] == [
         256, 256, 256, 256, 256, 288]
     assert guidance.workspace_floats(512, 256) == 512 * 256 + 3 * 512 * 8
