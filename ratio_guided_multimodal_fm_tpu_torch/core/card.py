@@ -60,34 +60,42 @@ def time_ms(fn, device: torch.device, iters: int = 20,
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
-def device_ms(fn, names, n: int = 20, between=None):
+class ProfilerSilent(RuntimeError):
+    """torch.profiler recorded none of the kernels asked for."""
+
+
+def device_ms(fn, names, n: int = 20, between=None, sessions: int = 3):
     """(device ms per call, {kernel name: ms per call}) of the kernels whose
     name contains one of `names`, by torch.profiler over n calls of fn();
     `between()` runs before each call and is not counted. The first number
     is the time during which at least one of those kernels ran, from the
-    profiler's timeline; it raises where the profiler recorded no such
-    kernel."""
+    profiler's timeline. A session in which the profiler recorded no such
+    kernel (its device tracing sometimes delivers nothing) is run again, up
+    to `sessions` in all; then it raises ProfilerSilent."""
     from torch.profiler import ProfilerActivity, profile
 
     if isinstance(names, str):
         names = (names,)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            if between is not None:
-                between()
-            fn()
-        torch.cuda.synchronize()
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if between is not None:
+                    between()
+                fn()
+            torch.cuda.synchronize()
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if str(e.device_type).endswith("CUDA")
+                       and any(k in e.name for k in names))
+        if spans:
+            break
+    else:
+        raise ProfilerSilent(f"device_ms: the profiler recorded no kernel "
+                             f"named like {names} in {sessions} sessions")
     by = {e.key: e.device_time_total / 1e3 / n for e in prof.key_averages()
           if any(k in e.key for k in names)}
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if str(e.device_type).endswith("CUDA")
-                   and any(k in e.name for k in names))
-    if not spans:
-        raise RuntimeError(f"device_ms: the profiler recorded no kernel "
-                           f"named like {names}")
     busy, (lo, hi) = 0.0, spans[0]
     for start, end in spans[1:]:
         if start > hi:
@@ -116,12 +124,23 @@ def l2_flusher(device):
     return buf.zero_
 
 
-def call_times(fn, device, names) -> dict:
+def call_times(fn, device, names, strict: bool = True) -> dict:
     """Four times of one call fn() whose kernels are named like `names`:
     `event_ms` (CUDA events around 20 back-to-back calls), `device_ms`
     (profiler, L2 warm), `device_cold_ms` (the L2 flushed before each call),
-    `host_ms`, and `kernels`, the device time by kernel name."""
-    warm, by = device_ms(fn, names)
-    cold, _ = device_ms(fn, names, between=l2_flusher(device))
+    `host_ms`, and `kernels`, the device time by kernel name. Where the
+    profiler stays silent it raises ProfilerSilent, or with strict=False
+    says so and leaves that time None."""
+    def profiled(between=None):
+        try:
+            return device_ms(fn, names, between=between)
+        except ProfilerSilent as e:
+            if strict:
+                raise
+            print(f"not measured: {e}", flush=True)
+            return None, {}
+
+    warm, by = profiled()
+    cold, _ = profiled(l2_flusher(device))
     return dict(event_ms=time_ms(fn, device), device_ms=warm,
                 device_cold_ms=cold, host_ms=host_ms(fn), kernels=by)
