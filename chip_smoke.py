@@ -21,9 +21,17 @@ which fails the script (non-zero exit) on error:
    (B, C, H, O) shape a ResBlock's norm1 -> conv1 sees in those U-Nets plus
    an odd batch, in float32 (2e-4) and bfloat16 (rtol 0.1, atol 0.15
    against the float32 plain version, and rtol 2**-7, atol 0.05 against
-   the bfloat16 plain version);
+   the bfloat16 plain version); group_norm_silu's backward
+   (csrc/group_norm_silu_backward.cu) at every GN shape of the U-Nets and
+   the experiment-1 ratio net plus an odd batch, float32 and bfloat16,
+   NCHW and channels_last, dx alone and with dγ and dβ: in float32 its
+   max |err| against the plain backward run in float64 at most twice the
+   float32 plain backward's, in bfloat16 one bf16 step from the bfloat16
+   plain backward, the forward's saved statistics within rtol 1e-6 of the
+   plain version's, and two launches bit for bit;
 4. checks each experiment's full-width sampler on the card against the
-   same sampler on the CPU (plain versions) on a small input;
+   same sampler on the CPU (plain versions) on a small input, with mc_feng,
+   grad and mc_feng+grad guidance;
 5. drives the main path once with the launch counters set to 0: random-init
    FlowMatchingUNetMNIST(32) + FlowMatchingUNetSVHN + RatioEstimatorMNISTSVHN,
    bf16 activations, B=512 pairs, N_mc=256, --steps Euler steps (default
@@ -32,6 +40,11 @@ which fails the script (non-zero exit) on error:
 5e. the same for experiment 1 (MNIST-28 ↔ transformed MNIST): random-init
    FlowMatchingUNet (28 px) x2 in bf16 + RatioEstimatorMNIST (disc,
    float32), B=512, N_mc=256, --steps steps, mc_feng at γ=0.5;
+5g. gradient guidance at full width, counted and profiled the same way:
+   experiment 1 with mc_feng+grad (γ=0.5, grad_strength 0.5; the ratio
+   net's forward and the backward kernel at each of its 8 GN sites every
+   step) and experiment 2 with grad (its BatchNorm ratio net runs no GN
+   kernel);
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -40,13 +53,19 @@ which fails the script (non-zero exit) on error:
    core/card.py:call_times), and
    group_norm_silu at every main-path GN shape (CUDA events, and device
    time by the profiler) beside its bytes bound, summed over one sampler
-   call;
+   call; group_norm_silu_backward at 512x32x28x28 float32 the same four
+   ways as flash_guidance, beside its bytes bound, the plain backward and
+   the library call (autograd's backward of F.silu(F.group_norm(...))), and
+   summed over one experiment-1 grad call's shapes;
 6c. runs the tier-C bench (cli/resblock_kernel_bench.py), the path of
    fused_gn_silu_conv, with its launch counter set to 0; the bench holds
    the kernel against the bfloat16 plain version at each of its shapes
    (rtol 2**-7, atol 0.05) and its rows carry the bounds of the kernels
    line (peaks from core/card.py);
-7. runs both sampler CLIs on random-init reference-layout .pth files.
+7. runs both sampler CLIs on random-init reference-layout .pth files (with
+   mc_feng, and with mc_feng+grad and --mc_refresh 2), and both evaluation
+   CLIs (methods none, mc_feng, grad and mc_feng+grad, --fid, synthetic
+   digits) on random-init flows, ratio nets and classifiers.
 
 The line before the last is the `kernels` JSON; the card's name and power
 limit are printed before it, and before that a `details` JSON line (shapes
@@ -63,7 +82,10 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 B_MAIN, N_MC, GAMMA = 512, 256, 0.5
+GRAD_STRENGTH = 0.5
 X_SHAPE, Y_SHAPE = (32, 32, 1), (32, 32, 3)
 E1_SHAPE = (28, 28, 1)          # experiment 1: both modalities
 TOL_GUIDANCE = dict(rtol=1e-3, atol=1e-4)
@@ -195,6 +217,32 @@ def layer_shapes(models, device, x_shape, y_shape):
     return gn, rb
 
 
+def ratio_gn_shapes(ratio, device, shape):
+    """{(B, C, H): calls} of the GN sites of a ratio net's forward at
+    B=B_MAIN, by forward hooks (what gradient guidance runs every step)."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import ratio_log_fn
+    from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
+        GroupNormSiLU,
+    )
+
+    found = {}
+
+    def hook(mod, args):
+        key = tuple(args[0].shape[:3])
+        found[key] = found.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in ratio.modules()
+             if isinstance(m, GroupNormSiLU)]
+    with torch.no_grad():
+        z = torch.zeros((B_MAIN,) + shape, device=device)
+        ratio_log_fn(ratio)(z, z)
+    for h in hooks:
+        h.remove()
+    return found
+
+
 def gn_sites(net) -> int:
     from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
         GroupNormSiLU,
@@ -224,33 +272,41 @@ def profile_call(run, steps: int):
     busy_ms = sum(r[1] for r in by_kernel)
     gn = [r for r in by_kernel if "gn_silu_kernel" in r[0]]
     gn_ms, gn_n = sum(r[1] for r in gn), sum(r[2] for r in gn)
+    bwd = [r for r in by_kernel if "gn_silu_bwd_kernel" in r[0]]
+    bwd_ms, bwd_n = sum(r[1] for r in bwd), sum(r[2] for r in bwd)
     print(f"profile ({steps} steps, profiler on): wall {wall * 1e3:.1f} ms, "
           f"kernels {busy_ms:.1f} ms "
           f"({100 * busy_ms / max(wall * 1e3, 1e-9):.0f}% busy); "
-          f"group_norm_silu {gn_ms:.1f} ms over {gn_n} launches")
+          f"group_norm_silu {gn_ms:.1f} ms over {gn_n} launches; its "
+          f"backward {bwd_ms:.1f} ms over {bwd_n}")
     for k, ms_k, n in by_kernel[:8]:
         print(f"  {ms_k:9.2f} ms {n:6d}x  {k[:90]}")
     return dict(steps=steps, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 group_norm_silu_ms=gn_ms, group_norm_silu_launches=gn_n,
+                group_norm_silu_backward_ms=bwd_ms,
+                group_norm_silu_backward_launches=bwd_n,
                 top=[dict(kernel=k[:120], ms=ms, calls=n)
                      for k, ms, n in by_kernel[:25]])
 
 
 def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
-                  y_shape, steps, smi):
+                  y_shape, steps, smi, method="mc_feng"):
     """One counted sampler call: every launch counter set to 0 just before,
     read just after and held to `expected`; finite samples of the right
-    shape and 1 <= ESS <= N_mc. Returns the record."""
+    shape and, where the method mixes in mc_feng, 1 <= ESS <= N_mc.
+    Returns the record."""
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
         flash_guidance,
         fused_gn_silu_conv,
         group_norm_silu,
+        group_norm_silu_backward,
     )
 
     wrappers = {"flash_guidance": flash_guidance,
                 "group_norm_silu": group_norm_silu,
+                "group_norm_silu_backward": group_norm_silu_backward,
                 "fused_gn_silu_conv": fused_gn_silu_conv}
     dev = next(models[0].parameters()).device
     torch.cuda.synchronize()
@@ -274,21 +330,25 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
             or not bool(torch.isfinite(x1).all())
             or not bool(torch.isfinite(y1).all())):
         fail(f"{name}: non-finite or mis-shaped samples")
-    ess = diags["ess"]
-    if not (float(ess.min()) >= 1.0 - 1e-4
-            and float(ess.max()) <= N_MC * (1 + 1e-4)):
-        fail(f"{name}: ESS outside [1, {N_MC}]: [{float(ess.min())}, "
-             f"{float(ess.max())}]")
+    ess_txt = "no ESS (no MC set)"
+    if "mc_feng" in method:
+        ess = diags["ess"]
+        if not (float(ess.min()) >= 1.0 - 1e-4
+                and float(ess.max()) <= N_MC * (1 + 1e-4)):
+            fail(f"{name}: ESS outside [1, {N_MC}]: [{float(ess.min())}, "
+                 f"{float(ess.max())}]")
+        ess_txt = f"ESS [{float(ess.min()):.3f}, {float(ess.max()):.3f}]"
+    elif diags:
+        fail(f"{name}: {method} returned diagnostics {sorted(diags)}")
     sps = B_MAIN / dev_s
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"{name}: B={B_MAIN} N_mc={N_MC} steps={steps} bf16 "
-          f"mc_feng γ={GAMMA}: {dev_s:.3f} s on the card (CUDA events), "
+          f"{method} γ={GAMMA}: {dev_s:.3f} s on the card (CUDA events), "
           f"{wall_s:.3f} s wall -> {sps:.1f} samples/s; peak mem "
-          f"{peak_gib:.2f} GiB; launches {counts}; ESS "
-          f"[{float(ess.min()):.3f}, {float(ess.max()):.3f}]  [{smi}]")
-    return dict(batch=B_MAIN, n_mc=N_MC, steps=steps, seconds_device=dev_s,
-                seconds_wall=wall_s, samples_per_s=sps, peak_mem_gib=peak_gib,
-                launches=counts)
+          f"{peak_gib:.2f} GiB; launches {counts}; {ess_txt}  [{smi}]")
+    return dict(batch=B_MAIN, n_mc=N_MC, steps=steps, method=method,
+                seconds_device=dev_s, seconds_wall=wall_s, samples_per_s=sps,
+                peak_mem_gib=peak_gib, launches=counts)
 
 
 def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
@@ -301,9 +361,10 @@ def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
         make_guided_sampler_p,
     )
 
-    cfg = GuidedSamplerConfig(guidance_method="mc_feng",
-                              guidance_strength=GAMMA, x_shape=x_shape,
-                              y_shape=y_shape, **cfg_kw)
+    cfg = GuidedSamplerConfig(**{"guidance_method": "mc_feng",
+                                 "guidance_strength": GAMMA,
+                                 "x_shape": x_shape, "y_shape": y_shape,
+                                 **cfg_kw})
     return make_guided_sampler_p(lambda m, x, t: velocity_fn(m)(x, t),
                                  lambda m, y, t: velocity_fn(m)(y, t), cfg,
                                  lambda r, x, y: ratio_log_fn(r)(x, y))
@@ -337,7 +398,11 @@ def main(argv=None) -> int:
             TOL_BF16 as TOL_GN_BF16,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
+            gn_backward_plan,
+            gn_stats_reference,
             group_norm_silu,
+            group_norm_silu_backward,
+            group_norm_silu_backward_reference,
             group_norm_silu_reference,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
@@ -507,6 +572,85 @@ def main(argv=None) -> int:
     details["exp1_gn_shapes"] = {f"B{B}_C{C}_H{H}": n
                                  for (B, C, H), n in sorted(e1_shapes.items())}
 
+    # group_norm_silu's backward at the same shapes: float32 against the
+    # float64 plain backward (at most twice the float32 plain backward's
+    # max |err|), bfloat16 one bf16 step from the bfloat16 plain backward;
+    # dx alone and with dγ, dβ; the forward's saved statistics; two
+    # launches bit for bit
+    bwd_err = {"f32_vs_plain": 0.0, "bf16_vs_plain": 0.0}
+    stat_diff = 0           # saved statistics not bit-identical to plain
+    yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
+    for (B, C, H) in gn_check + [odd]:
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                x = (rnd(B, C, H, H) * 2.0 + 0.5).to(dt).contiguous(
+                    memory_format=fmt)
+                w = torch.rand(C, generator=gen, device=dev) + 0.5
+                b = rnd(C) * 0.1
+                dy = rnd(B, C, H, H).to(dt)
+                name = f"group_norm_silu_backward {tag} B={B} C={C} H={H} {fmt}"
+                xs = x.clone().requires_grad_(True)
+                y = group_norm_silu(xs, w, b, 8)
+                saved = y.grad_fn.saved_tensors
+                mean, rstd = gn_stats_reference(x, 8)
+                for u, v in ((saved[3], mean), (saved[4], rstd)):
+                    stat_diff += int((u != v).sum())
+                    check_close(f"{name}: the forward's saved statistics",
+                                u, v, rtol=1e-6, atol=0.0)
+                (dx_auto,) = torch.autograd.grad(y, xs, dy)
+                if not torch.equal(dx_auto, group_norm_silu_backward(
+                        dy, x, w, b, saved[3], saved[4], False)[0]):
+                    fail(f"{name}: autograd's dx != the kernel's at the saved "
+                         "statistics")
+                dx_only, _, _ = group_norm_silu_backward(
+                    dy, x, w, b, mean, rstd, weight_grads=False)
+                got = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+                flush()
+                again = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+                torch.cuda.synchronize()
+                if dx_only.stride() != x.stride():
+                    fail(f"{name}: dx strides {dx_only.stride()} != x's")
+                if not (torch.equal(dx_only, got[0]) and all(
+                        torch.equal(u, v) for u, v in zip(got, again))):
+                    fail(f"{name}: two launches on the same inputs differ")
+                plain = group_norm_silu_backward_reference(dy, x, w, b, mean,
+                                                           rstd)
+                if tag == "bf16":
+                    bwd_err["bf16_vs_plain"] = max(
+                        bwd_err["bf16_vs_plain"],
+                        check_close(f"{name} dx", got[0], plain[0],
+                                    **TOL_GN_BF16))
+                    for nm, u, v in zip(("dgamma", "dbeta"), got[1:],
+                                        plain[1:]):
+                        check_close(f"{name} {nm}", u, v, rtol=1e-3,
+                                    atol=1e-3)
+                    continue
+                bwd_err["f32_vs_plain"] = max(bwd_err["f32_vs_plain"],
+                                              max_abs(got[0], plain[0]))
+                exact = group_norm_silu_backward_reference(
+                    dy.double(), x.double(), w.double(), b.double(),
+                    mean.double(), rstd.double())
+                for nm, k_, p_, e_ in zip(("dx", "dgamma", "dbeta"), got,
+                                          plain, exact):
+                    err_k = float((k_.double() - e_).abs().max())
+                    err_p = float((p_.double() - e_).abs().max())
+                    yard[nm][0] = max(yard[nm][0], err_k)
+                    yard[nm][1] = max(yard[nm][1], err_p)
+                    if err_k > 2.0 * err_p + 1e-6:
+                        fail(f"{name} {nm}: max |err| against float64 "
+                             f"{err_k:.3g} exceeds twice the float32 plain "
+                             f"backward's {err_p:.3g}")
+    print(f"group_norm_silu_backward == plain at the same {len(gn_check)} "
+          f"shapes + odd B=5, both layouts, dx alone and with dγ, dβ; "
+          f"float32 max |err| against float64 (kernel / float32 plain): "
+          + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in yard.items())
+          + f"; bf16 dx max |err| {bwd_err['bf16_vs_plain']:.3g} (one bf16 "
+          f"step); saved statistics within rtol 1e-6 of the plain version's "
+          f"({stat_diff} entries not bit-identical); reruns bit-identical")
+    details["gn_saved_stats_not_bit_identical"] = stat_diff
+    details["gn_backward_float64_yardstick"] = yard
+    details["gn_backward_max_abs_err"] = bwd_err
+
     # kernel C at every ResBlock norm1 -> conv1 shape of the U-Nets
     conv_err = {"f32": 0.0, "bf16_vs_f32": 0.0, "bf16": 0.0}
     conv_check = sorted(set(rb_shapes) | set(e1_rb_shapes))
@@ -546,7 +690,7 @@ def main(argv=None) -> int:
     # 4. each sampler on the card against the sampler on the CPU (plain
     #    versions): the same seeded weights in float32, injected noise and
     #    MC set
-    def card_vs_cpu(name, make_models, x_shape, y_shape):
+    def card_vs_cpu(name, make_models, x_shape, y_shape, method="mc_feng"):
         g_cpu = torch.Generator().manual_seed(3)
         inj = [torch.randn((8,) + x_shape, generator=g_cpu),
                torch.randn((8,) + y_shape, generator=g_cpu),
@@ -555,22 +699,27 @@ def main(argv=None) -> int:
                torch.exp(torch.randn(16, generator=g_cpu))]
         outs = []      # [card, CPU]
         for d in (dev, torch.device("cpu")):
-            x1, y1, diags = make_sampler(dict(num_steps=4, mc_batch_size=16),
-                                         x_shape, y_shape)(
+            x1, y1, diags = make_sampler(dict(
+                num_steps=4, mc_batch_size=16, guidance_method=method,
+                grad_strength=GRAD_STRENGTH), x_shape, y_shape)(
                 make_models(torch.float32, d),
                 torch.Generator(d).manual_seed(0),
                 8, mc_set=tuple(a.to(d) for a in inj[2:]),
                 init_noise=(inj[0].to(d), inj[1].to(d)))
-            outs.append((x1.cpu(), y1.cpu(), diags["ess"].cpu()))
+            outs.append((x1.cpu(), y1.cpu())
+                        + ((diags["ess"].cpu(),) if diags else ()))
         for nm, a, b in zip(("x1", "y1", "ess"), *outs):
             try:
                 torch.testing.assert_close(a, b, rtol=1e-3, atol=1e-3)
             except AssertionError as e:
-                fail(f"{name} on the card != {name} on the CPU ({nm})\n{e}")
-        print(f"{name} (f32, B=8, N_mc=16, 4 steps): card == CPU within 1e-3")
+                fail(f"{name} {method} on the card != on the CPU ({nm})\n{e}")
+        print(f"{name} {method} (f32, B=8, N_mc=16, 4 steps): card == CPU "
+              f"within 1e-3")
 
-    card_vs_cpu("sampler", build_models, X_SHAPE, Y_SHAPE)
-    card_vs_cpu("experiment-1 sampler", build_exp1_models, E1_SHAPE, E1_SHAPE)
+    for method in ("mc_feng", "grad", "mc_feng+grad"):
+        card_vs_cpu("sampler", build_models, X_SHAPE, Y_SHAPE, method)
+        card_vs_cpu("experiment-1 sampler", build_exp1_models, E1_SHAPE,
+                    E1_SHAPE, method)
 
     # 5. the main path, counted; 5b. where its time goes (a profiled
     #    5-step call, outside the counted run)
@@ -580,7 +729,7 @@ def main(argv=None) -> int:
     sites = [gn_sites(net) for net in models[:2]]
     expected = {"flash_guidance": args.steps,
                 "group_norm_silu": 2 * args.steps * sum(sites),
-                "fused_gn_silu_conv": 0}
+                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
     details["main_path"] = run_main_path(
         "main path", sampler, models, expected, 2, X_SHAPE, Y_SHAPE,
         args.steps, smi)
@@ -601,7 +750,7 @@ def main(argv=None) -> int:
     e1_expected = {"flash_guidance": args.steps,
                    "group_norm_silu": (2 * args.steps * sum(e1_sites[:2])
                                        + e1_sites[2]),
-                   "fused_gn_silu_conv": 0}
+                   "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
     details["exp1_path"] = run_main_path(
         "experiment-1 path", e1_sampler, e1_models, e1_expected, 2, E1_SHAPE,
         E1_SHAPE, args.steps, smi)
@@ -611,6 +760,41 @@ def main(argv=None) -> int:
     details["exp1_profile"] = profile_call(
         lambda: e1_prof(e1_models, torch.Generator(dev).manual_seed(4),
                         B_MAIN), 5)
+
+    # 5g. gradient guidance at full width. Experiment 1, mc_feng+grad: phase
+    #     A and B as above, plus every step the ratio net's forward (its 8
+    #     GN sites) and the backward kernel at each of them. Experiment 2,
+    #     grad: no MC set (no phase A, no flash_guidance) and a BatchNorm
+    #     ratio net, so no GN forward or backward beyond the U-Nets'.
+    grad_kw = dict(mc_batch_size=N_MC, grad_strength=GRAD_STRENGTH)
+    e1g_kw = dict(grad_kw, guidance_method="mc_feng+grad")
+    e2g_kw = dict(grad_kw, guidance_method="grad")
+    for kw, mdl, shp in ((e1g_kw, e1_models, (E1_SHAPE, E1_SHAPE)),
+                         (e2g_kw, models, (X_SHAPE, Y_SHAPE))):
+        make_sampler(dict(kw, num_steps=2), *shp)(
+            mdl, torch.Generator(dev).manual_seed(1), B_MAIN)
+    details["exp1_grad_path"] = run_main_path(
+        "experiment-1 mc_feng+grad path",
+        make_sampler(dict(e1g_kw, num_steps=args.steps), E1_SHAPE, E1_SHAPE),
+        e1_models, {"flash_guidance": args.steps,
+                    "group_norm_silu": (2 * args.steps * sum(e1_sites[:2])
+                                        + e1_sites[2]
+                                        + args.steps * e1_sites[2]),
+                    "group_norm_silu_backward": args.steps * e1_sites[2],
+                    "fused_gn_silu_conv": 0},
+        2, E1_SHAPE, E1_SHAPE, args.steps, smi, method="mc_feng+grad")
+    details["exp1_grad_profile"] = profile_call(
+        lambda: make_sampler(dict(e1g_kw, num_steps=5), E1_SHAPE, E1_SHAPE)(
+            e1_models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
+    details["main_grad_path"] = run_main_path(
+        "main grad path (experiment 2)",
+        make_sampler(dict(e2g_kw, num_steps=args.steps)), models,
+        {"flash_guidance": 0, "group_norm_silu": args.steps * sum(sites),
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+        2, X_SHAPE, Y_SHAPE, args.steps, smi, method="grad")
+    details["main_grad_profile"] = profile_call(
+        lambda: make_sampler(dict(e2g_kw, num_steps=5))(
+            models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
 
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
@@ -785,6 +969,68 @@ def main(argv=None) -> int:
     details["gn_device_ms_per_sampler_call"] = gn_call_dev_ms
     details["gn_bound_ms_per_sampler_call"] = gn_call_bound_ms
 
+    # 6b. group_norm_silu's backward (dx alone, what gradient guidance asks
+    #     for) at each GN site of the experiment-1 ratio net at B=512,
+    #     float32 channels_last: the four times of call_times, the bound
+    #     (read x and dy, write dx), the plain backward and the library call
+    #     (autograd's backward of F.silu(F.group_norm(...)), its forward
+    #     outside the timed region); summed over one grad call's sites
+    bwd_rows = {}
+    bwd_call = {"event_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0}
+    for (B, C, H), n in sorted(ratio_gn_shapes(e1_models[2], dev,
+                                               E1_SHAPE).items()):
+        x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
+            memory_format=torch.channels_last)
+        w, b = torch.rand(C, generator=gen, device=dev) + 0.5, rnd(C) * 0.1
+        dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
+        mean, rstd = gn_stats_reference(x, 8)
+        xl = x.clone().requires_grad_(True)
+        y_lib = F.silu(F.group_norm(xl, 8, w, b, 1e-6))
+        row = call_times(
+            lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd, False),
+            dev, ("gn_silu_bwd_kernel",), strict=False)
+        row.update(
+            calls_per_step=n,
+            bound_ms=3.0 * x.numel() * 4 / peak_bw * 1e3,
+            plain_ms=time_ms(lambda: group_norm_silu_backward_reference(
+                dy, x, w, b, mean, rstd, False), dev),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y_lib, xl, dy, retain_graph=True), dev),
+            plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+        bwd_rows[f"B{B}_C{C}_H{H}"] = row
+        for k in bwd_call:
+            bwd_call[k] = (None if bwd_call[k] is None or row[k] is None
+                           else bwd_call[k] + n * row[k] * args.steps)
+        print(f"  group_norm_silu_backward B={B} C={C} {H}x{H} f32 dx: "
+              f"device {ms_str(row['device_ms'])} ms (L2 cold "
+              f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
+              f"events, host {row['host_ms']:.4f} per call; plain "
+              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} by bytes; {n} per step  [{smi}]")
+    print(f"  group_norm_silu_backward summed over one {args.steps}-step "
+          f"experiment-1 grad call: {bwd_call['event_ms']:.2f} ms by events, "
+          f"{ms_str(bwd_call['device_ms'], 2)} ms on the device, bound "
+          f"{bwd_call['bound_ms']:.2f} ms  [{smi}]")
+    details["gn_backward_times"] = bwd_rows
+    details["gn_backward_ms_per_grad_call"] = bwd_call
+    first = max(bwd_rows.values(), key=lambda r: r["bound_ms"])  # 32x28x28
+    bwd_ms, bwd_ms_is = first["device_ms"], (
+        "device time by torch.profiler during which the kernel ran, L2 warm")
+    if bwd_ms is None:
+        bwd_ms, bwd_ms_is = first["event_ms"], (
+            "CUDA events around 20 back-to-back calls (the profiler "
+            "recorded nothing in this run)")
+    kernels.append(dict(
+        name="group_norm_silu_backward", route="cuda",
+        source="ratio_guided_multimodal_fm_tpu_torch/csrc/"
+               "group_norm_silu_backward.cu",
+        replaces="none: JAX differentiates models/layers.py FusedGroupNorm",
+        launches=details["exp1_grad_path"]["launches"][
+            "group_norm_silu_backward"],
+        max_abs_err=bwd_err["f32_vs_plain"], ms=bwd_ms,
+        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+        bound_by="bytes", library_ms=first["library_ms"], ms_is=bwd_ms_is))
+
     # 6c. the tier-C bench, kernel C's path, counted
     from ratio_guided_multimodal_fm_tpu_torch.cli import resblock_kernel_bench
 
@@ -823,6 +1069,8 @@ def main(argv=None) -> int:
     details["kernel_shapes"] = {
         "flash_guidance": f"B={B_MAIN} N={N_MC} D={D} f32 t={t_mid}",
         "group_norm_silu": f"B={B_MAIN} C=64 H=W=32 bf16 channels_last",
+        "group_norm_silu_backward": f"B={B_MAIN} C=32 H=W=28 f32 "
+                                    "channels_last, dx only",
         "fused_gn_silu_conv": f"{row0['shape']} bf16 NHWC groups=8"}
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms/launch (plain "
@@ -839,11 +1087,21 @@ def main(argv=None) -> int:
 
     # 7. the CLIs on random-init reference-layout .pth files
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        evaluate,
+        evaluate_mnist_svhn,
         sample,
         sample_mnist_svhn,
     )
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        MNISTClassifier,
+        MNISTClassifier32,
+        SVHNClassifier,
+    )
 
-    def run_cli(name, cli, nets, files, argv, trace):
+    def run_cli(name, cli, nets, files, argv):
+        """cli.main(argv) in a fresh directory holding `nets` as the .pth
+        `files`; returns (wall s, what main returned, the directory's
+        outputs/ as {relative path: parsed JSON})."""
         cwd = os.getcwd()
         with tempfile.TemporaryDirectory() as tmp:
             os.makedirs(os.path.join(tmp, "checkpoints"))
@@ -854,34 +1112,92 @@ def main(argv=None) -> int:
             os.chdir(tmp)
             try:
                 h0 = time.perf_counter()
-                sx, sy, _ = cli.main(argv)
+                out = cli.main(argv)
                 cli_s = time.perf_counter() - h0
-                with open(trace) as f:
-                    rows = json.load(f)
+                written = {}
+                for root, _, fnames in os.walk("outputs"):
+                    for fn in fnames:
+                        if fn.endswith(".json"):
+                            with open(os.path.join(root, fn)) as f:
+                                written[os.path.join(root, fn)] = json.load(f)
             finally:
                 os.chdir(cwd)
-        if (len(rows) != 20 or not bool(torch.isfinite(sx).all())
-                or not bool(torch.isfinite(sy).all())):
-            fail(f"CLI {name}: bad trace or non-finite samples")
-        print(f"CLI {name} (mc_feng, 64 pairs, 20 steps, bf16): "
-              f"{cli_s:.1f} s wall, {len(rows)} diagnostic rows")
-        return cli_s
+        return cli_s, out, written
 
-    cli_argv = ["--guidance_method", "mc_feng", "--num_samples", "64",
-                "--num_steps", "20", "--dtype", "bf16"]
-    details["cli_s"] = {
-        "sample_mnist_svhn": run_cli(
-            "sample_mnist_svhn", sample_mnist_svhn, models,
-            ("flow_mnist32_best.pth", "flow_svhn_best.pth",
-             "ratio_disc_mnist_svhn_best.pth"), cli_argv,
-            os.path.join("outputs", "mnist_svhn",
-                         f"diagnostics_mc_feng_gamma{GAMMA}.json")),
-        "sample": run_cli(
-            "sample", sample, e1_models,
-            ("flow_x_best.pth", "flow_y_rotate90_best.pth",
-             "ratio_disc_rotate90_best.pth"), cli_argv,
-            os.path.join("outputs",
-                         f"diagnostics_mc_feng_gamma{GAMMA}_rotate90.json"))}
+    exp2_files = ("flow_mnist32_best.pth", "flow_svhn_best.pth",
+                  "ratio_disc_mnist_svhn_best.pth")
+    exp1_files = ("flow_x_best.pth", "flow_y_rotate90_best.pth",
+                  "ratio_disc_rotate90_best.pth")
+    details["cli_s"] = {}
+    for method, extra in (("mc_feng", []),
+                          ("mc_feng+grad", ["--mc_refresh", "2"])):
+        argv = ["--guidance_method", method, "--num_samples", "64",
+                "--num_steps", "20", "--mc_batch_size", str(N_MC),
+                "--dtype", "bf16"] + extra
+        for name, cli, nets, files, trace in (
+                ("sample_mnist_svhn", sample_mnist_svhn, models, exp2_files,
+                 os.path.join("outputs", "mnist_svhn",
+                              f"diagnostics_{method}_gamma{GAMMA}.json")),
+                ("sample", sample, e1_models, exp1_files,
+                 os.path.join("outputs", f"diagnostics_{method}_gamma"
+                                         f"{GAMMA}_rotate90.json"))):
+            cli_s, (sx, sy, _), written = run_cli(name, cli, nets, files,
+                                                  argv)
+            rows = written.get(trace, [])
+            if (len(rows) != 20 or not bool(torch.isfinite(sx).all())
+                    or not bool(torch.isfinite(sy).all())):
+                fail(f"CLI {name} {' '.join(argv)}: bad trace or non-finite "
+                     "samples")
+            print(f"CLI {name} ({method} {' '.join(extra)}, 64 pairs, 20 "
+                  f"steps, bf16): {cli_s:.1f} s wall, {len(rows)} diagnostic "
+                  f"rows  [{smi}]")
+            details["cli_s"][f"{name} {method} {' '.join(extra)}".strip()] = \
+                cli_s
+
+    # the evaluation CLIs: the sweep of the JAX CLIs on random-init flows,
+    # ratio nets and classifiers, classifier-FID against the synthetic
+    # digits (RGMF_SYNTH_N: 2000 training, 1000 test images)
+    os.environ.setdefault("RGMF_SYNTH_N", "2000")
+    torch.manual_seed(20)
+    clfs = [MNISTClassifier(), MNISTClassifier32(), SVHNClassifier()]
+    eval_argv = ["--guidance_methods", "none", "mc_feng", "grad",
+                 "mc_feng+grad", "--guidance_strengths", "0", str(GAMMA),
+                 "--num_steps", "20", "--num_samples", str(B_MAIN // 2),
+                 "--mc_batch_size", str(N_MC), "--fid",
+                 "--dtype", "bf16", "--grad_strength", str(GRAD_STRENGTH)]
+    base_keys = {"method", "guidance_strength", "coherence_acc",
+                 "num_samples", "label_entropy_x", "label_entropy_y",
+                 "n_chunks", "chunk_policy"}
+    mc_keys = {"mc_set_ess", "ess_final_mean", "ess_final_min",
+               "ess_trajectory_min", "ess_trajectory_mean"}
+    details["eval_cli"] = {}
+    for name, cli, nets, files, keys in (
+            ("evaluate", evaluate, e1_models + (clfs[0],),
+             exp1_files + ("mnist_classifier.pth",),
+             base_keys | {"transform_type", "classifier_fid_x"}),
+            ("evaluate_mnist_svhn", evaluate_mnist_svhn,
+             models + (clfs[1], clfs[2]),
+             exp2_files + ("mnist32_classifier.pth", "svhn_classifier.pth"),
+             base_keys | {"classifier_fid_mnist"})):
+        cli_s, results, written = run_cli(name, cli, nets, files, eval_argv)
+        if len(results) != 7 or list(written.values()) != [results]:
+            fail(f"CLI {name}: {len(results)} results, files "
+                 f"{sorted(written)}")
+        for r in results:
+            want = keys | (mc_keys if "mc_feng" in r["method"] else set())
+            nums = [v for k, v in r.items() if k not in (
+                "method", "chunk_policy", "transform_type", "mc_set_ess")]
+            if set(r) != want or not all(np.isfinite(nums)):
+                fail(f"CLI {name}: result {r} (keys {sorted(set(r) ^ want)} "
+                     "differ from the JAX CLI's, or a value is not finite)")
+        print(f"CLI {name} (none, mc_feng, grad, mc_feng+grad at γ in (0, "
+              f"{GAMMA}), {B_MAIN // 2} pairs in 4 chunks, N_mc={N_MC}, 20 "
+              f"steps, bf16, --fid): "
+              f"{cli_s:.1f} s wall; coherence "
+              + ", ".join(f"{r['method']}@{r['guidance_strength']} "
+                          f"{r['coherence_acc']:.3f}" for r in results)
+              + f"  [{smi}]")
+        details["eval_cli"][name] = dict(seconds=cli_s, results=results)
 
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start

@@ -1,12 +1,13 @@
-"""Shared CLI plumbing (port of the parts of cli/common.py the sampler CLIs
-need): flag groups, model factory, checkpoint names and loading, NHWC
-closures over the NCHW models, diagnostics."""
+"""Shared CLI plumbing (port of the parts of cli/common.py the sampler and
+evaluation CLIs need): flag groups, model factory, checkpoint names and
+loading, NHWC closures over the NCHW models, diagnostics."""
 from __future__ import annotations
 
 import argparse
 import json
 import os
 
+import numpy as np
 import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
@@ -50,6 +51,49 @@ def add_solver_flag(p: argparse.ArgumentParser):
                    help="warp exponent for --time_grid late/early")
 
 
+def add_grad_flags(p: argparse.ArgumentParser):
+    """--grad_strength / --grad_scale / --grad_t_max: the grad term of the
+    'grad' and 'mc_feng+grad' methods (sample/guided.py)."""
+    p.add_argument("--grad_strength", type=float, default=None,
+                   help="Separate strength for the grad term "
+                        "(default: guidance_strength)")
+    p.add_argument("--grad_scale", type=str, default="const",
+                   choices=["const", "sigma"],
+                   help="grad term scaling: const or sigma_t^2")
+    p.add_argument("--grad_t_max", type=float, default=1.0,
+                   help="gate the grad term to t < grad_t_max")
+
+
+def add_mc_refresh_flag(p: argparse.ArgumentParser):
+    """--mc_refresh K: fresh MC sets along each trajectory."""
+    p.add_argument("--mc_refresh", type=int, default=1,
+                   help="ABLATION ONLY (the JAX package measured it "
+                        "harmful). K>1 regenerates the N_mc set every "
+                        "num_steps/K steps (mc_feng methods); with K>1 the "
+                        "evaluation chunk policy drops to 1 chunk. 1 = "
+                        "reference protocol (keep it).")
+
+
+def add_eval_flags(p: argparse.ArgumentParser):
+    """--eval_chunks / --auto_chunks / --fid / --data_root of the
+    evaluation CLIs (eval/chunked.py, eval/fid.py)."""
+    from ratio_guided_multimodal_fm_tpu_torch.eval.chunked import (
+        DEFAULT_AUTO_CHUNKS,
+    )
+
+    p.add_argument("--eval_chunks", type=str, default="auto",
+                   help="'auto' (default): chunked sampling with a FRESH "
+                        "MC set per chunk (eval/chunked.py); an integer "
+                        "forces that many chunks (1 = one shared set)")
+    p.add_argument("--auto_chunks", type=int, default=DEFAULT_AUTO_CHUNKS,
+                   help="Number of chunks in 'auto' mode (default 4)")
+    p.add_argument("--fid", action="store_true",
+                   help="Also compute classifier-FID vs real data (the "
+                        "eval classifier's fc1 features, not Inception)")
+    p.add_argument("--data_root", type=str, default="./data",
+                   help="Dataset root (IDX/.mat files; synthetic fallback)")
+
+
 def add_reflow_flag(p: argparse.ArgumentParser):
     """--reflow: load the reflow-distilled flows (a `_reflow` name part)."""
     p.add_argument("--reflow", action="store_true",
@@ -90,7 +134,9 @@ def checkpoint_path(model_type: str, *parts, base_dir: str = CHECKPOINT_DIR):
 
 def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
     """Strict-load a reference-layout .pth (a bare state dict or a
-    {'model_state_dict': ...} training dict) into `model`."""
+    {'model_state_dict': ...} training dict) into `model`. A missing file
+    exits (SystemExit, as the JAX CLIs' load_params_or_exit) with the
+    export command that writes it."""
     if not os.path.exists(path):
         raise SystemExit(
             f"ERROR: checkpoint not found: {path}\n" + _EXPORT_HINT.format(
@@ -100,6 +146,17 @@ def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
         sd = sd["model_state_dict"]
     model.load_state_dict(sd, strict=True)
     return model
+
+
+def classifier_fn(model):
+    """NHWC images (numpy or a tensor) -> logits on the classifier's
+    device, without autograd."""
+    device = next(model.parameters()).device
+
+    @torch.no_grad()
+    def fn(x):
+        return model(torch.as_tensor(x).to(device, torch.float32))
+    return fn
 
 
 def velocity_fn(model):
@@ -123,7 +180,8 @@ def summarize_diagnostics(diags, num_steps: int, time_grid: str = "uniform",
     if not diags:
         return []
     ts = make_time_grid(num_steps, time_grid, grid_power)[0]
-    d = {k: v.detach().float().cpu().numpy() for k, v in diags.items()}
+    d = {k: v.detach().float().cpu().numpy() if isinstance(v, torch.Tensor)
+         else np.asarray(v) for k, v in diags.items()}
     rows = []
     for s in range(num_steps):
         row = {"step": s, "t": round(float(ts[s]), 4)}

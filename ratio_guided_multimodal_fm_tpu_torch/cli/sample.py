@@ -1,5 +1,6 @@
 """Generate (x, y) pairs via guided sampling, experiment 1: MNIST-28 ↔ a
-transformed MNIST (port of cli/sample.py, methods 'none' and 'mc_feng').
+transformed MNIST (port of cli/sample.py: methods 'none', 'mc_feng',
+'grad' and 'mc_feng+grad'; 'smc' is not ported yet).
 
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes:
@@ -26,6 +27,7 @@ import torch
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_ema_flag,
+    add_mc_refresh_flag,
     add_reflow_flag,
     add_solver_flag,
     checkpoint_path,
@@ -48,8 +50,8 @@ from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
 SHAPE = (28, 28, 1)
 
 
-def load_exp1_models(args, device: torch.device):
-    """FM_x, FM_y (+ the ratio net when guiding) from ./checkpoints."""
+def load_exp1_flows(args, device: torch.device):
+    """FM_x and FM_y from ./checkpoints, on `device`."""
     rf = "reflow" if args.reflow else None
     em = "ema" if args.ema else None
     nets = []
@@ -60,24 +62,35 @@ def load_exp1_models(args, device: torch.device):
             fm_model(args.model, dtype_of(args)), path, "unet_mnist"),
             device))
         print(f"  Loaded {path}")
-    ratio = None
-    if args.guidance_method != "none":
-        path = checkpoint_path("ratio", args.loss_type, args.transform_type,
-                               "ema" if args.ratio_ema else None, "best")
-        ratio = place_model(load_state_dict(
-            RatioEstimatorMNIST(loss_type=args.loss_type), path, "ratio"),
-            device)
-        print(f"  Loaded {path}")
-    return nets[0], nets[1], ratio
+    return nets[0], nets[1]
+
+
+def load_exp1_ratio(args, device: torch.device):
+    """The ratio net (float32, whatever --dtype is) from ./checkpoints."""
+    path = checkpoint_path("ratio", args.loss_type, args.transform_type,
+                           "ema" if args.ratio_ema else None, "best")
+    ratio = place_model(load_state_dict(
+        RatioEstimatorMNIST(loss_type=args.loss_type), path, "ratio"), device)
+    print(f"  Loaded {path}")
+    return ratio
+
+
+def load_exp1_models(args, device: torch.device):
+    """FM_x, FM_y (+ the ratio net when guiding) from ./checkpoints."""
+    fm_x, fm_y = load_exp1_flows(args, device)
+    ratio = (load_exp1_ratio(args, device)
+             if args.guidance_method != "none" else None)
+    return fm_x, fm_y, ratio
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Sample bimodal pairs")
     parser.add_argument("--transform_type", type=str, default="rotate90")
     parser.add_argument("--guidance_method", type=str, default="none",
-                        choices=["none", "mc_feng", "grad"],
-                        help="none=independent, mc_feng=Feng MC guidance "
-                             "(grad is not ported yet: the sampler raises)")
+                        choices=["none", "mc_feng", "grad", "mc_feng+grad"],
+                        help="none=independent, mc_feng=Feng MC guidance, "
+                             "grad=ratio-gradient guidance, mc_feng+grad "
+                             "both (smc is not ported yet)")
     parser.add_argument("--guidance_strength", type=float, default=0.5)
     parser.add_argument("--mc_batch_size", type=int, default=128)
     parser.add_argument("--loss_type", type=str, default="disc")
@@ -88,10 +101,7 @@ def main(argv=None):
     add_ema_flag(parser)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
-    parser.add_argument("--mc_refresh", type=int, default=1,
-                        help="fresh MC sets per trajectory (only 1, the "
-                             "reference protocol, is ported: the sampler "
-                             "raises for more)")
+    add_mc_refresh_flag(parser)
     parser.add_argument("--ess_floor", type=float, default=None,
                         help="Adaptive guidance: per-trajectory gamma_eff = "
                              "gamma*min(1, ESS/ess_floor)")

@@ -1,5 +1,6 @@
 """Generate MNIST-SVHN pairs via guided sampling (port of
-cli/sample_mnist_svhn.py, methods 'none' and 'mc_feng').
+cli/sample_mnist_svhn.py: methods 'none', 'mc_feng', 'grad' and
+'mc_feng+grad'; 'smc' is not ported yet).
 
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes:
@@ -7,6 +8,8 @@ JAX package's `rgmf-export-torch --out ...` writes:
     checkpoints/flow_mnist32_best.pth          (--model unet_mnist)
     checkpoints/flow_svhn_best.pth             (--model unet_svhn)
     checkpoints/ratio_{loss}_mnist_svhn_best.pth  (--model ratio_mnist_svhn)
+
+with `_reflow` (--reflow) and `_ema` (--ema, --ratio_ema) name parts.
 
 Writes outputs/mnist_svhn/diagnostics_{method}_gamma{γ}.json and, where
 matplotlib is installed, samples_{method}_gamma{γ}.png.
@@ -23,6 +26,9 @@ import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
+    add_ema_flag,
+    add_mc_refresh_flag,
+    add_reflow_flag,
     add_solver_flag,
     dtype_of,
     load_state_dict,
@@ -46,18 +52,24 @@ from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
 
 def load_mnist_svhn_models(loss_type: str, need_ratio: bool,
                            device: torch.device,
-                           dtype: torch.dtype = torch.float32):
-    """FM_mnist32 + FM_svhn (+ ratio net) from ./checkpoints, on `device`."""
+                           dtype: torch.dtype = torch.float32,
+                           reflow: bool = False, ema: bool = False,
+                           ratio_ema: bool = False):
+    """FM_mnist32 + FM_svhn (+ ratio net) from ./checkpoints, on `device`.
+    reflow / ema / ratio_ema select the `_reflow` and `_ema` files."""
+    rf = ("_reflow" if reflow else "") + ("_ema" if ema else "")
     fm_mnist = load_state_dict(FlowMatchingUNetMNIST(img_size=32, dtype=dtype),
-                               "checkpoints/flow_mnist32_best.pth",
+                               f"checkpoints/flow_mnist32{rf}_best.pth",
                                "unet_mnist")
     fm_svhn = load_state_dict(FlowMatchingUNetSVHN(dtype=dtype),
-                              "checkpoints/flow_svhn_best.pth", "unet_svhn")
+                              f"checkpoints/flow_svhn{rf}_best.pth",
+                              "unet_svhn")
     ratio = None
     if need_ratio:
+        rem = "_ema" if ratio_ema else ""
         ratio = place_model(load_state_dict(
             RatioEstimatorMNISTSVHN(loss_type=loss_type, dtype=dtype),
-            f"checkpoints/ratio_{loss_type}_mnist_svhn_best.pth",
+            f"checkpoints/ratio_{loss_type}_mnist_svhn{rem}_best.pth",
             "ratio_mnist_svhn"), device)
     return place_model(fm_mnist, device), place_model(fm_svhn, device), ratio
 
@@ -65,15 +77,19 @@ def load_mnist_svhn_models(loss_type: str, need_ratio: bool,
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Sample MNIST-SVHN pairs")
     parser.add_argument("--guidance_method", type=str, default="none",
-                        choices=["none", "mc_feng"])
+                        choices=["none", "mc_feng", "grad", "mc_feng+grad"],
+                        help="smc is not ported yet")
     parser.add_argument("--guidance_strength", type=float, default=0.5)
     parser.add_argument("--mc_batch_size", type=int, default=256)
     parser.add_argument("--loss_type", type=str, default="disc")
     parser.add_argument("--num_samples", type=int, default=32)
     parser.add_argument("--num_steps", type=int, default=100)
     add_solver_flag(parser)
+    add_reflow_flag(parser)
+    add_ema_flag(parser)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
+    add_mc_refresh_flag(parser)
     parser.add_argument("--ess_floor", type=float, default=None,
                         help="Adaptive guidance: per-trajectory gamma_eff = "
                              "gamma*min(1, ESS/ess_floor)")
@@ -88,7 +104,8 @@ def main(argv=None):
              if device.type == "cuda" else ""))
 
     fm_m, fm_s, ratio = load_mnist_svhn_models(
-        args.loss_type, args.guidance_method != "none", device, dtype_of(args))
+        args.loss_type, args.guidance_method != "none", device, dtype_of(args),
+        args.reflow, args.ema, args.ratio_ema)
 
     print(f"\nSampling {args.num_samples} pairs "
           f"(method={args.guidance_method}, gamma={args.guidance_strength})")
@@ -102,7 +119,8 @@ def main(argv=None):
         x_shape=(32, 32, 1), y_shape=(32, 32, 3), generator=generator,
         log_ratio_clip=args.ratio_clip, ess_floor=args.ess_floor,
         solver=args.solver, time_grid=args.time_grid,
-        grid_power=args.grid_power, return_diagnostics=True)
+        grid_power=args.grid_power, mc_refresh=args.mc_refresh,
+        return_diagnostics=True)
 
     os.makedirs("outputs/mnist_svhn", exist_ok=True)
     tag = f"{args.guidance_method}_gamma{args.guidance_strength}"

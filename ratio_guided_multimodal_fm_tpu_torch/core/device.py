@@ -42,9 +42,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 
 def place_model(model: torch.nn.Module, device: torch.device):
-    """Move a model to `device` in eval mode, 4-D params in channels_last
-    memory (the layout the card's bf16 convolutions run in)."""
-    return model.to(device=device, memory_format=torch.channels_last).eval()
+    """Move a model to `device` for inference: eval mode, 4-D params in
+    channels_last memory (the layout the card's bf16 convolutions run in),
+    params frozen, so that gradient guidance, which differentiates log r̂
+    with respect to the state, forms no parameter gradient (the GroupNorm
+    backward then writes dx alone)."""
+    return model.to(device=device, memory_format=torch.channels_last).eval(
+    ).requires_grad_(False)
 
 
 def device_of(generator: Optional[torch.Generator]) -> torch.device:

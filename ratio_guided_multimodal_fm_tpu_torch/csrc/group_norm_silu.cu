@@ -62,6 +62,8 @@ struct Args {
   const float* w;
   const float* b;
   void* y;
+  float* mean_out;   // [B][G]: the statistics, for the backward; null: none
+  float* rstd_out;
   int B, C, HW, G, K, spc, staged;
   float eps;
 };
@@ -81,7 +83,10 @@ __device__ __forceinline__ void slice_of(const Args& a, int r, int& lo,
   }
 }
 
-template <typename T, int N, bool CL>
+// STATS: also write each group's (mean, rstd) to a.mean_out / a.rstd_out (a
+// separate instantiation, so the sampler's no-grad launches run the code
+// they ran before the statistics output existed).
+template <typename T, int N, bool CL, bool STATS>
 __global__ void __launch_bounds__(512) gn_silu_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x;
@@ -204,8 +209,13 @@ __global__ void __launch_bounds__(512) gn_silu_kernel(Args a) {
     }
     cluster.sync();        // no CTA leaves while a peer reads its partials
   }
-  if (tid < nb * G)
+  if (tid < nb * G) {
     stat[tid] = rgmf::gn_finalize(fs, fs2, (double)cg_ * HW, a.eps);
+    if (STATS && r == 0) {                   // tid = s * G + g
+      a.mean_out[(size_t)b0 * G + tid] = stat[tid].mean;
+      a.rstd_out[(size_t)b0 * G + tid] = stat[tid].rstd;
+    }
+  }
   __syncthreads();
 
   // 3. normalise, affine, round, SiLU, round; vector stores of N elements
@@ -259,9 +269,9 @@ __global__ void __launch_bounds__(512) gn_silu_kernel(Args a) {
   }
 }
 
-template <typename T, int N, bool CL>
+template <typename T, int N, bool CL, bool STATS>
 int launch(const Args& a, int grid, int threads, int smem, cudaStream_t s) {
-  auto kernel = gn_silu_kernel<T, N, CL>;
+  auto kernel = gn_silu_kernel<T, N, CL, STATS>;
   static int smem_set = 0;         // per instantiation
   if (smem > 48 * 1024 && smem > smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -284,19 +294,27 @@ int launch(const Args& a, int grid, int threads, int smem, cudaStream_t s) {
   return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <typename T, bool CL>
+template <typename T, bool CL, bool STATS>
 int dispatch_vec(const Args& a, int vec, int grid, int threads, int smem,
                  cudaStream_t s) {
   switch (vec) {
-    case 1: return launch<T, 1, CL>(a, grid, threads, smem, s);
-    case 2: return launch<T, 2, CL>(a, grid, threads, smem, s);
-    case 4: return launch<T, 4, CL>(a, grid, threads, smem, s);
+    case 1: return launch<T, 1, CL, STATS>(a, grid, threads, smem, s);
+    case 2: return launch<T, 2, CL, STATS>(a, grid, threads, smem, s);
+    case 4: return launch<T, 4, CL, STATS>(a, grid, threads, smem, s);
     case 8:
       if constexpr (sizeof(T) == 2)
-        return launch<T, 8, CL>(a, grid, threads, smem, s);
+        return launch<T, 8, CL, STATS>(a, grid, threads, smem, s);
       break;
   }
   return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, bool STATS>
+int dispatch_layout(const Args& a, int channels_last, int vec, int grid,
+                    int threads, int smem, cudaStream_t s) {
+  return channels_last
+             ? dispatch_vec<T, true, STATS>(a, vec, grid, threads, smem, s)
+             : dispatch_vec<T, false, STATS>(a, vec, grid, threads, smem, s);
 }
 
 }  // namespace
@@ -305,14 +323,16 @@ extern "C" {
 
 // Launch on `stream` with the plan of ops/groupnorm.py:gn_plan. x, y: [B, C,
 // H*W] samples of bf16 (is_bf16) or float32, contiguous in NCHW or
-// channels_last memory (y in x's layout); w, b: float32 [C]. Returns a CUDA
+// channels_last memory (y in x's layout); w, b: float32 [C]. mean_out and
+// rstd_out, float32 [B, G], receive each group's statistics for the backward
+// (group_norm_silu_backward.cu); both null, nothing is written. Returns a CUDA
 // error code (0 = launched); cudaErrorInvalidValue for a plan the kernel
 // cannot run (shared memory below what the layout needs, a thread count that
 // is not a multiple of 32 or of the groups, an unsupported vector width).
 int rgmf_group_norm_silu(const void* x, const float* w, const float* b,
-                         void* y, int B, int C, int HW, int G, float eps,
-                         int is_bf16, int channels_last, int vec, int cluster,
-                         int spc, int threads, int staged, int smem_bytes,
+                         void* y, float* mean_out, float* rstd_out, int B,
+                         int C, int HW, int G, float eps, int is_bf16,
+                         int channels_last, int vec, int cluster, int spc, int threads, int staged, int smem_bytes,
                          int grid, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -326,15 +346,21 @@ int rgmf_group_norm_silu(const void* x, const float* w, const float* b,
       cluster < 1 || cluster > 8 || (cluster > 1 && spc != 1) || C % G ||
       (channels_last && (threads * vec) % C) || grid % cluster)
     return (int)cudaErrorInvalidValue;
-  const Args a{x, w, b, y, B, C, HW, G, cluster, spc, staged, eps};
+  if ((mean_out == nullptr) != (rstd_out == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Args a{x, w, b, y, mean_out, rstd_out, B, C, HW, G, cluster, spc,
+               staged, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool stats = mean_out != nullptr;
   if (is_bf16)
-    return channels_last
-               ? dispatch_vec<bf16, true>(a, vec, grid, threads, smem_bytes, s)
-               : dispatch_vec<bf16, false>(a, vec, grid, threads, smem_bytes, s);
-  return channels_last
-             ? dispatch_vec<float, true>(a, vec, grid, threads, smem_bytes, s)
-             : dispatch_vec<float, false>(a, vec, grid, threads, smem_bytes, s);
+    return stats ? dispatch_layout<bf16, true>(a, channels_last, vec, grid,
+                                               threads, smem_bytes, s)
+                 : dispatch_layout<bf16, false>(a, channels_last, vec, grid,
+                                                threads, smem_bytes, s);
+  return stats ? dispatch_layout<float, true>(a, channels_last, vec, grid,
+                                              threads, smem_bytes, s)
+               : dispatch_layout<float, false>(a, channels_last, vec, grid,
+                                               threads, smem_bytes, s);
 }
 
 const char* rgmf_cuda_error_string(int err) {

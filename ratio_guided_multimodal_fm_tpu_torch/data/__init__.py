@@ -1,0 +1,22 @@
+"""numpy copies of the JAX package's data modules that the port reads
+(the JAX package's `__init__` imports jax, so the port keeps its own)."""
+from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
+    get_classifier_dataloader,
+)
+from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
+    get_mnist32_flow_dataloader,
+    get_svhn_flow_dataloader,
+)
+from ratio_guided_multimodal_fm_tpu_torch.data.sources import (
+    load_mnist,
+    load_svhn,
+)
+from ratio_guided_multimodal_fm_tpu_torch.data.transforms import (
+    TRANSFORM_NAMES,
+    apply_transform,
+    inverse_transform,
+)
+
+__all__ = ["TRANSFORM_NAMES", "apply_transform", "get_classifier_dataloader",
+           "get_mnist32_flow_dataloader", "get_svhn_flow_dataloader",
+           "inverse_transform", "load_mnist", "load_svhn"]

@@ -5,7 +5,9 @@ The port's own copy of the layout rules of the JAX package's exporter
 into the port with `load_state_dict(strict=True)`:
 
   Conv2d      kernel (kh,kw,I,O) -> weight (O,I,kh,kw)
-  Linear      kernel (I,O)       -> weight (O,I)
+  Linear      kernel (I,O)       -> weight (O,I); after a conv map (the
+              classifiers' fc1) its inputs go from flax's (H,W,C) flatten
+              order to torch's (C,H,W)
   Group/LayerNorm, BatchNorm  scale/bias -> weight/bias
   BatchNorm   batch_stats mean/var -> running_mean/running_var, and
               num_batches_tracked = 0 (inference never reads it)
@@ -32,8 +34,14 @@ def _conv(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
     out[f"{name}.bias"] = _t(p["bias"])
 
 
-def _dense(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
-    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+def _dense(out: StateDict, name: str, p: Mapping[str, Any],
+           conv_shape=None) -> None:
+    w = np.asarray(p["kernel"]).T                 # (O, I)
+    if conv_shape is not None:                    # I flattened (H, W, C)
+        c, h, ww = conv_shape
+        w = w.reshape(-1, h, ww, c).transpose(0, 3, 1, 2).reshape(
+            w.shape[0], -1)
+    out[f"{name}.weight"] = _t(w)
     out[f"{name}.bias"] = _t(p["bias"])
 
 
@@ -124,23 +132,44 @@ def ratio_mnist_svhn_state_dict(variables: Mapping[str, Any]) -> StateDict:
     return out
 
 
+def classifier_state_dict(variables: Mapping[str, Any], n_convs: int,
+                          conv_shape, batch_norm: bool = False) -> StateDict:
+    """MNISTClassifier / MNISTClassifier32 / SVHNClassifier params (+
+    batch_stats) -> models.classifiers state dict."""
+    p = variables["params"]
+    out: StateDict = {}
+    for i in range(1, n_convs + 1):
+        _conv(out, f"conv{i}", p[f"conv{i}"])
+        if batch_norm:
+            _bn(out, f"bn{i}", p[f"bn{i}"], variables["batch_stats"][f"bn{i}"])
+    _dense(out, "fc1", p["fc1"], conv_shape)
+    _dense(out, "fc2", p["fc2"])
+    return out
+
+
 BRIDGES = {
     "unet_mnist": lambda v: unet_state_dict(v, channel_mult=(1, 2)),
     "unet_svhn": lambda v: unet_state_dict(v, channel_mult=(1, 2, 2)),
     "ratio_mnist": ratio_gn_state_dict,
     "ratio_mnist_svhn": ratio_mnist_svhn_state_dict,
+    "classifier_mnist": lambda v: classifier_state_dict(v, 2, (64, 7, 7)),
+    "classifier_mnist32": lambda v: classifier_state_dict(v, 3, (64, 8, 8)),
+    "classifier_svhn": lambda v: classifier_state_dict(v, 4, (128, 8, 8),
+                                                       batch_norm=True),
 }
+BATCH_NORM_MODELS = ("ratio_mnist_svhn", "classifier_svhn")
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], model: str) -> StateDict:
-    """Convert flax variables of `model` ('unet_mnist' | 'unet_svhn' |
-    'ratio_mnist' | 'ratio_mnist_svhn') into the port's state dict."""
+    """Convert flax variables of `model` (a key of BRIDGES: 'unet_mnist',
+    'unet_svhn', 'ratio_mnist', 'ratio_mnist_svhn', 'classifier_mnist',
+    'classifier_mnist32', 'classifier_svhn') into the port's state dict."""
     if model not in BRIDGES:
         raise ValueError(f"unknown model kind {model!r}; one of "
                          f"{sorted(BRIDGES)}")
     if "params" not in variables:
         variables = {"params": variables}
-    if model == "ratio_mnist_svhn" and "batch_stats" not in variables:
-        raise ValueError("ratio_mnist_svhn uses BatchNorm: pass variables "
-                         "with 'batch_stats' alongside 'params'")
+    if model in BATCH_NORM_MODELS and "batch_stats" not in variables:
+        raise ValueError(f"{model} uses BatchNorm: pass variables with "
+                         "'batch_stats' alongside 'params'")
     return BRIDGES[model](variables)

@@ -20,6 +20,14 @@ output.
 Kernel (CUDA tensors): csrc/group_norm_silu.cu, one pass over device
 memory; `gn_plan` below decides its launch. CPU tensors run
 `group_norm_silu_reference`; any other device raises.
+
+Gradient: where autograd records (grad enabled and x, weight or bias
+requiring grad), `group_norm_silu` is a `torch.autograd.Function` whose
+forward also saves the statistics (mean, rstd [B, G]) and whose backward is
+`group_norm_silu_backward`: csrc/group_norm_silu_backward.cu on the card
+(launch plan `gn_backward_plan`), `group_norm_silu_backward_reference` for
+CPU tensors. Otherwise the forward runs as before, with no statistics
+written.
 """
 from __future__ import annotations
 
@@ -47,23 +55,72 @@ TOL_BF16 = dict(rtol=2**-7, atol=1e-3)
 THREADS = 256              # a CTA's threads, where the shape allows
 
 
+def gn_stats_reference(x: torch.Tensor, num_groups: int, eps: float = 1e-6):
+    """(mean, rstd) [B, G] of NCHW x: float64 sums, mean and E[x²] rounded to
+    float32, the fast variance in float32 (see the top). float64 x keeps
+    every step in float64."""
+    B = x.shape[0]
+    n = x[0].numel() // num_groups
+    cdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xd = x.to(torch.float64).reshape(B, num_groups, n)
+    mean = (xd.sum(-1) / n).to(cdt)
+    msq = ((xd * xd).sum(-1) / n).to(cdt)
+    var = msq - mean * mean
+    rstd = (1.0 / torch.sqrt((var + eps).to(torch.float64))).to(cdt)
+    return mean, rstd
+
+
+def _normalise(x, mean, rstd):
+    """(x̂, the statistics' dtype, in which x̂ and the affine are taken)."""
+    B, C, H, W = x.shape
+    G = mean.shape[1]
+    cdt = mean.dtype
+    xh = ((x.to(cdt).reshape(B, G, -1) - mean[..., None])
+          * rstd[..., None]).reshape(B, C, H, W)
+    return xh, cdt
+
+
+def _affine(xh, weight, bias, cdt):
+    return xh * weight.to(cdt)[None, :, None, None] \
+        + bias.to(cdt)[None, :, None, None]
+
+
+def _apply_reference(x, weight, bias, mean, rstd):
+    xh, cdt = _normalise(x, mean, rstd)
+    return F.silu(_affine(xh, weight, bias, cdt).to(x.dtype))
+
+
 def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor, num_groups: int,
                               eps: float = 1e-6) -> torch.Tensor:
     """Plain PyTorch silu(GroupNorm(num_groups)(x)) for NCHW x."""
+    mean, rstd = gn_stats_reference(x, num_groups, eps)
+    return _apply_reference(x, weight, bias, mean, rstd)
+
+
+def group_norm_silu_backward_reference(dy, x, weight, bias, mean, rstd,
+                                       weight_grads: bool = True):
+    """Plain PyTorch backward of `group_norm_silu` at the saved statistics
+    (mean, rstd [B, G]): (dx in x's dtype, dγ, dβ float32 [C] or None).
+
+    In float32 (float64 for float64 inputs): s = sigmoid(ã) at the ROUNDED
+    affine output ã, da = dy·s·(1 + ã(1 − s)), per (b, g) c₁ = mean(da·γ)
+    and c₂ = mean(da·γ·x̂), dx = rstd·(da·γ − c₁ − x̂·c₂); dγ = Σ da·x̂ and
+    dβ = Σ da over batch and pixels."""
     B, C, H, W = x.shape
-    n = C // num_groups * H * W
-    f32, f64 = torch.float32, torch.float64
-    xd = x.to(f64).reshape(B, num_groups, n)
-    mean = (xd.sum(-1, keepdim=True) / n).to(f32)
-    msq = ((xd * xd).sum(-1, keepdim=True) / n).to(f32)
-    var = msq - mean * mean
-    rstd = (1.0 / torch.sqrt((var + eps).to(f64))).to(f32)
-    y = ((x.to(f32).reshape(B, num_groups, n) - mean) * rstd).reshape(
-        B, C, H, W)
-    y = (y * weight.to(f32)[None, :, None, None]
-         + bias.to(f32)[None, :, None, None])
-    return F.silu(y.to(x.dtype))
+    G = mean.shape[1]
+    xh, cdt = _normalise(x, mean, rstd)
+    a = _affine(xh, weight, bias, cdt).to(x.dtype).to(cdt)
+    s = torch.sigmoid(a)
+    da = dy.to(cdt) * s * (1 + a * (1 - s))
+    dag = (da * weight.to(cdt)[None, :, None, None]).reshape(B, G, -1)
+    xhg = xh.reshape(B, G, -1)
+    c1 = dag.mean(-1, keepdim=True)
+    c2 = (dag * xhg).mean(-1, keepdim=True)
+    dx = (rstd[..., None] * (dag - c1 - xhg * c2)).reshape(B, C, H, W)
+    if not weight_grads:
+        return dx.to(x.dtype), None, None
+    return dx.to(x.dtype), (da * xh).sum((0, 2, 3)), da.sum((0, 2, 3))
 
 
 @dataclass(frozen=True)
@@ -93,12 +150,10 @@ def _header_bytes(groups: int, spc: int, nwarps: int) -> int:
     return -(-n // 128) * 128
 
 
-@functools.lru_cache(maxsize=1024)
-def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
-            channels_last: bool, align: int = 16) -> GNPlan:
-    """The launch of the kernel for x [B, C, H, W] of `itemsize`-byte
-    elements whose data pointer is `align`-byte aligned. Raises ValueError
-    for a shape it cannot plan."""
+def _decompose(B, C, H, W, groups, itemsize, channels_last, align,
+               slice_bytes, small_bytes):
+    """(vec, bulk, cluster, samples per CTA, slice_cap, threads): how the
+    forward and the backward kernel cut x into CTAs' slices."""
     HW = H * W
     inner = C if channels_last else HW     # contiguous run of one unit
     units = HW if channels_last else C     # what a cluster splits
@@ -110,11 +165,11 @@ def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
 
     cluster = 1
     while (cluster < MAX_CLUSTER and 2 * cluster <= units
-           and -(-units // cluster) * inner * itemsize > SLICE_BYTES):
+           and -(-units // cluster) * inner * itemsize > slice_bytes):
         cluster *= 2
     spc = 1
     if cluster == 1:
-        spc = max(1, min(4, SMALL_BYTES // sample_bytes,
+        spc = max(1, min(4, small_bytes // sample_bytes,
                          -(-B // (2 * NUM_SMS))))
     slice_cap = -(-units // cluster) * inner
 
@@ -124,12 +179,55 @@ def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
         raise ValueError(f"group_norm_silu: no thread count for C={C}, "
                          f"groups={groups} (needs a multiple of {base})")
     threads = base * max(1, min(MAX_THREADS // base, round(THREADS / base)))
+    return vec, bulk, cluster, spc, slice_cap, threads
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
+            channels_last: bool, align: int = 16) -> GNPlan:
+    """The launch of the kernel for x [B, C, H, W] of `itemsize`-byte
+    elements whose data pointer is `align`-byte aligned. Raises ValueError
+    for a shape it cannot plan."""
+    vec, bulk, cluster, spc, slice_cap, threads = _decompose(
+        B, C, H, W, groups, itemsize, channels_last, align, SLICE_BYTES,
+        SMALL_BYTES)
     hdr = _header_bytes(groups, spc, threads // 32)
     staged = bulk and hdr + spc * slice_cap * itemsize <= SMEM_MAX
     smem = hdr + (spc * slice_cap * itemsize if staged else 0)
     if smem > SMEM_MAX:
         raise ValueError(f"group_norm_silu: {smem} B of shared memory for "
                          f"groups={groups}")
+    return GNPlan(channels_last, vec, cluster, spc, threads, staged, smem,
+                  -(-B // spc) * cluster, slice_cap)
+
+
+def _bwd_header_bytes(C: int, groups: int, spc: int, threads: int, vec: int,
+                      channels_last: bool) -> int:
+    """csrc/group_norm_silu_backward.cu:bwd_header_bytes."""
+    n = (16 + 16 * spc * groups + 16 * spc * C + 8 * spc * groups
+         + (16 * vec * threads if channels_last else 0))
+    return -(-n // 128) * 128
+
+
+@functools.lru_cache(maxsize=1024)
+def gn_backward_plan(B: int, C: int, H: int, W: int, groups: int,
+                     itemsize: int, channels_last: bool,
+                     align: int = 16) -> GNPlan:
+    """The launch of csrc/group_norm_silu_backward.cu for x and dy
+    [B, C, H, W] whose data pointers are both `align`-byte aligned: kernel
+    B's decomposition with half its slice, so that a CTA stages the slice of
+    x and of dy (`smem_bytes` of dynamic shared memory); `staged` False
+    reads both twice from device memory. Raises ValueError for a shape it
+    cannot plan."""
+    vec, bulk, cluster, spc, slice_cap, threads = _decompose(
+        B, C, H, W, groups, itemsize, channels_last, align, SLICE_BYTES // 2,
+        SMALL_BYTES // 2)
+    hdr = _bwd_header_bytes(C, groups, spc, threads, vec, channels_last)
+    staged = bulk and hdr + 2 * spc * slice_cap * itemsize <= SMEM_MAX
+    smem = hdr + (2 * spc * slice_cap * itemsize if staged else 0)
+    if smem > SMEM_MAX:
+        raise ValueError(f"group_norm_silu_backward: {smem} B of shared "
+                         f"memory for C={C}, groups={groups}")
     return GNPlan(channels_last, vec, cluster, spc, threads, staged, smem,
                   -(-B // spc) * cluster, slice_cap)
 
@@ -150,44 +248,146 @@ def gn_slices(plan: GNPlan, B: int, C: int, H: int, W: int
             yield cta, b, lo, hi
 
 
-_c_fn = None
+_c_fns = {}
 
 
-def _kernel_fn():
-    global _c_fn
-    if _c_fn is None:
-        lib = _build.load("group_norm_silu")
-        fn = lib.rgmf_group_norm_silu
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float] + [i] * 10 + [p]
-        fn.restype = i
-        lib.rgmf_cuda_error_string.argtypes = [i]
+def _kernel_fn(name: str, argtypes):
+    """The C entry point rgmf_<name> of csrc/<name>.cu and the library's
+    error-string function."""
+    if name not in _c_fns:
+        lib = _build.load(name)
+        fn = getattr(lib, f"rgmf_{name}")
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        lib.rgmf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fn = (fn, lib.rgmf_cuda_error_string)
-    return _c_fn
+        _c_fns[name] = (fn, lib.rgmf_cuda_error_string)
+    return _c_fns[name]
 
 
-def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float):
-    fn, err_str = _kernel_fn()
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_FWD_ARGS = [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 10 + [_P]
+_BWD_ARGS = [_P] * 10 + [_I] * 14 + [_P]
+
+
+def _device_and_stream(x):
+    dev = x.device
+    return (dev.index if dev.index is not None else torch.cuda.current_device(),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
+            stats: bool = False):
+    """y (x's strides); with `stats` also (mean, rstd) float32 [B, G]."""
+    fn, err_str = _kernel_fn("group_norm_silu", _FWD_ARGS)
     B, C, H, W = x.shape
     cl = not x.is_contiguous()          # then channels_last (checked)
     y = torch.empty_like(x)             # x's strides
+    mean = rstd = None
+    if stats:
+        mean = torch.empty((B, num_groups), dtype=torch.float32,
+                           device=x.device)
+        rstd = torch.empty_like(mean)
     align = math.gcd(x.data_ptr(), 16) or 16
     plan = gn_plan(B, C, H, W, num_groups, x.element_size(), cl, align)
-    dev = x.device
     err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             B, C, H * W, num_groups, float(eps),
+             _ptr(mean), _ptr(rstd), B, C, H * W, num_groups, float(eps),
              int(x.dtype == torch.bfloat16), int(cl), plan.vec, plan.cluster,
              plan.samples_per_cta, plan.threads, int(plan.staged),
-             plan.smem_bytes, plan.grid,
-             dev.index if dev.index is not None else
-             torch.cuda.current_device(),
-             torch.cuda.current_stream(dev).cuda_stream)
+             plan.smem_bytes, plan.grid, *_device_and_stream(x))
     if err != 0:
         raise RuntimeError(f"group_norm_silu kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()}), {plan}")
     group_norm_silu.launches += 1
-    return y
+    return (y, mean, rstd) if stats else y
+
+
+def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
+    fn, err_str = _kernel_fn("group_norm_silu_backward", _BWD_ARGS)
+    B, C, H, W = x.shape
+    G = mean.shape[1]
+    cl = not x.is_contiguous()
+    dy = dy.contiguous(memory_format=torch.channels_last if cl
+                       else torch.contiguous_format)
+    dx = torch.empty_like(x)
+    align = math.gcd(math.gcd(x.data_ptr(), dy.data_ptr()), 16) or 16
+    plan = gn_backward_plan(B, C, H, W, G, x.element_size(), cl, align)
+    ws = dgamma = dbeta = None
+    if weight_grads:
+        ws = torch.empty((plan.grid, C, 2), dtype=torch.float64,
+                         device=x.device)
+        dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
+        dbeta = torch.empty_like(dgamma)
+    err = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(ws),
+             _ptr(dgamma), _ptr(dbeta), B, C, H * W, G,
+             int(x.dtype == torch.bfloat16), int(cl), plan.vec, plan.cluster,
+             plan.samples_per_cta, plan.threads, int(plan.staged),
+             plan.smem_bytes, plan.grid, *_device_and_stream(x))
+    if err != 0:
+        raise RuntimeError(f"group_norm_silu_backward kernel launch failed: "
+                           f"CUDA error {err} ({err_str(err).decode()}), "
+                           f"{plan}")
+    group_norm_silu_backward.launches += 1
+    return dx, dgamma, dbeta
+
+
+def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
+                             weight: torch.Tensor, bias: torch.Tensor,
+                             mean: torch.Tensor, rstd: torch.Tensor,
+                             weight_grads: bool = True):
+    """(dx, dγ, dβ) of silu(GroupNorm(x)) at the forward's saved statistics
+    mean, rstd (float32 [B, G]); dγ and dβ are None unless `weight_grads`.
+
+    CUDA tensors launch csrc/group_norm_silu_backward.cu (dy is brought to
+    x's memory format first), CPU tensors run
+    `group_norm_silu_backward_reference`; any other device raises.
+    """
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"group_norm_silu_backward: dy {dy.dtype} "
+                         f"{tuple(dy.shape)} != x {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return group_norm_silu_backward_reference(dy, x, weight, bias, mean,
+                                                  rstd, weight_grads)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_norm_silu_backward: unsupported device "
+                         f"{x.device}")
+    return _launch_backward(dy, x, weight, bias, mean.contiguous(),
+                            rstd.contiguous(), weight_grads)
+
+
+group_norm_silu_backward.launches = 0
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    """silu(GroupNorm(x)) whose forward saves the statistics and whose
+    backward is `group_norm_silu_backward`; dγ and dβ are formed only where
+    `ctx.needs_input_grad` asks for them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps):
+        if x.device.type == "cpu":
+            mean, rstd = gn_stats_reference(x, num_groups, eps)
+            y = _apply_reference(x, weight, bias, mean, rstd)
+        else:
+            y, mean, rstd = _launch(x, weight, bias, num_groups, eps,
+                                    stats=True)
+        ctx.save_for_backward(x, weight, bias, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, bias, mean, rstd = ctx.saved_tensors
+        _, need_w, need_b = ctx.needs_input_grad[:3]
+        dx, dw, db = group_norm_silu_backward(dy, x, weight, bias, mean, rstd,
+                                              need_w or need_b)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dw if need_w else None, db if need_b else None, None, None)
 
 
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
@@ -216,16 +416,20 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
         if p.device != x.device or not p.is_contiguous():
             raise ValueError(f"group_norm_silu: {name} must be contiguous "
                              f"on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
+    if x.device.type == "cuda":
+        if not (x.is_contiguous()
+                or x.is_contiguous(memory_format=torch.channels_last)):
+            raise ValueError("group_norm_silu: x must be contiguous in NCHW "
+                             "or channels_last memory format")
+        if x.numel() == 0:
+            raise ValueError(f"group_norm_silu: empty x {tuple(x.shape)}")
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _GroupNormSiLU.apply(x, weight, bias, num_groups, eps)
     if x.device.type == "cpu":
         return group_norm_silu_reference(x, weight, bias, num_groups, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"group_norm_silu: unsupported device {x.device}")
-    if not (x.is_contiguous()
-            or x.is_contiguous(memory_format=torch.channels_last)):
-        raise ValueError("group_norm_silu: x must be contiguous in NCHW or "
-                         "channels_last memory format")
-    if x.numel() == 0:
-        raise ValueError(f"group_norm_silu: empty x {tuple(x.shape)}")
     return _launch(x, weight, bias, num_groups, eps)
 
 

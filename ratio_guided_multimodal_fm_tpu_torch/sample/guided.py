@@ -6,7 +6,13 @@ Two phases, as in the JAX package:
   with the ratio net: the MC set (mc_x1, mc_y1, r̂ = exp(log r̂)).
 * Phase B integrates both flows from noise; with mc_feng guidance each step
   mixes the velocities with the importance-weighted guidance term
-  (Feng et al. Alg. 2): v ← (1−γ)·v + γ·g, gated on t > 1e-3.
+  (Feng et al. Alg. 2): v ← (1−γ)·v + γ·g, gated on t > 1e-3. With grad
+  guidance (alone, or after the mc_feng mixing in 'mc_feng+grad') each step
+  adds γ_g·∇ Σ log r̂(x_t, y_t), differentiated by torch.autograd with
+  respect to the state only (the GroupNorm+SiLU kernel's backward on the
+  card), gated like JAX: t > 1e-3, t < grad_t_max, optionally ×σ_t².
+* mc_refresh = K > 1 splits phase B into K segments, each with a fresh MC
+  set drawn from the sampler's generator in segment order.
 
 The guidance runs through the `ops.guidance.flash_guidance` wrapper at every
 step (the JAX package's Pallas branch): the kernel on the card, its plain
@@ -17,8 +23,7 @@ and return NHWC tensors; random draws come from an explicit
 `mc_set=` inject the random inputs (random streams cannot cross
 frameworks, so the parity tests inject both).
 
-Not ported yet (raise): 'grad' and 'mc_feng+grad' guidance, mc_refresh > 1,
-merged-pair evaluation and a sharded MC axis.
+Not ported yet: merged-pair evaluation and a sharded MC axis.
 """
 from __future__ import annotations
 
@@ -47,7 +52,9 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
 # exp(log r̂) must stay float32-finite: cap log r̂ at 80 (e^80 ≈ 5.5e34).
 LOG_R_F32_MAX = 80.0
 
-GUIDANCE_METHODS = ("none", "mc_feng")
+GUIDANCE_METHODS = ("none", "mc_feng", "grad", "mc_feng+grad")
+MC_METHODS = ("mc_feng", "mc_feng+grad")
+GRAD_METHODS = ("grad", "mc_feng+grad")
 
 
 def _flat(x):
@@ -118,7 +125,7 @@ class GuidedSamplerConfig:
     """Same fields as the JAX config, minus `use_pallas` (dispatch follows
     the tensors' device) and `scan_unroll` (no scan in eager PyTorch)."""
 
-    guidance_method: str = "none"     # 'none' | 'mc_feng'
+    guidance_method: str = "none"     # GUIDANCE_METHODS
     guidance_strength: float = 0.0
     num_steps: int = 100
     mc_batch_size: int = 64
@@ -128,27 +135,29 @@ class GuidedSamplerConfig:
     log_ratio_clip: Optional[float] = None
     # optional ESS floor: per-trajectory γ_eff = γ·min(1, ESS/ess_floor)
     ess_floor: Optional[float] = None
-    # grad-method knobs; the grad methods are not ported yet
+    # grad term: strength (None: guidance_strength), 'const' or 'sigma'
+    # (×σ_t²), and the gate t < grad_t_max (1.0: none)
     grad_strength: Optional[float] = None
     grad_scale: str = "const"
     grad_t_max: float = 1.0
     solver: str = "euler"             # 'euler' | 'midpoint' | 'heun'
     time_grid: str = "uniform"        # flow/cfm.py:make_time_grid
     grid_power: float = 2.0
-    mc_refresh: int = 1               # only 1 (the reference protocol)
+    # fresh MC sets along each trajectory (mc_feng methods); 1 = reference
+    # protocol. The JAX config documents it as measured harmful.
+    mc_refresh: int = 1
 
 
 def _validate(cfg: GuidedSamplerConfig, guided: bool) -> None:
-    if cfg.guidance_method in ("grad", "mc_feng+grad"):
-        raise NotImplementedError(
-            f"guidance_method={cfg.guidance_method!r} is not yet ported to "
-            "PyTorch (use the JAX package)")
     if cfg.guidance_method not in GUIDANCE_METHODS:
         raise ValueError(f"guidance_method must be one of "
                          f"{GUIDANCE_METHODS}, got {cfg.guidance_method!r}")
-    if cfg.mc_refresh != 1:
-        raise NotImplementedError("mc_refresh > 1 is not yet ported to "
-                                  "PyTorch (use the JAX package)")
+    if cfg.mc_refresh < 1:
+        raise ValueError(f"mc_refresh must be >= 1, got {cfg.mc_refresh}")
+    if (cfg.mc_refresh > 1 and guided and cfg.guidance_method in MC_METHODS
+            and cfg.num_steps % cfg.mc_refresh):
+        raise ValueError(f"mc_refresh={cfg.mc_refresh} must divide num_steps="
+                         f"{cfg.num_steps} (equal refresh segments)")
     if cfg.solver not in SOLVERS:
         raise ValueError(f"solver must be one of {SOLVERS}, "
                          f"got {cfg.solver!r}")
@@ -162,10 +171,26 @@ def _validate(cfg: GuidedSamplerConfig, guided: bool) -> None:
             "'midpoint' with guidance")
 
 
+def _grad_log_ratio(log_ratio_fn: Callable, x_t, y_t):
+    """∇ Σ float32(log r̂(x_t, y_t)) with respect to the state only:
+    detached copies of x_t and y_t are the only inputs of autograd.grad, so
+    no parameter .grad is written."""
+    with torch.enable_grad():
+        x = x_t.detach().requires_grad_(True)
+        y = y_t.detach().requires_grad_(True)
+        total = log_ratio_fn(x, y).to(torch.float32).sum()
+        g_x, g_y = torch.autograd.grad(total, (x, y))
+    return g_x, g_y
+
+
 def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
-                      cfg: GuidedSamplerConfig, mc_set) -> Callable:
+                      cfg: GuidedSamplerConfig, mc_set,
+                      log_ratio_fn: Optional[Callable] = None) -> Callable:
     """Build step(x_t, y_t, t, dt) -> (x_t, y_t, diag) for phase B. `t`,
-    `dt` are float32 scalars; `mc_set` is None unless guiding."""
+    `dt` are float32 scalars; `mc_set` is None unless the method mixes in
+    mc_feng guidance, `log_ratio_fn` None unless it adds the grad term."""
+    grad_gamma = np.float32(cfg.grad_strength if cfg.grad_strength
+                            is not None else cfg.guidance_strength)
     if mc_set is not None:
         mc_x1, mc_y1, mc_ratios = mc_set
         mc_x1 = mc_x1.to(torch.float32).contiguous()
@@ -174,6 +199,16 @@ def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
         mc_log_r = torch.log(torch.clamp(mc_ratios.to(torch.float32),
                                          min=1e-30)).contiguous()
         check_finite(mc_log_r, "mc_feng log ratios")
+
+    def grad_gate(t) -> float:
+        """γ_g·[t > ε]·[t < grad_t_max]·(σ_t² for 'sigma'), in float32."""
+        gate = grad_gamma if t > np.float32(EPS_T) else np.float32(0.0)
+        if cfg.grad_t_max < 1.0:
+            gate = gate * np.float32(t < np.float32(cfg.grad_t_max))
+        if cfg.grad_scale == "sigma":
+            sig = np.float32(1.0) - t + np.float32(EPS_T)
+            gate = gate * sig * sig
+        return float(gate)
 
     def mixed_velocity(x_t, y_t, t):
         tb = torch.full((x_t.shape[0],), float(t), dtype=torch.float32,
@@ -203,6 +238,13 @@ def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
                                           1.0).reshape(gate.shape)
             v_x = (1.0 - gate) * v_x + gate * g_x
             v_y = (1.0 - gate) * v_y + gate * g_y
+        if log_ratio_fn is not None:
+            # at every step, gated or not: a non-finite gradient is not
+            # hidden by a zero gate
+            g_x, g_y = _grad_log_ratio(log_ratio_fn, x_t, y_t)
+            gate = grad_gate(t)
+            v_x = v_x + gate * g_x
+            v_y = v_y + gate * g_y
         return v_x, v_y, diag
 
     def step(x_t, y_t, t, dt):
@@ -240,10 +282,15 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
     params = (model_x, model_y, ratio_model); fm_*_apply(model, x NHWC,
     t [B]) -> v NHWC and log_ratio_apply(ratio_model, x, y) -> [B]. The
     sampler runs on `generator.device`. diags holds per-step stacked
-    tensors ([num_steps] or [num_steps, B]) when guiding, else {}.
+    tensors ([num_steps] or [num_steps, B]) when the method mixes in
+    mc_feng guidance, else {}. Random draws, in order: the initial noise,
+    then per MC set (one, or one per segment with mc_refresh > 1) the x
+    and the y candidates' noise.
     """
     guided = cfg.guidance_method != "none" and log_ratio_apply is not None
     _validate(cfg, guided)
+    use_mc = guided and cfg.guidance_method in MC_METHODS
+    use_grad = guided and cfg.guidance_method in GRAD_METHODS
 
     @torch.no_grad()
     def sampler(params, generator: torch.Generator, num_samples: int,
@@ -257,6 +304,9 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
         def fm_y_fn(y, t):
             return fm_y_apply(model_y, y, t)
 
+        def log_ratio_fn(x, y):
+            return log_ratio_apply(ratio_model, x, y)
+
         f32 = torch.float32
         if init_noise is not None:
             x_t, y_t = (a.to(device=device, dtype=f32) for a in init_noise)
@@ -266,34 +316,40 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
             y_t = torch.randn((num_samples,) + tuple(cfg.y_shape),
                               generator=generator, dtype=f32, device=device)
 
-        if guided and mc_set is None:
+        def gen_mc():
             # Phase A: N_mc independent pairs and their terminal ratios
-            mc_x1 = euler_sample(fm_x_fn, generator,
-                                 (cfg.mc_batch_size,) + tuple(cfg.x_shape),
-                                 cfg.num_steps, cfg.solver, cfg.time_grid,
-                                 cfg.grid_power)
-            mc_y1 = euler_sample(fm_y_fn, generator,
-                                 (cfg.mc_batch_size,) + tuple(cfg.y_shape),
-                                 cfg.num_steps, cfg.solver, cfg.time_grid,
-                                 cfg.grid_power)
-            log_r = log_ratio_apply(ratio_model, mc_x1, mc_y1).to(f32)
-            if cfg.log_ratio_clip is not None:
-                log_r = torch.clamp(log_r, -cfg.log_ratio_clip,
-                                    cfg.log_ratio_clip)
-            mc_set = (mc_x1, mc_y1, safe_exp_log_r(log_r))
+            return generate_mc_set(fm_x_fn, fm_y_fn, log_ratio_fn, generator,
+                                   cfg.mc_batch_size, cfg.x_shape,
+                                   cfg.y_shape, cfg.num_steps,
+                                   cfg.log_ratio_clip, cfg.solver,
+                                   cfg.time_grid, cfg.grid_power)
 
-        step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
-                                 mc_set if guided else None)
+        K = cfg.mc_refresh if use_mc else 1
+        if K > 1 and mc_set is not None:
+            raise ValueError(
+                "mc_refresh > 1 regenerates the MC set internally — a "
+                "caller-provided mc_set is contradictory (pass mc_set=None, "
+                "or use mc_refresh=1 to amortize one set)")
+        ts, dts = make_time_grid(cfg.num_steps, cfg.time_grid,
+                                 cfg.grid_power)
+        seg = cfg.num_steps // K
         diags = []
-        for t, dt in zip(*make_time_grid(cfg.num_steps, cfg.time_grid,
-                                         cfg.grid_power)):
-            x_t, y_t, diag = step(x_t, y_t, t, dt)
-            diags.append(diag)
+        for k in range(K):
+            if use_mc and (K > 1 or mc_set is None):
+                mc_set = gen_mc()
+            step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
+                                     mc_set if use_mc else None,
+                                     log_ratio_fn if use_grad else None)
+            for t, dt in zip(ts[k * seg:(k + 1) * seg],
+                             dts[k * seg:(k + 1) * seg]):
+                x_t, y_t, diag = step(x_t, y_t, t, dt)
+                diags.append(diag)
         return x_t, y_t, _stack_diags(diags)
 
     return sampler
 
 
+@torch.no_grad()
 def generate_mc_set(fm_x_fn: Callable, fm_y_fn: Callable,
                     log_ratio_fn: Callable, generator: torch.Generator,
                     mc_batch_size: int, x_shape, y_shape,
@@ -336,11 +392,15 @@ def sample_bimodal_guided(
     grid_power: float = 2.0,
     device=None,
     mc_refresh: int = 1,
+    grad_strength: Optional[float] = None,
+    grad_scale: str = "const",
+    grad_t_max: float = 1.0,
 ):
     """The reference's argument surface (flow_utils.py:178-213) with closures
-    fm_*_fn(x NHWC, t [B]) and log_ratio_fn(x, y). Returns (x1, y1) NHWC
-    (plus diagnostics). Runs on `device` (default cuda) with a generator
-    seeded 42 unless `generator` is given."""
+    fm_*_fn(x NHWC, t [B]) and log_ratio_fn(x, y), plus the JAX package's
+    grad_* and mc_refresh knobs. Returns (x1, y1) NHWC (plus diagnostics).
+    Runs on `device` (default cuda) with a generator seeded 42 unless
+    `generator` is given."""
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(42)
     cfg = GuidedSamplerConfig(
@@ -349,7 +409,9 @@ def sample_bimodal_guided(
         mc_batch_size=mc_batch_size, x_shape=tuple(x_shape),
         y_shape=tuple(y_shape), log_ratio_clip=log_ratio_clip,
         ess_floor=ess_floor, solver=solver, time_grid=time_grid,
-        grid_power=grid_power, mc_refresh=mc_refresh)
+        grid_power=grid_power, mc_refresh=mc_refresh,
+        grad_strength=grad_strength, grad_scale=grad_scale,
+        grad_t_max=grad_t_max)
     sampler = make_guided_sampler_p(
         lambda _, x, t: fm_x_fn(x, t), lambda _, y, t: fm_y_fn(y, t), cfg,
         None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)))

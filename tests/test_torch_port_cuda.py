@@ -10,7 +10,10 @@ bound) on inputs that float32 sums exactly, and on N(0,1) images at most
 twice the float32 plain version's error against the float64 plain version;
 group_norm_silu 1e-4 in float32 and one bfloat16 step in bfloat16
 (rtol 2**-7, atol 1e-3: kernel and plain version take the same statistics
-and round at the same points, see ops/groupnorm.py);
+and round at the same points, see ops/groupnorm.py); its backward, against
+the plain backward run in float64 on the same inputs, at most twice the
+float32 plain backward's max |err| in dx, dγ and dβ, in bfloat16 one
+bfloat16 step from the bfloat16 plain backward, and bit-identical reruns;
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
 against the float32 plain version (tests/test_resblock_pallas.py), and
 rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
@@ -23,7 +26,10 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     TOL_BF16 as TOL_GN_BF16,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
+    gn_stats_reference,
     group_norm_silu,
+    group_norm_silu_backward,
+    group_norm_silu_backward_reference,
     group_norm_silu_reference,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
@@ -243,3 +249,144 @@ def test_guided_sampler_card_matches_cpu(card, solver):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(out["cuda"][2]["ess"].cpu(),
                                out["cpu"][2]["ess"], rtol=1e-3, atol=1e-3)
+
+
+def _gn_backward_inputs(card, B, C, H, dtype, channels_last, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn(B, C, H, H, generator=g, device=card) * 2.0 + 0.5).to(
+        dtype).contiguous(memory_format=fmt)
+    w = torch.rand(C, generator=g, device=card) + 0.5
+    b = torch.randn(C, generator=g, device=card) * 0.1
+    dy = torch.randn(B, C, H, H, generator=g, device=card).to(dtype)
+    return x, w, b, dy
+
+
+def gn_backward_errors(x, w, b, dy, mean, rstd, got):
+    """Max |err| of the kernel's (dx, dγ, dβ) and of the float32 plain
+    backward's against the plain backward in float64 at the same
+    statistics: {name: (kernel, plain)}."""
+    plain = group_norm_silu_backward_reference(dy, x, w, b, mean, rstd)
+    exact = group_norm_silu_backward_reference(
+        dy.double(), x.double(), w.double(), b.double(), mean.double(),
+        rstd.double())
+    return {nm: (float((k.double() - e).abs().max()),
+                 float((p.double() - e).abs().max()))
+            for nm, k, p, e in zip(("dx", "dgamma", "dbeta"), got, plain,
+                                   exact)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,H,channels_last", [
+    (512, 32, 28, True), (512, 64, 14, True), (512, 128, 7, True),
+    (512, 128, 3, True), (5, 96, 16, True), (3, 32, 8, False),
+    (64, 192, 32, False), (7, 40, 7, False), (256, 64, 32, True)])
+def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
+                                         channels_last):
+    """The forward's saved statistics within a few float32 ulps of the plain
+    version's, autograd's dx the kernel's at them; the backward kernel's dx
+    (alone, and with dγ, dβ) against the plain backward; two launches give
+    the same bits."""
+    x, w, b, dy = _gn_backward_inputs(card, B, C, H, dtype, channels_last, C)
+    xs = x.clone().requires_grad_(True)
+    before = (group_norm_silu.launches, group_norm_silu_backward.launches)
+    y = group_norm_silu(xs, w, b, 8)
+    saved = y.grad_fn.saved_tensors
+    (dx_auto,) = torch.autograd.grad(y, xs, dy)
+    torch.cuda.synchronize()
+    assert (group_norm_silu.launches, group_norm_silu_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    mean, rstd = gn_stats_reference(x, 8)
+    for u, v in ((saved[3], mean), (saved[4], rstd)):
+        torch.testing.assert_close(u, v, rtol=1e-6, atol=0.0)
+    assert torch.equal(dx_auto, group_norm_silu_backward(
+        dy, x, w, b, saved[3], saved[4], False)[0])
+    dx_only, dw0, db0 = group_norm_silu_backward(dy, x, w, b, mean, rstd,
+                                                 weight_grads=False)
+    got = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+    again = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert dw0 is None and db0 is None
+    assert dx_only.stride() == x.stride() and dx_only.dtype == dtype
+    assert torch.equal(dx_only, got[0])
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if dtype == torch.bfloat16:
+        want = group_norm_silu_backward_reference(dy, x, w, b, mean, rstd)
+        torch.testing.assert_close(got[0].float(), want[0].float(),
+                                   **TOL_GN_BF16)
+        for a, c in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, c, rtol=1e-3, atol=1e-3)
+        return
+    for nm, (err_k, err_p) in gn_backward_errors(x, w, b, dy, mean, rstd,
+                                                 got).items():
+        assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
+
+
+def test_group_norm_silu_backward_takes_dy_in_either_layout(card):
+    x, w, b, dy = _gn_backward_inputs(card, 8, 64, 16, torch.float32, True, 3)
+    mean, rstd = gn_stats_reference(x, 8)
+    a = group_norm_silu_backward(dy.contiguous(), x, w, b, mean, rstd)
+    c = group_norm_silu_backward(
+        dy.contiguous(memory_format=torch.channels_last), x, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, c))
+
+
+@pytest.mark.parametrize("method,solver", [("grad", "euler"),
+                                           ("mc_feng+grad", "midpoint")])
+@pytest.mark.parametrize("exp", ["exp1", "exp2"])
+def test_grad_sampler_card_matches_cpu(card, exp, method, solver):
+    """Gradient guidance on the card (through kernel B's forward and
+    backward with the experiment-1 GroupNorm ratio net, with no GN kernel
+    in the experiment-2 BatchNorm one) against the CPU, float32, small nets,
+    injected noise and MC set."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
+        ratio_log_fn,
+        velocity_fn,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlexibleRatioEstimator,
+        FlexibleUNet,
+        RatioEstimatorMNISTSVHN,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
+        GuidedSamplerConfig,
+        make_guided_sampler_p,
+    )
+
+    y_ch = 1 if exp == "exp1" else 3
+    xs, ys = (16, 16, 1), (16, 16, y_ch)
+    torch.manual_seed(0)
+    ratio = (FlexibleRatioEstimator(feature_dim=32, hidden_dim=64)
+             if exp == "exp1" else RatioEstimatorMNISTSVHN())
+    nets = [FlexibleUNet(in_channels=1, img_size=16, model_channels=16),
+            FlexibleUNet(in_channels=y_ch, img_size=16, model_channels=16),
+            ratio]
+    for net in nets[:2]:
+        torch.nn.init.normal_(net.out_conv.weight, std=0.05)
+    g = torch.Generator().manual_seed(1)
+    noise = (torch.randn((4,) + xs, generator=g),
+             torch.randn((4,) + ys, generator=g))
+    mc = (torch.randn((32,) + xs, generator=g),
+          torch.randn((32,) + ys, generator=g),
+          torch.exp(torch.randn(32, generator=g)))
+    cfg = GuidedSamplerConfig(guidance_method=method, guidance_strength=0.5,
+                              grad_strength=2.0, num_steps=4,
+                              mc_batch_size=32, x_shape=xs, y_shape=ys,
+                              solver=solver)
+    sampler = make_guided_sampler_p(lambda m, x, t: velocity_fn(m)(x, t),
+                                    lambda m, y, t: velocity_fn(m)(y, t), cfg,
+                                    lambda m, x, y: ratio_log_fn(m)(x, y))
+    out = {}
+    before = group_norm_silu_backward.launches
+    for dev in (card, torch.device("cpu")):
+        models = tuple(place_model(n, dev) for n in nets)
+        out[dev.type] = sampler(models, torch.Generator(dev).manual_seed(0), 4,
+                                mc_set=tuple(a.to(dev) for a in mc),
+                                init_noise=tuple(a.to(dev) for a in noise))
+    evals = 4 * (2 if solver == "midpoint" else 1)
+    assert group_norm_silu_backward.launches - before == (
+        8 * evals if exp == "exp1" else 0)
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)

@@ -242,25 +242,36 @@ def exported_dir(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("argv", [["--guidance_method", "grad"],
-                                  ["--guidance_method", "smc"],
-                                  ["--mc_refresh", "2"], ["--merged_unet"],
+@pytest.mark.parametrize("argv", [["--guidance_method", "smc"],
+                                  ["--merged_unet"],
                                   ["--model", "original"]])
 def test_exp1_cli_rejects_what_is_not_ported(argv, exported_dir, capsys,
                                              monkeypatch):
-    """grad and --mc_refresh > 1 are sampler options: the sampler refuses
-    them once the checkpoints are loaded. smc, --merged_unet and --model
-    original are not flags of the port yet: argparse refuses them."""
+    """smc, --merged_unet and --model original are not flags of the port
+    yet: argparse refuses them."""
     monkeypatch.chdir(exported_dir)
-    if argv in (["--guidance_method", "grad"], ["--mc_refresh", "2"]):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            sample.main(["--device", "cpu", "--num_steps", "1"] + argv)
-        return
     with pytest.raises(SystemExit) as e:
         sample.main(["--device", "cpu"] + argv)
     err = capsys.readouterr().err
     assert e.value.code == 2
     assert "invalid choice" in err or "unrecognized arguments" in err
+
+
+@pytest.mark.parametrize("argv", [
+    ["--guidance_method", "grad"],
+    ["--guidance_method", "mc_feng+grad", "--mc_refresh", "2"],
+    ["--guidance_method", "mc_feng", "--mc_refresh", "2"]])
+def test_exp1_cli_grad_and_mc_refresh(argv, exported_dir, monkeypatch):
+    """The grad methods and fresh MC sets along the trajectory run from the
+    exported checkpoints (the full-width GroupNorm ratio net, so the
+    GroupNorm+SiLU backward's plain version)."""
+    monkeypatch.chdir(exported_dir)
+    x1, y1, diags = sample.main(["--device", "cpu", "--num_samples", "2",
+                                 "--num_steps", "2", "--mc_batch_size", "3"]
+                                + argv)
+    assert x1.shape == y1.shape == (2,) + SHAPE
+    assert torch.isfinite(x1).all() and torch.isfinite(y1).all()
+    assert (diags == {}) == (argv[1] == "grad")
 
 
 def _no_matplotlib() -> bool:

@@ -7,12 +7,13 @@ every (b, d) output covered exactly once, slices that are whole stages,
 clusters of at most 8 CTAs, dynamic shared memory within one block's
 232,448 bytes, the 16-byte loader only where every row is 16-byte aligned.
 
-`ops/groupnorm.py:gn_plan` (kernel B) and `ops/resblock.py:conv_plan`
-(kernel C) are pure Python too: here they are held, at every GroupNorm and
-ResBlock norm1 -> conv1 shape of both experiments' main paths, at B=5 and
-at the float32 shapes of the experiment-1 ratio net, to what the kernels
-assume — every sample, pixel row and channel covered exactly once, dynamic
-shared memory within one block's 232,448 bytes, clusters of at most 8 CTAs.
+`ops/groupnorm.py:gn_plan` (kernel B), `gn_backward_plan` (its backward)
+and `ops/resblock.py:conv_plan` (kernel C) are pure Python too: here they
+are held, at every GroupNorm and ResBlock norm1 -> conv1 shape of both
+experiments' main paths, at B=5 and at the float32 shapes of the
+experiment-1 ratio net, to what the kernels assume — every sample, pixel
+row and channel covered exactly once, dynamic shared memory within one
+block's 232,448 bytes, clusters of at most 8 CTAs.
 The kernels' library names hash every csrc header, so an edited header
 rebuilds them.
 """
@@ -35,6 +36,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
 from ratio_guided_multimodal_fm_tpu_torch.ops import _build
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     SMEM_MAX,
+    gn_backward_plan,
     gn_plan,
     gn_slices,
 )
@@ -217,12 +219,8 @@ def test_shape_lists_match_the_models():
     assert ratio1 | (gn1 & set(EXP1_RATIO_GN)) == set(EXP1_RATIO_GN)
 
 
-@pytest.mark.parametrize("channels_last", [True, False])
-@pytest.mark.parametrize("B,C,H,itemsize", GN_CASES)
-def test_gn_plan_covers_every_element_once(B, C, H, itemsize,
-                                           channels_last):
+def _check_gn_plan(plan, B, C, H, channels_last):
     G = min(8, C)
-    plan = gn_plan(B, C, H, H, G, itemsize, channels_last)
     HW = H * H
     unit = C if channels_last else HW      # a pixel row / a channel
     assert 1 <= plan.cluster <= 8 and plan.cluster & (plan.cluster - 1) == 0
@@ -244,6 +242,47 @@ def test_gn_plan_covers_every_element_once(B, C, H, itemsize,
         ranges.sort()
         assert ranges[0][0] == 0 and ranges[-1][1] == C * HW
         assert all(p[1] == q[0] for p, q in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("B,C,H,itemsize", GN_CASES)
+def test_gn_plan_covers_every_element_once(B, C, H, itemsize,
+                                           channels_last):
+    _check_gn_plan(gn_plan(B, C, H, H, min(8, C), itemsize, channels_last),
+                   B, C, H, channels_last)
+
+
+GN_BACKWARD_CASES = sorted(
+    set(GN_CASES) | {(512, C, H, 4) for C, H in EXP1_RATIO_GN})
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("B,C,H,itemsize", GN_BACKWARD_CASES)
+def test_gn_backward_plan_covers_every_element_once(B, C, H, itemsize,
+                                                    channels_last):
+    """The backward cuts x and dy as the forward cuts x, at half the slice:
+    a staged CTA holds the slice of both, and its header's per-thread
+    channel sums (channels_last) stay within one block's shared memory."""
+    plan = gn_backward_plan(B, C, H, H, min(8, C), itemsize, channels_last)
+    _check_gn_plan(plan, B, C, H, channels_last)
+    if plan.staged:
+        assert plan.smem_bytes >= 2 * plan.samples_per_cta * \
+            plan.slice_cap * itemsize
+    assert plan.slice_cap * itemsize <= 32 * 1024 or plan.cluster == 8 \
+        or plan.slice_cap == (C if channels_last else H * H)
+
+
+def test_gn_backward_plan_at_the_ratio_net():
+    """The experiment-1 ratio net's GN sites (float32, channels_last, B=512):
+    every one stages x and dy, three CTAs an SM at the 28x28 site."""
+    plans = {(C, H): gn_backward_plan(512, C, H, H, 8, 4, True)
+             for C, H in EXP1_RATIO_GN}
+    assert all(p.staged for p in plans.values())
+    first = plans[(32, 28)]
+    assert (first.cluster, first.vec, first.threads) == (4, 4, 256)
+    assert 3 * (first.smem_bytes + 1024) <= 233_472
+    assert plans[(128, 3)].samples_per_cta == 2
+    assert not gn_backward_plan(256, 128, 3, 3, 8, 4, False).staged
 
 
 def test_gn_plan_main_shape_is_staged_in_a_cluster():

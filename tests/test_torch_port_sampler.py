@@ -225,13 +225,21 @@ def test_sample_bimodal_guided_and_generate_mc_set(nets):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"guidance_method": "grad"}, NotImplementedError),
-    ({"guidance_method": "mc_feng+grad"}, NotImplementedError),
-    ({"guidance_method": "mc_feng", "mc_refresh": 2}, NotImplementedError),
     ({"guidance_method": "mc_feng", "solver": "heun"}, ValueError),
     ({"guidance_method": "mc_feng", "time_grid": "log"}, ValueError),
+    ({"guidance_method": "mc_feng", "mc_refresh": 0}, ValueError),
+    ({"guidance_method": "mc_feng+grad", "mc_refresh": 3}, ValueError),
+    ({"guidance_method": "mc_feng", "mc_refresh": 2, "mc_batch_size": 2},
+     ValueError),
 ])
 def test_sampler_rejects_what_is_not_ported(kw, err):
+    """Configurations the sampler refuses, as the JAX package does: heun with
+    guidance, an unknown grid, mc_refresh < 1, a refresh count that does not
+    divide num_steps (100), and (at the call) a caller's MC set with
+    mc_refresh > 1."""
     with pytest.raises(err):
-        pg.make_guided_sampler_p(None, None, pg.GuidedSamplerConfig(**kw),
-                                 lambda m, x, y: None)
+        sampler = pg.make_guided_sampler_p(
+            None, None, pg.GuidedSamplerConfig(**kw), lambda m, x, y: None)
+        sampler((None, None, None), torch.Generator().manual_seed(0), 1,
+                mc_set=(torch.zeros((2,) + X_SHAPE),
+                        torch.zeros((2,) + X_SHAPE), torch.ones(2)))
