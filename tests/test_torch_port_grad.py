@@ -176,7 +176,7 @@ def _unets(in_chs, seed):
     out = []
     for i, in_ch in enumerate(in_chs):
         jnet = jm.FlexibleUNet(in_channels=in_ch, **UNET_KW)
-        v = jax.tree_util.tree_map(np.asarray, dict(jnet.init(
+        v = jax.tree_util.tree_map(np.asarray, dict(jax.jit(jnet.init)(
             jax.random.PRNGKey(seed + i), jnp.zeros((1, H, H, in_ch)),
             jnp.zeros((1,)))))
         oc = v["params"]["out_conv"]
@@ -194,7 +194,7 @@ def exp1_nets():
     """Experiment 1 at 16x16: two 1-channel U-Nets and a GroupNorm ratio
     net (FlexibleRatioEstimator, narrow score MLP) with non-trivial norms."""
     jr = jm.FlexibleRatioEstimator(feature_dim=32, hidden_dim=64)
-    vr = jax.tree_util.tree_map(np.asarray, dict(jr.init(
+    vr = jax.tree_util.tree_map(np.asarray, dict(jax.jit(jr.init)(
         jax.random.PRNGKey(3), jnp.zeros((1, H, H, 1)),
         jnp.zeros((1, H, H, 1)))))
     _randomise_norms(vr["params"], np.random.RandomState(4))
@@ -208,7 +208,7 @@ def exp2_nets():
     """Experiment 2 at 16x16: 1- and 3-channel U-Nets and the BatchNorm
     ratio net RatioEstimatorMNISTSVHN."""
     jr = jm.RatioEstimatorMNISTSVHN()
-    vr = jax.tree_util.tree_map(np.asarray, dict(jr.init(
+    vr = jax.tree_util.tree_map(np.asarray, dict(jax.jit(jr.init)(
         jax.random.PRNGKey(5), jnp.zeros((1, H, H, 1)),
         jnp.zeros((1, H, H, 3)))))
     pr = pm.RatioEstimatorMNISTSVHN().eval()
