@@ -70,6 +70,8 @@ def test_no_source_imports_jax():
 
 def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        evaluate,
+        evaluate_mnist_svhn,
         resblock_kernel_bench,
         sample,
         sample_mnist_svhn,
@@ -87,6 +89,8 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     for call in (lambda: resolve_device(),
                  lambda: sample_mnist_svhn.main(["--num_steps", "1"]),
                  lambda: sample.main(["--num_steps", "1"]),
+                 lambda: evaluate.main(["--num_steps", "1"]),
+                 lambda: evaluate_mnist_svhn.main(["--num_steps", "1"]),
                  lambda: resblock_kernel_bench.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y)):
