@@ -17,13 +17,16 @@ which fails the script (non-zero exit) on error:
    2e-2), and two launches on the same inputs bit for bit; group_norm_silu at every (B, C, H) shape the
    U-Nets and the experiment-1 ratio net run, in channels_last and NCHW
    memory, in bfloat16 (one bf16 step: rtol 2**-7, atol 1e-3) and float32
-   (1e-4), plus an odd batch; fused_gn_silu_conv at every
+   (1e-4), plus two odd batches (one leaves a plan of two samples a CTA a
+   partial last CTA); fused_gn_silu_conv at every
    (B, C, H, O) shape a ResBlock's norm1 -> conv1 sees in those U-Nets plus
    an odd batch, in float32 (2e-4) and bfloat16 (rtol 0.1, atol 0.15
    against the float32 plain version, and rtol 2**-7, atol 0.05 against
    the bfloat16 plain version); group_norm_silu's backward
    (csrc/group_norm_silu_backward.cu) at every GN shape of the U-Nets and
-   the experiment-1 ratio net plus an odd batch, float32 and bfloat16,
+   the experiment-1 ratio net (at B=N_mc and at B=512, where the 7x7 and
+   3x3 sites take two samples a CTA) plus the odd batches, float32 and
+   bfloat16,
    NCHW and channels_last, dx alone and with dγ and dβ: in float32 its
    max |err| against the plain backward run in float64 at most twice the
    float32 plain backward's, in bfloat16 one bf16 step from the bfloat16
@@ -399,6 +402,7 @@ def main(argv=None) -> int:
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
             gn_backward_plan,
+            gn_plan,
             gn_stats_reference,
             group_norm_silu,
             group_norm_silu_backward,
@@ -545,9 +549,26 @@ def main(argv=None) -> int:
                                            E1_SHAPE)
     gn_err = {"bf16": 0.0, "f32": 0.0}
     tol_gn = {"bf16": TOL_GN_BF16, "f32": TOL_GN_F32}
-    odd = (5, 96, 16)
-    gn_check = sorted(set(shapes) | set(e1_shapes))
-    for (B, C, H) in gn_check + [odd]:
+    # the exp-1 ratio net at B=B_MAIN (the grad path's forward and backward)
+    # gives the 7x7 and 3x3 sites several samples a CTA; B_MAIN+1 leaves the
+    # last CTA of such a plan a partial one
+    e1_ratio_shapes = ratio_gn_shapes(e1_models[2], dev, E1_SHAPE)
+    odd = [(5, 96, 16), (B_MAIN + 1, 128, 3)]
+    gn_check = sorted(set(shapes) | set(e1_shapes) | set(e1_ratio_shapes))
+    spc = {"forward": {}, "backward": {}}
+    for (B, C, H) in gn_check + odd:
+        for isz in (2, 4):
+            for cl in (True, False):
+                for key, plan in (("forward", gn_plan),
+                                  ("backward", gn_backward_plan)):
+                    n = plan(B, C, H, H, 8, isz, cl).samples_per_cta
+                    if n > 1:
+                        spc[key][f"B{B}_C{C}_H{H}_{isz}B_"
+                                 f"{'cl' if cl else 'nchw'}"] = n
+    if not (spc["forward"] and spc["backward"]):
+        fail("group_norm_silu: no checked shape gives a plan of several "
+             "samples a CTA")
+    for (B, C, H) in gn_check + odd:
         for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             for fmt in (torch.channels_last, torch.contiguous_format):
                 x = (rnd(B, C, H, H) * 2.0 + 0.5).to(dt).contiguous(
@@ -564,13 +585,18 @@ def main(argv=None) -> int:
                     group_norm_silu_reference(x, w, b, 8), **tol_gn[tag])
                 gn_err[tag] = max(gn_err[tag], err)
     print(f"group_norm_silu == plain at {len(gn_check)} main-path (B,C,H) "
-          f"shapes of both experiments (ratio net included) + odd B=5, "
-          f"channels_last and NCHW; max |err| bf16 {gn_err['bf16']:.3g} "
-          f"(rtol 2**-7, atol 1e-3), f32 {gn_err['f32']:.3g}")
+          f"shapes of both experiments (ratio net included) + odd B=5 and "
+          f"B={B_MAIN + 1}, channels_last and NCHW; max |err| bf16 "
+          f"{gn_err['bf16']:.3g} (rtol 2**-7, atol 1e-3), f32 "
+          f"{gn_err['f32']:.3g}; samples_per_cta > 1 (forward) at "
+          + ", ".join(f"{k}: {v}" for k, v in spc["forward"].items()))
+    details["gn_samples_per_cta"] = spc
     details["gn_shapes"] = {f"B{B}_C{C}_H{H}": n
                             for (B, C, H), n in sorted(shapes.items())}
     details["exp1_gn_shapes"] = {f"B{B}_C{C}_H{H}": n
                                  for (B, C, H), n in sorted(e1_shapes.items())}
+    details["exp1_ratio_gn_shapes"] = {
+        f"B{B}_C{C}_H{H}": n for (B, C, H), n in sorted(e1_ratio_shapes.items())}
 
     # group_norm_silu's backward at the same shapes: float32 against the
     # float64 plain backward (at most twice the float32 plain backward's
@@ -580,7 +606,7 @@ def main(argv=None) -> int:
     bwd_err = {"f32_vs_plain": 0.0, "bf16_vs_plain": 0.0}
     stat_diff = 0           # saved statistics not bit-identical to plain
     yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
-    for (B, C, H) in gn_check + [odd]:
+    for (B, C, H) in gn_check + odd:
         for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             for fmt in (torch.channels_last, torch.contiguous_format):
                 x = (rnd(B, C, H, H) * 2.0 + 0.5).to(dt).contiguous(
@@ -641,7 +667,10 @@ def main(argv=None) -> int:
                              f"{err_k:.3g} exceeds twice the float32 plain "
                              f"backward's {err_p:.3g}")
     print(f"group_norm_silu_backward == plain at the same {len(gn_check)} "
-          f"shapes + odd B=5, both layouts, dx alone and with dγ, dβ; "
+          f"shapes + odd B=5 and B={B_MAIN + 1}, both layouts, dx alone and "
+          f"with dγ, dβ; samples_per_cta > 1 (backward) at "
+          + ", ".join(f"{k}: {v}" for k, v in spc["backward"].items())
+          + "; "
           f"float32 max |err| against float64 (kernel / float32 plain): "
           + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in yard.items())
           + f"; bf16 dx max |err| {bwd_err['bf16_vs_plain']:.3g} (one bf16 "

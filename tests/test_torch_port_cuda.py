@@ -142,7 +142,8 @@ def test_flash_guidance_kernel_is_deterministic(card, B, N, H, y_ch):
 @pytest.mark.parametrize("B,C,H,channels_last", [
     (7, 96, 16, True), (512, 64, 32, True), (3, 32, 8, False),
     (512, 128, 32, True), (64, 192, 32, False), (512, 128, 8, True),
-    (256, 128, 3, False), (5, 40, 7, True)])
+    (256, 128, 3, False), (5, 40, 7, True), (512, 128, 3, True),
+    (513, 128, 3, False)])
 def test_group_norm_silu_kernel(card, dtype, tol, B, C, H, channels_last):
     g = torch.Generator(card).manual_seed(C)
     x = torch.randn(B, C, H, H, generator=g, device=card).to(dtype)
@@ -280,7 +281,8 @@ def gn_backward_errors(x, w, b, dy, mean, rstd, got):
 @pytest.mark.parametrize("B,C,H,channels_last", [
     (512, 32, 28, True), (512, 64, 14, True), (512, 128, 7, True),
     (512, 128, 3, True), (5, 96, 16, True), (3, 32, 8, False),
-    (64, 192, 32, False), (7, 40, 7, False), (256, 64, 32, True)])
+    (64, 192, 32, False), (7, 40, 7, False), (256, 64, 32, True),
+    (512, 128, 3, False), (513, 128, 3, True)])
 def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
                                          channels_last):
     """The forward's saved statistics within a few float32 ulps of the plain

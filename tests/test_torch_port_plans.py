@@ -176,6 +176,19 @@ def test_guidance_bench_needs_a_card_and_names_kernels():
         "weighted_sum_kernel<true, 64, 128>")
 
 
+def test_sampler_call_bench_needs_a_card():
+    """cli/sampler_call_bench.py times whole sampler calls on the card
+    only: on the CPU it refuses before building any model."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        sampler_call_bench as bench,
+    )
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench.main(["--paths", "exp1", "--calls", "1"])
+    assert set(bench.PATHS) == {"exp1", "exp2"}
+
+
 def _shapes(models, xs, ys):
     from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
         ratio_log_fn,
