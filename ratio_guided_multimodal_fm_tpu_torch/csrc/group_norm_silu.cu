@@ -86,7 +86,7 @@ __device__ __forceinline__ void slice_of(const Args& a, int r, int& lo,
 // STATS: also write each group's (mean, rstd) to a.mean_out / a.rstd_out (a
 // separate instantiation, so the sampler's no-grad launches run the code
 // they ran before the statistics output existed; a run-time check of the
-// pointer instead made those launches ~6% slower, PERF.md PR 5).
+// pointer instead made those launches ~6% slower on an H100, PERF.md).
 template <typename T, int N, bool CL, bool STATS>
 __global__ void __launch_bounds__(512) gn_silu_kernel(Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
