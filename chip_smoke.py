@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--steps N]
+    python3 chip_smoke.py [--steps N] [--train_steps N]
 
 Run from the repository root. Imports nothing of JAX. Phases, each of
 which fails the script (non-zero exit) on error:
@@ -30,8 +30,13 @@ which fails the script (non-zero exit) on error:
    NCHW and channels_last, dx alone and with dγ and dβ: in float32 its
    max |err| against the plain backward run in float64 at most twice the
    float32 plain backward's, in bfloat16 one bf16 step from the bfloat16
-   plain backward, the forward's saved statistics within rtol 1e-6 of the
-   plain version's, and two launches bit for bit;
+   plain backward, the forward's saved statistics equal to the plain
+   version's bit for bit, and two launches bit for bit; and both GroupNorm
+   kernels as a train step runs them at every GN site of the three trained
+   U-Nets (SVHN, MNIST-32, 28-px; float32, channels_last, B=128 and 127):
+   the forward (1e-4) with its statistics (bit for bit), dx, dγ and dβ
+   through autograd (each at most twice the float32 plain backward's
+   max |err| against float64) and two launches bit for bit;
 4. checks each experiment's full-width sampler on the card against the
    same sampler on the CPU (plain versions) on a small input, with mc_feng,
    grad and mc_feng+grad guidance;
@@ -48,6 +53,16 @@ which fails the script (non-zero exit) on error:
    net's forward and the backward kernel at each of its 8 GN sites every
    step) and experiment 2 with grad (its BatchNorm ratio net runs no GN
    kernel);
+5t. flow-matching training at full width (FlowMatchingUNetSVHN and
+   FlowMatchingUNetMNIST(32), float32, B=128, Adam lr 1e-4, EMA 0.999):
+   one step on the card against the same step on the CPU (B=4, dropout
+   off, injected x_0 and t; loss rtol 1e-4, gradients, post-Adam params
+   and EMA within 1e-4·max|ref| + 1e-6, the Adam/EMA update from the
+   card's own gradients), then --train_steps steps (default 50) through
+   the epoch driver with the launch counters set to 0 and held to the
+   counts derived from the code (GN forward, backward and its dγ/dβ
+   launch once per GN site per step), finite loss, steps/s, images/s,
+   peak memory, and a 5-step profile;
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -59,7 +74,10 @@ which fails the script (non-zero exit) on error:
    call; group_norm_silu_backward at 512x32x28x28 float32 the same four
    ways as flash_guidance, beside its bytes bound, the plain backward and
    the library call (autograd's backward of F.silu(F.group_norm(...))), and
-   summed over one experiment-1 grad call's shapes;
+   summed over one experiment-1 grad call's shapes; and (6t) dx with the
+   dγ/dβ launch at every GN site of the SVHN U-Net at B=128, the same four
+   ways beside its bytes bound, the plain backward and the library call,
+   summed over one train step's 35 sites;
 6c. runs the tier-C bench (cli/resblock_kernel_bench.py), the path of
    fused_gn_silu_conv, with its launch counter set to 0; the bench holds
    the kernel against the bfloat16 plain version at each of its shapes
@@ -68,7 +86,10 @@ which fails the script (non-zero exit) on error:
 7. runs both sampler CLIs on random-init reference-layout .pth files (with
    mc_feng, and with mc_feng+grad and --mc_refresh 2), and both evaluation
    CLIs (methods none, mc_feng, grad and mc_feng+grad, --fid, synthetic
-   digits) on random-init flows, ratio nets and classifiers.
+   digits) on random-init flows, ratio nets and classifiers; then the three
+   train CLIs for one epoch on 2560 synthetic digits (--ema_decay 0.999
+   --save_every 1) and both sample CLIs, with and without --ema, on the
+   checkpoints they wrote.
 
 The line before the last is the `kernels` JSON; the card's name and power
 limit are printed before it, and before that a `details` JSON line (shapes
@@ -88,6 +109,8 @@ import time
 import numpy as np
 
 B_MAIN, N_MC, GAMMA = 512, 256, 0.5
+B_TRAIN, TRAIN_STEPS, LR, EMA_DECAY = 128, 50, 1e-4, 0.999
+CLI_TRAIN_IMAGES = 2560         # phase 7's synthetic digits: 20 steps an epoch
 GRAD_STRENGTH = 0.5
 X_SHAPE, Y_SHAPE = (32, 32, 1), (32, 32, 3)
 E1_SHAPE = (28, 28, 1)          # experiment 1: both modalities
@@ -254,6 +277,30 @@ def gn_sites(net) -> int:
     return sum(isinstance(m, GroupNormSiLU) for m in net.modules())
 
 
+def unet_gn_sites(net, c_in: int, h: int):
+    """{(C, H): sites} of a U-Net's GroupNormSiLU inputs, by forward hooks
+    on one CPU forward at B=1."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
+        GroupNormSiLU,
+    )
+
+    found = {}
+
+    def hook(mod, args):
+        key = tuple(args[0].shape[1:3])
+        found[key] = found.get(key, 0) + 1
+
+    hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
+             if isinstance(m, GroupNormSiLU)]
+    with torch.no_grad():
+        net(torch.zeros(1, c_in, h, h), torch.zeros(1))
+    for hk in hooks:
+        hk.remove()
+    return found
+
+
 def profile_call(run, steps: int):
     """Device time by kernel over one profiled call of `run` (a sampler
     call of `steps` steps, outside any counted run)."""
@@ -266,28 +313,39 @@ def profile_call(run, steps: int):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - h0
+    # device events only: a user annotation's range on the device (e.g.
+    # Optimizer.step#Adam.step) overlaps the kernels it encloses
     by_kernel = sorted(
         ((e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
          for e in prof.key_averages()
          if getattr(e, "device_type", None) is not None
-         and str(e.device_type).endswith("CUDA")),
+         and str(e.device_type).endswith("CUDA")
+         and not getattr(e, "is_user_annotation", False)
+         and not e.key.startswith("Optimizer.")),
         key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in by_kernel)
     gn = [r for r in by_kernel if "gn_silu_kernel" in r[0]]
     gn_ms, gn_n = sum(r[1] for r in gn), sum(r[2] for r in gn)
     bwd = [r for r in by_kernel if "gn_silu_bwd_kernel" in r[0]]
     bwd_ms, bwd_n = sum(r[1] for r in bwd), sum(r[2] for r in bwd)
+    wb = [r for r in by_kernel if "gn_wb_reduce_kernel" in r[0]]
+    wb_ms, wb_n = sum(r[1] for r in wb), sum(r[2] for r in wb)
     print(f"profile ({steps} steps, profiler on): wall {wall * 1e3:.1f} ms, "
           f"kernels {busy_ms:.1f} ms "
           f"({100 * busy_ms / max(wall * 1e3, 1e-9):.0f}% busy); "
           f"group_norm_silu {gn_ms:.1f} ms over {gn_n} launches; its "
-          f"backward {bwd_ms:.1f} ms over {bwd_n}")
+          f"backward {bwd_ms:.1f} ms over {bwd_n}, the dγ/dβ reduction "
+          f"{wb_ms:.1f} ms over {wb_n} ({100 * gn_ms / max(busy_ms, 1e-9):.1f}"
+          f"% / {100 * (bwd_ms + wb_ms) / max(busy_ms, 1e-9):.1f}% of the "
+          f"kernel time)")
     for k, ms_k, n in by_kernel[:8]:
         print(f"  {ms_k:9.2f} ms {n:6d}x  {k[:90]}")
     return dict(steps=steps, wall_ms=wall * 1e3, device_busy_ms=busy_ms,
                 group_norm_silu_ms=gn_ms, group_norm_silu_launches=gn_n,
                 group_norm_silu_backward_ms=bwd_ms,
                 group_norm_silu_backward_launches=bwd_n,
+                gn_weight_grad_reduce_ms=wb_ms,
+                gn_weight_grad_reduce_launches=wb_n,
                 top=[dict(kernel=k[:120], ms=ms, calls=n)
                      for k, ms, n in by_kernel[:25]])
 
@@ -354,6 +412,188 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
                 peak_mem_gib=peak_gib, launches=counts)
 
 
+def _train_net(make_net, seed: int, dropout: bool = True):
+    """A seeded full-width U-Net, out_conv perturbed (zero-init otherwise,
+    which leaves every inner gradient zero); dropout off where asked."""
+    import torch
+
+    torch.manual_seed(seed)
+    net = make_net()
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        net.out_conv.weight.copy_(
+            torch.randn(net.out_conv.weight.shape, generator=g) * 0.02)
+    if not dropout:
+        for m in net.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    return net
+
+
+def _within(a, b, name):
+    """max |a - b| <= 1e-4·max|b| + 1e-6, or fail."""
+    err, bound = max_abs(a, b), 1e-4 * float(b.abs().max()) + 1e-6
+    if not err <= bound:
+        fail(f"{name}: max |Δ| {err:.3g} > {bound:.3g}")
+    return err / bound
+
+
+def train_step_card_vs_cpu(name, make_net, shape, dev):
+    """One train step (B=4, dropout off, Adam lr 1e-4, EMA 0.999) from the
+    same weights and the same injected x_0 and t, on the card and on the
+    CPU (plain GN versions): the loss within rtol 1e-4 and each gradient
+    within 1e-4·max|ref| + 1e-6. The Adam and EMA update on the card is
+    held, within the same bound, to the CPU's update from the card's own
+    gradients: the first Adam step divides each gradient element by its
+    own size, so an element near eps = 1e-8 whose float32 rounding differs
+    between the two runs moves its update by up to lr (PERF.md)."""
+    import copy
+
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        create_fm_state,
+        make_fm_train_step,
+        update_ema,
+    )
+
+    net0 = _train_net(make_net, 30, dropout=False)
+    g = torch.Generator().manual_seed(31)
+    x1, x0 = (torch.randn((4,) + shape, generator=g) for _ in range(2))
+    t = torch.rand(4, generator=g)
+    cpu = torch.device("cpu")
+    out = []
+    for d in (dev, cpu):
+        st = create_fm_state(copy.deepcopy(net0), d, lr=LR,
+                             ema_decay=EMA_DECAY)
+        loss = make_fm_train_step(EMA_DECAY)(st, x1.to(d), t=t.to(d),
+                                             x0=x0.to(d))
+        out.append((float(loss), st))
+    (lc, card), (lp, ref) = out
+    if not abs(lc - lp) <= 1e-4 * abs(lp):
+        fail(f"training {name}: loss on the card {lc} != CPU {lp} (rtol "
+             "1e-4)")
+    rep = copy.deepcopy(net0)
+    again = create_fm_state(rep, cpu, lr=LR, ema_decay=EMA_DECAY)
+    card_p = dict(card.model.named_parameters())
+    worst = {"grad": 0.0, "adam": 0.0, "ema": 0.0}
+    for n, p in ref.model.named_parameters():
+        worst["grad"] = max(worst["grad"], _within(
+            card_p[n].grad.cpu(), p.grad, f"training {name}: gradient {n}"))
+        dict(rep.named_parameters())[n].grad = card_p[n].grad.cpu()
+    again.optimizer.step()
+    update_ema(again, EMA_DECAY)
+    end_to_end = 0.0
+    for n, p in again.model.named_parameters():
+        worst["adam"] = max(worst["adam"], _within(
+            card_p[n].detach().cpu(), p.detach(),
+            f"training {name}: post-Adam {n}"))
+        worst["ema"] = max(worst["ema"], _within(
+            card.ema[n].cpu(), again.ema[n], f"training {name}: EMA {n}"))
+        q = dict(ref.model.named_parameters())[n].detach()
+        end_to_end = max(end_to_end, max_abs(card_p[n].detach().cpu(), q)
+                         / (1e-4 * float(q.abs().max()) + 1e-6))
+    print(f"training {name}: one step card == CPU (B=4, dropout off): loss "
+          f"{lc:.6f} / {lp:.6f}; worst gradient, post-Adam and EMA |Δ| as "
+          f"a share of 1e-4·max|ref| + 1e-6: {worst['grad']:.3g}, "
+          f"{worst['adam']:.3g}, {worst['ema']:.3g} (post-Adam against the "
+          f"CPU's own step, not held: {end_to_end:.3g})")
+    return dict(card_vs_cpu=dict(loss_card=lc, loss_cpu=lp, **worst,
+                                 post_adam_vs_cpu_step=end_to_end))
+
+
+def run_training(name, make_net, shape, steps, dev, smi):
+    """`steps` train steps of the full-width net at B=B_TRAIN through the
+    epoch driver (train/loop.py:train_epochs) on a dataset held on the card
+    (batches gathered there), with every launch counter set to 0 just
+    before and held to the counts derived from the code after; then a
+    profiled 5-step run. Returns the record."""
+    import numpy as np
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
+    from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+        flow_batches,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        flash_guidance,
+        fused_gn_silu_conv,
+        group_norm_silu,
+        group_norm_silu_backward,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
+        epoch_data_iter,
+        train_epochs,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        create_fm_state,
+        make_fm_train_step,
+    )
+
+    net = _train_net(make_net, 40)
+    sites = gn_sites(net)
+    state = create_fm_state(net, dev, lr=LR, ema_decay=EMA_DECAY)
+    step = make_fm_train_step(EMA_DECAY)
+    g = torch.Generator(dev).manual_seed(41)
+    data = torch.rand(((steps + 7) * B_TRAIN,) + shape, generator=g,
+                      device=dev) * 2.0 - 1.0
+    labels = np.zeros(len(data), np.int64)
+
+    class Loader:
+        def epoch(self, e):
+            batches = flow_batches(data, labels, B_TRAIN,
+                                   np.random.RandomState(e))
+            return (b for i, b in enumerate(batches) if i < steps)
+
+    for i in range(2):                 # warm-up, outside the count
+        step(state, data[i * B_TRAIN:(i + 1) * B_TRAIN],
+             RNG(0, dev).generator(9, i))
+    wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
+                fused_gn_silu_conv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    group_norm_silu_backward.weight_grad_launches = 0
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h0 = time.perf_counter()
+    ev0.record()
+    _, _, hist = train_epochs(state, step,
+                              epoch_data_iter(Loader(), lambda b: b["x"]), 1,
+                              RNG(42, dev), log_fn=lambda m: None)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts["group_norm_silu_backward (dγ/dβ)"] = \
+        group_norm_silu_backward.weight_grad_launches
+    expected = {"flash_guidance": 0, "group_norm_silu": steps * sites,
+                "group_norm_silu_backward": steps * sites,
+                "fused_gn_silu_conv": 0,
+                "group_norm_silu_backward (dγ/dβ)": steps * sites}
+    if counts != expected:
+        fail(f"training {name}: launch counts {counts} != derived "
+             f"{expected}")
+    loss = hist[-1]["loss"]
+    if not np.isfinite(loss):
+        fail(f"training {name}: non-finite loss {loss}")
+    dev_s = ev0.elapsed_time(ev1) / 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training {name}: {steps} steps at B={B_TRAIN} f32, Adam lr {LR}, "
+          f"EMA {EMA_DECAY}: {wall:.3f} s wall ({dev_s:.3f} s by CUDA "
+          f"events) -> {steps / wall:.2f} steps/s, {steps * B_TRAIN / wall:.0f}"
+          f" images/s; loss {loss:.4f}; peak mem {peak_gib:.2f} GiB; "
+          f"{sites} GN sites, launches {counts}  [{smi}]")
+    batches = [data[i * B_TRAIN:(i + 1) * B_TRAIN] for i in range(5)]
+    prof = profile_call(lambda: [step(state, b, RNG(1, dev).generator(0, i))
+                                 for i, b in enumerate(batches)], 5)
+    return dict(batch=B_TRAIN, steps=steps, seconds_wall=wall,
+                seconds_events=dev_s, steps_per_s=steps / wall,
+                images_per_s=steps * B_TRAIN / wall, loss=loss,
+                peak_mem_gib=peak_gib, gn_sites=sites, launches=counts,
+                profile=prof)
+
+
 def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
     from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
         ratio_log_fn,
@@ -377,6 +617,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
                     help="Euler steps of the main-path run (default 100)")
+    ap.add_argument("--train_steps", type=int, default=TRAIN_STEPS,
+                    help="optimizer steps of each counted training run "
+                         f"(default {TRAIN_STEPS})")
     args = ap.parse_args(argv)
 
     import torch
@@ -395,6 +638,11 @@ def main(argv=None) -> int:
         )
         from ratio_guided_multimodal_fm_tpu_torch.core.device import (
             resolve_device,
+        )
+        from ratio_guided_multimodal_fm_tpu_torch.models import (
+            FlowMatchingUNet,
+            FlowMatchingUNetMNIST,
+            FlowMatchingUNetSVHN,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops import _build
         from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
@@ -604,7 +852,15 @@ def main(argv=None) -> int:
     # dx alone and with dγ, dβ; the forward's saved statistics; two
     # launches bit for bit
     bwd_err = {"f32_vs_plain": 0.0, "bf16_vs_plain": 0.0}
-    stat_diff = 0           # saved statistics not bit-identical to plain
+    stats_checked = [0]     # saved (mean, rstd) entries held bit for bit
+
+    def check_saved_stats(name, saved, mean, rstd):
+        for nm, u, v in (("mean", saved[3], mean), ("rstd", saved[4], rstd)):
+            if not torch.equal(u, v):
+                fail(f"{name}: the forward's saved {nm} differs from the "
+                     f"plain version's at {int((u != v).sum())} of "
+                     f"{u.numel()} entries (max |err| {max_abs(u, v):.3g})")
+            stats_checked[0] += u.numel()
     yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
     for (B, C, H) in gn_check + odd:
         for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
@@ -619,10 +875,7 @@ def main(argv=None) -> int:
                 y = group_norm_silu(xs, w, b, 8)
                 saved = y.grad_fn.saved_tensors
                 mean, rstd = gn_stats_reference(x, 8)
-                for u, v in ((saved[3], mean), (saved[4], rstd)):
-                    stat_diff += int((u != v).sum())
-                    check_close(f"{name}: the forward's saved statistics",
-                                u, v, rtol=1e-6, atol=0.0)
+                check_saved_stats(name, saved, mean, rstd)
                 (dx_auto,) = torch.autograd.grad(y, xs, dy)
                 if not torch.equal(dx_auto, group_norm_silu_backward(
                         dy, x, w, b, saved[3], saved[4], False)[0]):
@@ -674,11 +927,81 @@ def main(argv=None) -> int:
           f"float32 max |err| against float64 (kernel / float32 plain): "
           + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}" for k, v in yard.items())
           + f"; bf16 dx max |err| {bwd_err['bf16_vs_plain']:.3g} (one bf16 "
-          f"step); saved statistics within rtol 1e-6 of the plain version's "
-          f"({stat_diff} entries not bit-identical); reruns bit-identical")
-    details["gn_saved_stats_not_bit_identical"] = stat_diff
+          f"step); saved statistics equal to the plain version's bit for "
+          f"bit; reruns bit-identical")
     details["gn_backward_float64_yardstick"] = yard
     details["gn_backward_max_abs_err"] = bwd_err
+
+    # both GroupNorm kernels as a train step runs them, at every GN site of
+    # the three trained U-Nets (float32, channels_last, B=B_TRAIN and an odd
+    # B_TRAIN-1): the forward's output (1e-4) and saved statistics (bit for
+    # bit), then dx, dγ and dβ through autograd, each within twice the
+    # float32 plain backward's max |err| against the float64 plain backward,
+    # and two direct launches bit for bit
+    train_sites = {}
+    for net, shp in ((FlowMatchingUNetSVHN(), (3, 32)),
+                     (FlowMatchingUNetMNIST(img_size=32), (1, 32)),
+                     (FlowMatchingUNet(), (1, 28))):
+        for key, n in unet_gn_sites(net, *shp).items():
+            train_sites[key] = train_sites.get(key, 0) + n
+    train_yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
+    train_fwd_err = train_bwd_err = 0.0
+    for B in (B_TRAIN, B_TRAIN - 1):
+        for (C, H) in sorted(train_sites):
+            name = f"training GN B={B} C={C} {H}x{H} f32 channels_last"
+            x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
+                memory_format=torch.channels_last)
+            w = (torch.rand(C, generator=gen, device=dev) + 0.5
+                 ).requires_grad_(True)
+            b = (rnd(C) * 0.1).requires_grad_(True)
+            dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
+            xs = x.clone().requires_grad_(True)
+            y = group_norm_silu(xs, w, b, 8)
+            train_fwd_err = max(train_fwd_err, check_close(
+                f"{name} forward", y.detach(),
+                group_norm_silu_reference(x, w.detach(), b.detach(), 8),
+                **TOL_GN_F32))
+            saved = y.grad_fn.saved_tensors
+            mean, rstd = gn_stats_reference(x, 8)
+            check_saved_stats(name, saved, mean, rstd)
+            got = torch.autograd.grad(y, (xs, w, b), dy)
+            wd, bd = w.detach(), b.detach()
+            first = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
+            flush()
+            again = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
+            torch.cuda.synchronize()
+            if not (all(torch.equal(u, v) for u, v in zip(first, again))
+                    and all(torch.equal(u, v) for u, v in zip(got, first))):
+                fail(f"{name}: two backward launches on the same inputs "
+                     "differ")
+            plain = group_norm_silu_backward_reference(dy, x, wd, bd, mean,
+                                                       rstd)
+            train_bwd_err = max(train_bwd_err, max_abs(got[0], plain[0]))
+            exact = group_norm_silu_backward_reference(
+                dy.double(), x.double(), wd.double(), bd.double(),
+                mean.double(), rstd.double())
+            for nm, k_, p_, e_ in zip(("dx", "dgamma", "dbeta"), got, plain,
+                                      exact):
+                err_k = float((k_.double() - e_).abs().max())
+                err_p = float((p_.double() - e_).abs().max())
+                train_yard[nm][0] = max(train_yard[nm][0], err_k)
+                train_yard[nm][1] = max(train_yard[nm][1], err_p)
+                if err_k > 2.0 * err_p + 1e-6:
+                    fail(f"{name} {nm}: max |err| against float64 "
+                         f"{err_k:.3g} exceeds twice the float32 plain "
+                         f"backward's {err_p:.3g}")
+    print(f"training GN sites ({len(train_sites)} (C,H) of the SVHN, "
+          f"MNIST-32 and 28-px U-Nets, B={B_TRAIN} and {B_TRAIN - 1}, f32 "
+          f"channels_last): forward max |err| {train_fwd_err:.3g}, saved "
+          f"statistics bit for bit ({stats_checked[0]} entries checked in "
+          f"phase 3); dx, dγ, dβ max |err| against float64 (kernel / float32 "
+          f"plain): " + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                                  for k, v in train_yard.items())
+          + "; reruns bit-identical")
+    details["training_gn_sites"] = {f"C{C}_H{H}": n for (C, H), n
+                                    in sorted(train_sites.items())}
+    details["training_gn_float64_yardstick"] = train_yard
+    details["gn_saved_stats_entries_checked"] = stats_checked[0]
 
     # kernel C at every ResBlock norm1 -> conv1 shape of the U-Nets
     conv_err = {"f32": 0.0, "bf16_vs_f32": 0.0, "bf16": 0.0}
@@ -824,6 +1147,19 @@ def main(argv=None) -> int:
     details["main_grad_profile"] = profile_call(
         lambda: make_sampler(dict(e2g_kw, num_steps=5))(
             models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
+
+    # 5t. flow-matching training at full width (float32, B=B_TRAIN, Adam
+    #     lr 1e-4, EMA 0.999): one step card against CPU, then a counted run
+    #     of --train_steps steps through the epoch driver and a 5-step profile
+    details["training"] = {}
+    for name, make_net, shp in (("SVHN", FlowMatchingUNetSVHN, (32, 32, 3)),
+                                ("MNIST-32",
+                                 lambda: FlowMatchingUNetMNIST(img_size=32),
+                                 (32, 32, 1))):
+        rec = train_step_card_vs_cpu(name, make_net, shp, dev)
+        rec.update(run_training(name, make_net, shp, args.train_steps, dev,
+                                smi))
+        details["training"][name] = rec
 
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
@@ -1042,23 +1378,79 @@ def main(argv=None) -> int:
           f"{bwd_call['bound_ms']:.2f} ms  [{smi}]")
     details["gn_backward_times"] = bwd_rows
     details["gn_backward_ms_per_grad_call"] = bwd_call
-    first = max(bwd_rows.values(), key=lambda r: r["bound_ms"])  # 32x28x28
-    bwd_ms, bwd_ms_is = first["device_ms"], (
-        "device time by torch.profiler during which the kernel ran, L2 warm")
+
+    # 6t. the backward as a train step runs it, dx and the dγ/dβ second
+    #     launch, at each GN site of the SVHN U-Net (B=B_TRAIN, float32,
+    #     channels_last): the four times of call_times over both kernels,
+    #     the bound (read x and dy, write dx, read the [B, G] statistics and
+    #     w, b, write dγ, dβ), the plain backward and the library call
+    #     (autograd's backward of F.silu(F.group_norm(...)) to x, w and b);
+    #     summed over one train step's sites
+    tr_rows = {}
+    tr_step = {"event_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": 0.0}
+    svhn_sites = unet_gn_sites(FlowMatchingUNetSVHN(), 3, 32)
+    for (C, H), n in sorted(svhn_sites.items()):
+        B = B_TRAIN
+        x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
+            memory_format=torch.channels_last)
+        w, b = torch.rand(C, generator=gen, device=dev) + 0.5, rnd(C) * 0.1
+        dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
+        mean, rstd = gn_stats_reference(x, 8)
+        xl, wl, bl = (v.clone().requires_grad_(True) for v in (x, w, b))
+        y_lib = F.silu(F.group_norm(xl, 8, wl, bl, 1e-6))
+        row = call_times(
+            lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd, True),
+            dev, ("gn_silu_bwd_kernel", "gn_wb_reduce_kernel"), strict=False)
+        by = 3.0 * x.numel() * 4 + 2 * B * 8 * 4 + 4 * C * 4
+        row.update(
+            calls_per_step=n, bound_ms=by / peak_bw * 1e3,
+            plain_ms=time_ms(lambda: group_norm_silu_backward_reference(
+                dy, x, w, b, mean, rstd, True), dev),
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y_lib, (xl, wl, bl), dy, retain_graph=True), dev),
+            plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+        tr_rows[f"B{B}_C{C}_H{H}"] = row
+        for k in tr_step:
+            tr_step[k] = (None if tr_step[k] is None or row[k] is None
+                          else tr_step[k] + n * row[k])
+        print(f"  group_norm_silu_backward B={B} C={C} {H}x{H} f32 dx+dγ/dβ: "
+              f"device {ms_str(row['device_ms'])} ms (L2 cold "
+              f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
+              f"events, host {row['host_ms']:.4f} per call; plain "
+              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} by bytes; {n} per train step  "
+              f"[{smi}]")
+    print(f"  group_norm_silu_backward (dx+dγ/dβ) summed over one SVHN train "
+          f"step's {sum(svhn_sites.values())} sites: "
+          f"{tr_step['event_ms']:.3f} ms by events, "
+          f"{ms_str(tr_step['device_ms'], 3)} ms on the device, library "
+          f"{tr_step['library_ms']:.3f} ms, bound {tr_step['bound_ms']:.3f} "
+          f"ms  [{smi}]")
+    details["gn_backward_training_times"] = tr_rows
+    details["gn_backward_ms_per_svhn_train_step"] = tr_step
+    # the row: the SVHN U-Net's largest training site, dx + dγ/dβ
+    largest = max(tr_rows, key=lambda k: tr_rows[k]["bound_ms"])
+    top = tr_rows[largest]
+    bwd_ms, bwd_ms_is = top["device_ms"], (
+        "device time by torch.profiler during which either of the two "
+        "kernels (dx, the dγ/dβ reduction) ran, L2 warm")
     if bwd_ms is None:
-        bwd_ms, bwd_ms_is = first["event_ms"], (
+        bwd_ms, bwd_ms_is = top["event_ms"], (
             "CUDA events around 20 back-to-back calls (the profiler "
             "recorded nothing in this run)")
+    svhn_launches = details["training"]["SVHN"]["launches"]
     kernels.append(dict(
         name="group_norm_silu_backward", route="cuda",
         source="ratio_guided_multimodal_fm_tpu_torch/csrc/"
                "group_norm_silu_backward.cu",
         replaces="none: JAX differentiates models/layers.py FusedGroupNorm",
-        launches=details["exp1_grad_path"]["launches"][
-            "group_norm_silu_backward"],
-        max_abs_err=bwd_err["f32_vs_plain"], ms=bwd_ms,
-        plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
-        bound_by="bytes", library_ms=first["library_ms"], ms_is=bwd_ms_is))
+        launches=svhn_launches["group_norm_silu_backward"],
+        weight_grad_launches=svhn_launches[
+            "group_norm_silu_backward (dγ/dβ)"],
+        max_abs_err=train_bwd_err, ms=bwd_ms,
+        plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
+        bound_by="bytes", library_ms=top["library_ms"], ms_is=bwd_ms_is))
 
     # 6c. the tier-C bench, kernel C's path, counted
     from ratio_guided_multimodal_fm_tpu_torch.cli import resblock_kernel_bench
@@ -1098,8 +1490,9 @@ def main(argv=None) -> int:
     details["kernel_shapes"] = {
         "flash_guidance": f"B={B_MAIN} N={N_MC} D={D} f32 t={t_mid}",
         "group_norm_silu": f"B={B_MAIN} C=64 H=W=32 bf16 channels_last",
-        "group_norm_silu_backward": f"B={B_MAIN} C=32 H=W=28 f32 "
-                                    "channels_last, dx only",
+        "group_norm_silu_backward": f"{largest} f32 channels_last, dx and "
+                                    "dγ/dβ (the SVHN U-Net's largest "
+                                    "training site)",
         "fused_gn_silu_conv": f"{row0['shape']} bf16 NHWC groups=8"}
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms/launch (plain "
@@ -1227,6 +1620,81 @@ def main(argv=None) -> int:
                           f"{r['coherence_acc']:.3f}" for r in results)
               + f"  [{smi}]")
         details["eval_cli"][name] = dict(seconds=cli_s, results=results)
+
+    # the train CLIs for one epoch on the synthetic digits (RGMF_SYNTH_N
+    # training images, B_TRAIN a step), in one directory, then the sample
+    # CLIs of both experiments on the checkpoints they wrote (with and
+    # without --ema; random-init ratio nets for the guidance)
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        train_flow,
+        train_flow_mnist32,
+        train_flow_svhn,
+    )
+
+    synth_n = os.environ.get("RGMF_SYNTH_N")
+    os.environ["RGMF_SYNTH_N"] = str(CLI_TRAIN_IMAGES)
+    cwd = os.getcwd()
+    details["train_cli"] = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            train_argv = ["--epochs", "1", "--batch_size", str(B_TRAIN),
+                          "--ema_decay", str(EMA_DECAY), "--save_every", "1"]
+            for name, cli, extra in (
+                    ("train_flow_mnist32", train_flow_mnist32, []),
+                    ("train_flow_svhn", train_flow_svhn, []),
+                    ("train_flow x", train_flow, ["--modality", "x"]),
+                    ("train_flow y", train_flow, ["--modality", "y"])):
+                h0 = time.perf_counter()
+                _, best, hist = cli.main(train_argv + extra)
+                cli_s = time.perf_counter() - h0
+                if not (np.isfinite(best) and hist and hist[-1]["epoch"] == 1):
+                    fail(f"CLI {name}: best loss {best}, history {hist}")
+                steps = CLI_TRAIN_IMAGES // B_TRAIN
+                print(f"CLI {name} (1 epoch, {steps} steps at B={B_TRAIN}, "
+                      f"EMA {EMA_DECAY}): {cli_s:.1f} s wall (synthetic "
+                      f"digits and the first step included), loss "
+                      f"{best:.4f}, {hist[-1]['steps_per_sec']:.2f} steps/s "
+                      f"in the epoch  [{smi}]")
+                details["train_cli"][name] = dict(
+                    seconds=cli_s, loss=best,
+                    steps_per_s=hist[-1]["steps_per_sec"])
+            written = sorted(os.listdir("checkpoints"))
+            want = sorted(f"flow_{m}{e}_{s}.pth"
+                          for m in ("mnist32", "svhn", "x", "y_rotate90")
+                          for e, s in (("", "best"), ("_ema", "best"),
+                                       ("", "epoch1")))
+            if written != want:
+                fail(f"train CLIs wrote {written}, expected {want}")
+            for net, fname in ((models[2], "ratio_disc_mnist_svhn_best.pth"),
+                               (e1_models[2], "ratio_disc_rotate90_best.pth")):
+                torch.save({k: v.detach().cpu().contiguous()
+                            for k, v in net.state_dict().items()},
+                           os.path.join("checkpoints", fname))
+            for name, cli, ema in (("sample_mnist_svhn", sample_mnist_svhn,
+                                    []),
+                                   ("sample_mnist_svhn", sample_mnist_svhn,
+                                    ["--ema"]),
+                                   ("sample", sample, []),
+                                   ("sample", sample, ["--ema"])):
+                h0 = time.perf_counter()
+                sx, sy, diags = cli.main(
+                    ["--guidance_method", "mc_feng", "--num_samples", "64",
+                     "--num_steps", "20", "--mc_batch_size", str(N_MC)] + ema)
+                if not (bool(torch.isfinite(sx).all())
+                        and bool(torch.isfinite(sy).all())
+                        and len(diags["ess"]) == 20):
+                    fail(f"CLI {name} {ema} on the trained checkpoints: "
+                         "non-finite samples or a short trace")
+                print(f"CLI {name} {' '.join(ema)} on the checkpoints the "
+                      f"train CLIs wrote (mc_feng, 64 pairs, 20 steps): "
+                      f"{time.perf_counter() - h0:.1f} s wall  [{smi}]")
+        finally:
+            os.chdir(cwd)
+            if synth_n is None:
+                os.environ.pop("RGMF_SYNTH_N")
+            else:
+                os.environ["RGMF_SYNTH_N"] = synth_n
 
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start

@@ -1,6 +1,7 @@
-"""Shared CLI plumbing (port of the parts of cli/common.py the sampler and
-evaluation CLIs need): flag groups, model factory, checkpoint names and
-loading, NHWC closures over the NCHW models, diagnostics."""
+"""Shared CLI plumbing (port of the parts of cli/common.py the sampler,
+evaluation and train CLIs need): flag groups, the train CLIs' runtime set-up
+and refusals, model factory, checkpoint names and loading, NHWC closures
+over the NCHW models, diagnostics."""
 from __future__ import annotations
 
 import argparse
@@ -10,11 +11,14 @@ import os
 import numpy as np
 import torch
 
+from ratio_guided_multimodal_fm_tpu_torch.core.device import resolve_device
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
 from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNet
-
-CHECKPOINT_DIR = "checkpoints"
+from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (  # noqa: F401
+    checkpoint_path,   # the CLIs take it from here
+    load_params,
+)
 _EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
                 "ratio_guided_multimodal_fm_tpu.cli.export_torch "
                 "--checkpoint {ckpt} --model {model} --out {path}")
@@ -112,6 +116,80 @@ def add_ema_flag(p: argparse.ArgumentParser):
                         "(flow_*_ema_best.pth)")
 
 
+def add_fused_flag(p: argparse.ArgumentParser):
+    """--fused_steps of the FM train CLIs: 1 only until the fused K-step
+    trainer is ported (init_runtime refuses more)."""
+    p.add_argument("--fused_steps", type=int, default=1,
+                   help="K optimizer steps per dispatch (JAX: one lax.scan "
+                        "program). Not yet ported: only 1 (the reference "
+                        "protocol) is accepted")
+
+
+def add_fast_rng_flag(p: argparse.ArgumentParser):
+    """--fast_rng of the train CLIs, refused by init_runtime: it switches
+    JAX's PRNG implementation, which has no counterpart in torch."""
+    p.add_argument("--fast_rng", action="store_true",
+                   help="JAX only (its RngBitGenerator keys); refused here")
+
+
+def add_train_runtime_flags(p: argparse.ArgumentParser):
+    """The JAX train CLIs' other common flags: --data_root is ported; the
+    prefetch switch has nothing to switch (the dataset lives on the device
+    and batches are gathered there); the multi-process and merged-U-Net
+    flags are refused by init_runtime until those are ported."""
+    p.add_argument("--data_root", type=str, default="./data",
+                   help="Dataset root (IDX/.mat files; synthetic fallback)")
+    p.add_argument("--no_prefetch", action="store_true",
+                   help="accepted for the JAX CLIs' sake: the port keeps "
+                        "the dataset on the device and has no prefetch "
+                        "thread to turn off")
+    p.add_argument("--merged_unet", action="store_true",
+                   help="not yet ported (refused)")
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="multi-process training: not yet ported (refused)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="multi-process training: not yet ported (refused)")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="multi-process training: not yet ported (refused)")
+
+
+def arm_preemption():
+    """Train-CLI startup hook: route SIGTERM to the preemption flag so a
+    signal that lands before the epoch driver's guard (data loading,
+    model set-up, the kernels' build) is honoured at the first completed
+    step. Only the train CLIs call it: they always reach the driver, which
+    consumes the flag; elsewhere SIGTERM must keep killing the process."""
+    from ratio_guided_multimodal_fm_tpu_torch.train.preemption import arm
+    arm()
+
+
+def init_runtime(args) -> torch.device:
+    """The train CLIs' runtime set-up: refuse what is not ported, then
+    resolve the device (`cuda` unless --device cpu; float32 pinned)."""
+    if getattr(args, "fast_rng", False):
+        raise SystemExit("--fast_rng selects JAX's RngBitGenerator PRNG; it "
+                         "has no meaning in torch, whose generators are "
+                         "Philox on the card (drop the flag)")
+    if getattr(args, "fused_steps", 1) > 1:
+        not_yet_ported("--fused_steps > 1 (the fused K-step trainer)")
+    for flag in ("metrics_dir", "profile_dir"):
+        if getattr(args, flag, None):
+            not_yet_ported(f"--{flag} (core/observability.py)")
+    if getattr(args, "merged_unet", False):
+        not_yet_ported("--merged_unet (models/merged.py)")
+    if any(getattr(args, f, None) is not None for f in
+           ("coordinator_address", "num_processes", "process_id")):
+        not_yet_ported("multi-process training (parallel/)")
+    if getattr(args, "dtype", "f32") != "f32":
+        print("--dtype is ignored by training, which runs in float32 as "
+              "the JAX package's train CLIs do")
+    return resolve_device(args.device)
+
+
+def count_params(model: torch.nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
 def dtype_of(args) -> torch.dtype:
     return dtype_from_name(getattr(args, "dtype", "f32"))
 
@@ -124,14 +202,6 @@ def fm_model(kind: str, dtype: torch.dtype = torch.float32):
     return FlowMatchingUNet(dtype=dtype)
 
 
-def checkpoint_path(model_type: str, *parts, base_dir: str = CHECKPOINT_DIR):
-    """Reference-layout .pth name, None parts dropped:
-    ('flow', 'y', 'rotate90', None, 'ema', 'best') ->
-    checkpoints/flow_y_rotate90_ema_best.pth."""
-    name = "_".join([model_type] + [str(a) for a in parts if a is not None])
-    return os.path.join(base_dir, f"{name}.pth")
-
-
 def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
     """Strict-load a reference-layout .pth (a bare state dict or a
     {'model_state_dict': ...} training dict) into `model`. A missing file
@@ -141,11 +211,7 @@ def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
         raise SystemExit(
             f"ERROR: checkpoint not found: {path}\n" + _EXPORT_HINT.format(
                 ckpt=path[:-len(".pth")], model=model_kind, path=path))
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "model_state_dict" in sd:
-        sd = sd["model_state_dict"]
-    model.load_state_dict(sd, strict=True)
-    return model
+    return load_params(path, model)
 
 
 def classifier_fn(model):

@@ -51,6 +51,14 @@ def place_model(model: torch.nn.Module, device: torch.device):
     ).requires_grad_(False)
 
 
+def place_for_training(model: torch.nn.Module, device: torch.device):
+    """Move a model to `device` for training: train mode (dropout on),
+    4-D params in channels_last memory, params trainable, so that every
+    GroupNorm site forms dx, dγ and dβ."""
+    return model.to(device=device, memory_format=torch.channels_last).train(
+    ).requires_grad_(True)
+
+
 def device_of(generator: Optional[torch.Generator]) -> torch.device:
     """The device a `torch.Generator` draws on."""
     if generator is None:

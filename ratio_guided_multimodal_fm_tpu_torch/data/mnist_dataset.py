@@ -1,13 +1,25 @@
-"""Experiment-1 data (the part of data/mnist_dataset.py that the evaluation
-CLIs read): the epoch loader and the MNIST-28 classifier batches. numpy
-batches, the same as the JAX package's for the same seed (the JAX loaders
-may also keep the arrays on the device; here they stay on the host)."""
+"""Experiment-1 data (port of the parts of data/mnist_dataset.py that the
+training, sampling and evaluation CLIs read): the epoch loader, the flow
+batches of MNIST-28 and of its transformed twin, and the classifier
+batches. The batch order is numpy's, the same as the JAX package's for the
+same seed; with a `device`, the dataset lives there as one tensor and the
+batches are gathered there (data/pipeline.py)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 
-from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import to_unit_range
+from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+    _epoch_order,
+    gather,
+    to_device,
+    to_unit_range,
+)
 from ratio_guided_multimodal_fm_tpu_torch.data.sources import load_mnist
+from ratio_guided_multimodal_fm_tpu_torch.data.transforms import (
+    apply_transform,
+)
 
 
 class _EpochLoader:
@@ -24,13 +36,50 @@ class _EpochLoader:
 
     def epoch(self, e: int):
         """Iterator for epoch `e`: the batch order is a pure function of
-        (seed, e)."""
+        (seed, e), whatever this process iterated before (the preemption
+        resume contract, train/loop.py)."""
         return self._make_iter(np.random.RandomState(self._seed + e))
 
     def __iter__(self):
         it = self.epoch(self._epoch)
         self._epoch += 1
         return it
+
+
+def _modalities(transform_type: Optional[str], train: bool, root: str):
+    imgs_u8, labels = load_mnist(root, train)
+    x = to_unit_range(imgs_u8)
+    y = (np.ascontiguousarray(apply_transform(transform_type, x))
+         if transform_type else x)
+    return x, y, labels
+
+
+def get_flow_dataloader(transform_type: Optional[str] = None,
+                        batch_size: int = 128, train: bool = True,
+                        root: str = "./data", seed: int = 0,
+                        device=None) -> _EpochLoader:
+    """Batches {'x': [B,28,28,1], 'y': T(x) (x without a transform),
+    'label'} in [-1, 1]; on `device` when given."""
+    x, y, labels = _modalities(transform_type, train, root)
+    xd = to_device(x, device)
+    yd = xd if y is x else to_device(y, device)
+    n_batches = len(x) // batch_size
+
+    def make_iter(rng):
+        for idx in _epoch_order(len(x), batch_size, train, rng):
+            bx = gather(xd, idx)
+            yield {"x": bx, "y": bx if yd is xd else gather(yd, idx),
+                   "label": labels[idx]}
+
+    return _EpochLoader(make_iter, n_batches, seed)
+
+
+def get_flow_dataset(transform_type: Optional[str] = None,
+                     train: bool = True, root: str = "./data", device=None):
+    """The whole modality ([N,28,28,1] in [-1, 1], transformed where
+    `transform_type` says), on `device` when given."""
+    _, y, _ = _modalities(transform_type, train, root)
+    return to_device(y, device)
 
 
 def get_classifier_dataloader(batch_size: int = 128, train: bool = True,

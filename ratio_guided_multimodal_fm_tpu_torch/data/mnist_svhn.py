@@ -1,14 +1,18 @@
-"""Experiment-2 data (the part of data/mnist_svhn.py that the evaluation
-CLI reads): MNIST resized 28 → 32 and SVHN, both in [-1, 1], as numpy
-batches, the same as the JAX package's for the same seed."""
+"""Experiment-2 data (the part of data/mnist_svhn.py that the training and
+evaluation CLIs read): MNIST resized 28 → 32 and SVHN, both in [-1, 1],
+in the JAX package's batch order for the same seed; numpy batches, or
+with a `device` batches gathered there from the dataset held there as one
+tensor (data/pipeline.py)."""
 from __future__ import annotations
-
-import numpy as np
 
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     _EpochLoader,
 )
-from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import to_unit_range
+from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+    flow_batches,
+    to_device,
+    to_unit_range,
+)
 from ratio_guided_multimodal_fm_tpu_torch.data.sources import (
     load_mnist,
     load_svhn,
@@ -36,31 +40,28 @@ def _svhn(root, train):
 
 def get_svhn_flow_dataloader(batch_size: int = 128, train: bool = True,
                              root: str = "./data", seed: int = 0,
-                             **_ignored) -> _EpochLoader:
+                             device=None, **_ignored) -> _EpochLoader:
     """SVHN-only batches {'x','y'(same),'label'} (ref D3 loop-compat)."""
     y, yl = _svhn(root, train)
+    yd = to_device(y, device)
     n_batches = len(y) // batch_size
 
     def make_iter(rng):
-        order = rng.permutation(len(y)) if train else np.arange(len(y))
-        for b in range(n_batches):
-            idx = order[b * batch_size:(b + 1) * batch_size]
-            yield {"x": y[idx], "y": y[idx], "label": yl[idx]}
+        for batch in flow_batches(yd, yl, batch_size, rng, shuffle=train):
+            yield {**batch, "y": batch["x"]}
 
     return _EpochLoader(make_iter, n_batches, seed)
 
 
 def get_mnist32_flow_dataloader(batch_size: int = 128, train: bool = True,
                                 root: str = "./data", seed: int = 0,
-                                **_ignored) -> _EpochLoader:
+                                device=None, **_ignored) -> _EpochLoader:
     """MNIST-32 batches {'x','label'} (ref D4)."""
     x, xl = _mnist32(root, train)
+    xd = to_device(x, device)
     n_batches = len(x) // batch_size
 
     def make_iter(rng):
-        order = rng.permutation(len(x)) if train else np.arange(len(x))
-        for b in range(n_batches):
-            idx = order[b * batch_size:(b + 1) * batch_size]
-            yield {"x": x[idx], "label": xl[idx]}
+        return flow_batches(xd, xl, batch_size, rng, shuffle=train)
 
     return _EpochLoader(make_iter, n_batches, seed)

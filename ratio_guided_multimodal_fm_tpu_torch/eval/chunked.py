@@ -18,6 +18,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ratio_guided_multimodal_fm_tpu_torch.core.prng import derive_seed
+
 DEFAULT_AUTO_CHUNKS = 4
 
 
@@ -27,11 +29,9 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def chunk_seed(seed: int, *path: int) -> int:
-    """A 63-bit seed derived from the run's seed and `path` (chunk index,
-    then 7 for the chunk's MC set)."""
-    return int(np.random.SeedSequence([seed, *path]).generate_state(
-        1, np.uint64)[0] >> np.uint64(1))
+# A 63-bit seed derived from the run's seed and `path` (chunk index, then 7
+# for the chunk's MC set).
+chunk_seed = derive_seed
 
 
 def mc_set_ess(mc_ratios) -> float:

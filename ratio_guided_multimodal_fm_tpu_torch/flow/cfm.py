@@ -1,18 +1,48 @@
-"""Flow-ODE integration (port of flow/cfm.py: time grids and solvers).
+"""Conditional flow matching (port of flow/cfm.py): the training loss
+and the flow-ODE integration (time grids and solvers).
 
 The JAX package integrates with one `lax.scan`; here the loop is a Python
 loop over a host-side time grid, so every step's t is a Python float and
 nothing syncs with the device per step. The path is the rectified flow
-x_t = (1-t)·x_0 + t·x_1, integrated from x_0 ~ N(0, I) at t=0 to t=1.
+x_t = (1-t)·x_0 + t·x_1, integrated from x_0 ~ N(0, I) at t=0 to t=1; the
+CFM target is u = x_1 − x_0. Random streams cannot cross frameworks, so the
+loss takes x_0 and t injected, or a `torch.Generator` that draws them.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
 SOLVERS = ("euler", "midpoint", "heun")
+
+
+def interpolate(x1: torch.Tensor, t: torch.Tensor,
+                x0: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+    """(x_t, u) = ((1-t)·x_0 + t·x_1, x_1 − x_0) for x1 [B, ...] and t [B],
+    in x1's dtype; x_0 ~ N(0, I) is `x0` or drawn from `generator`."""
+    if x0 is None:
+        x0 = torch.randn(x1.shape, generator=generator, dtype=x1.dtype,
+                         device=x1.device)
+    tb = t.to(x1.dtype).reshape(t.shape + (1,) * (x1.dim() - 1))
+    return (1.0 - tb) * x0 + tb * x1, x1 - x0
+
+
+def cfm_loss(velocity_fn: Callable, x1: torch.Tensor,
+             t: Optional[torch.Tensor] = None,
+             x0: Optional[torch.Tensor] = None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Monte-Carlo CFM objective of one batch: mean((v(x_t, t) − u)²) in
+    float32, t ~ U(0, 1) and x_0 ~ N(0, I) injected or drawn from
+    `generator` (t first, then x_0). velocity_fn: (x_t, t) -> v."""
+    if t is None:
+        t = torch.rand((x1.shape[0],), generator=generator, dtype=x1.dtype,
+                       device=x1.device)
+    x_t, u = interpolate(x1, t, x0, generator)
+    v = velocity_fn(x_t, t)
+    return torch.mean((v.to(torch.float32) - u.to(torch.float32)) ** 2)
 
 TIME_GRIDS = ("uniform", "late", "early", "cosine")
 

@@ -8,11 +8,14 @@ the JAX U-Net's default XLA path (models/layers.py FusedGroupNorm).
 
 Statistics: the sums of x and x² over a group are taken in float64, where
 they are exact for bfloat16 inputs whatever the order of the additions;
-mean and E[x²] are rounded once to float32, var = E[x²] − mean² in float32
-and rstd = float32(1/sqrt(float64(var + eps))). The kernel computes exactly
-these operations, so on the card it and `group_norm_silu_reference` agree
-on (mean, rstd) bit for bit and their bf16 outputs differ only through the
-float32 SiLU (one bfloat16 step at most). With float32 sums taken in two
+mean and E[x²] are the IEEE float64 quotients of the sums by the group's
+size, rounded once to float32, var = E[x²] − mean² in float32 and rstd =
+float32(1/sqrt(float64(var + eps))). The kernel computes exactly these
+operations, so on the card it and `group_norm_silu_reference` agree on
+(mean, rstd) bit for bit and their bf16 outputs differ only through the
+float32 SiLU (one bfloat16 step at most). (For float32 inputs the float64
+sums of x² are not exact, so their order can still move a float32
+rounding, at a rate of order 2^-25 per group.) With float32 sums taken in two
 orders, the bf16 rounding of some affine outputs would move, and where SiLU
 shrinks such a value into a lower binade the move exceeds one step of the
 output.
@@ -63,8 +66,13 @@ def gn_stats_reference(x: torch.Tensor, num_groups: int, eps: float = 1e-6):
     n = x[0].numel() // num_groups
     cdt = torch.float64 if x.dtype == torch.float64 else torch.float32
     xd = x.to(torch.float64).reshape(B, num_groups, n)
-    mean = (xd.sum(-1) / n).to(cdt)
-    msq = ((xd * xd).sum(-1) / n).to(cdt)
+    # divide by a tensor: on CUDA, PyTorch divides by a Python scalar as a
+    # product with its reciprocal, which moves the float32 rounding of ~1 in
+    # 10^4 means off the kernel's (IEEE) quotient where n is not a power of 2
+    nd = torch.full((B, num_groups), float(n), dtype=torch.float64,
+                    device=x.device)
+    mean = (xd.sum(-1) / nd).to(cdt)
+    msq = ((xd * xd).sum(-1) / nd).to(cdt)
     var = msq - mean * mean
     rstd = (1.0 / torch.sqrt((var + eps).to(torch.float64))).to(cdt)
     return mean, rstd
@@ -333,6 +341,7 @@ def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
                            f"CUDA error {err} ({err_str(err).decode()}), "
                            f"{plan}")
     group_norm_silu_backward.launches += 1
+    group_norm_silu_backward.weight_grad_launches += int(weight_grads)
     return dx, dgamma, dbeta
 
 
@@ -344,7 +353,8 @@ def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
     mean, rstd (float32 [B, G]); dγ and dβ are None unless `weight_grads`.
 
     CUDA tensors launch csrc/group_norm_silu_backward.cu (dy is brought to
-    x's memory format first), CPU tensors run
+    x's memory format first; with `weight_grads` a second launch reduces the
+    CTAs' dγ/dβ partials), CPU tensors run
     `group_norm_silu_backward_reference`; any other device raises.
     """
     if dy.shape != x.shape or dy.dtype != x.dtype:
@@ -362,6 +372,8 @@ def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
 
 
 group_norm_silu_backward.launches = 0
+# the calls that also ran the second launch, the dγ/dβ reduction
+group_norm_silu_backward.weight_grad_launches = 0
 
 
 class _GroupNormSiLU(torch.autograd.Function):

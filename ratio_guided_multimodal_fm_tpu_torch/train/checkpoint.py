@@ -1,0 +1,98 @@
+"""Checkpoints as torch `.pth` files in the reference layout (port of
+train/checkpoint.py; the JAX package writes Orbax directories).
+
+* a bare state dict (the EMA weights, experiment 1's best and periodic
+  saves), or
+* a resumable training dict {'model_state_dict', 'optimizer_state_dict',
+  'epoch', 'best_loss'} (ref train_flow_svhn.py:165-170),
+
+both of which the sample and evaluate CLIs read with
+cli/common.py:load_state_dict, and the JAX package's
+interop/torch_import.py:import_state_dict imports. Names follow the
+reference (path_utils.py:7-32, None parts dropped), with `.pth`:
+checkpoints/flow_svhn_best.pth, flow_svhn_ema_best.pth,
+flow_svhn_epoch10.pth. Every save goes to a temporary name in the same
+directory and is renamed over the target, so a crash never leaves a torn
+file.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import torch
+
+CHECKPOINT_DIR = "checkpoints"
+
+
+def checkpoint_path(model_type: str, *parts, base_dir: str = CHECKPOINT_DIR):
+    """Reference-layout .pth name (JAX get_checkpoint_path; save_checkpoint
+    makes the directory), None parts dropped:
+    ('flow', 'y', 'rotate90', None, 'ema', 'best') ->
+    checkpoints/flow_y_rotate90_ema_best.pth."""
+    name = "_".join([model_type] + [str(a) for a in parts if a is not None])
+    return os.path.join(base_dir, f"{name}.pth")
+
+
+def checkpoint_exists(path: str) -> bool:
+    return os.path.isfile(path)
+
+
+def ema_checkpoint_path(path: str) -> str:
+    """The EMA sibling of a checkpoint: `_ema` before the final name part
+    of the basename ('runs/flow_x_best.pth' -> 'runs/flow_x_ema_best.pth'),
+    the name the sample and evaluate CLIs read with --ema."""
+    d, base = os.path.split(path)
+    stem, ext = os.path.splitext(base)
+    head, _, tail = stem.rpartition("_")
+    new = f"{head}_ema_{tail}" if head else f"{stem}_ema"
+    return os.path.join(d, new + ext)
+
+
+def to_cpu(obj: Any) -> Any:
+    """`obj` with every tensor detached and copied to the host (dicts,
+    lists and tuples walked), so a file loads on any device."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().clone()
+    if isinstance(obj, dict):
+        return {k: to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(to_cpu(v) for v in obj)
+    return obj
+
+
+def save_checkpoint(path: str, obj: Any) -> None:
+    """torch.save of `obj` (tensors moved to the host) to a temporary name
+    beside `path`, then an atomic rename over it."""
+    d = os.path.dirname(path)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save(to_cpu(obj), tmp)
+    os.replace(tmp, path)
+
+
+def load_checkpoint(path: str) -> Any:
+    """A checkpoint's contents on the host (tensors, numbers, dicts)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def save_train_checkpoint(path: str, state, epoch: int,
+                          best_loss: float) -> None:
+    """The resumable full-dict layout (ref train_flow_svhn.py:165-170)."""
+    save_checkpoint(path, {
+        "model_state_dict": state.model.state_dict(),
+        "optimizer_state_dict": state.optimizer.state_dict(),
+        "epoch": int(epoch),
+        "best_loss": float(best_loss),
+    })
+
+
+def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:
+    """Strict-load either layout's weights into `model`: key names and
+    shapes must match exactly (load_state_dict(strict=True) raises)."""
+    sd = load_checkpoint(path)
+    if isinstance(sd, dict) and "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    model.load_state_dict(sd, strict=True)
+    return model

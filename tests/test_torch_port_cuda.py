@@ -14,6 +14,8 @@ and round at the same points, see ops/groupnorm.py); its backward, against
 the plain backward run in float64 on the same inputs, at most twice the
 float32 plain backward's max |err| in dx, dγ and dβ, in bfloat16 one
 bfloat16 step from the bfloat16 plain backward, and bit-identical reruns;
+the forward's saved statistics equal to the plain version's bit for bit
+(both divide the float64 sums by the group's size in IEEE arithmetic);
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
 against the float32 plain version (tests/test_resblock_pallas.py), and
 rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
@@ -285,8 +287,8 @@ def gn_backward_errors(x, w, b, dy, mean, rstd, got):
     (512, 128, 3, False), (513, 128, 3, True)])
 def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
                                          channels_last):
-    """The forward's saved statistics within a few float32 ulps of the plain
-    version's, autograd's dx the kernel's at them; the backward kernel's dx
+    """The forward's saved statistics equal to the plain version's bit for
+    bit, autograd's dx the kernel's at them; the backward kernel's dx
     (alone, and with dγ, dβ) against the plain backward; two launches give
     the same bits."""
     x, w, b, dy = _gn_backward_inputs(card, B, C, H, dtype, channels_last, C)
@@ -299,8 +301,7 @@ def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
     assert (group_norm_silu.launches, group_norm_silu_backward.launches) == (
         before[0] + 1, before[1] + 1)
     mean, rstd = gn_stats_reference(x, 8)
-    for u, v in ((saved[3], mean), (saved[4], rstd)):
-        torch.testing.assert_close(u, v, rtol=1e-6, atol=0.0)
+    assert torch.equal(saved[3], mean) and torch.equal(saved[4], rstd)
     assert torch.equal(dx_auto, group_norm_silu_backward(
         dy, x, w, b, saved[3], saved[4], False)[0])
     dx_only, dw0, db0 = group_norm_silu_backward(dy, x, w, b, mean, rstd,
@@ -321,6 +322,42 @@ def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
         return
     for nm, (err_k, err_p) in gn_backward_errors(x, w, b, dy, mean, rstd,
                                                  got).items():
+        assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
+
+
+# (C, H) of the trained U-Nets' GN sites (tests/test_torch_port_plans.py:
+# TRAIN_GN_CASES): float32, channels_last, B = 128 and a ragged 127
+TRAIN_GN = [(32, 16), (32, 32), (64, 16), (64, 32), (96, 16), (96, 32),
+            (128, 8), (128, 16), (128, 32), (192, 16), (192, 32), (256, 8),
+            (256, 16), (32, 14), (32, 28), (64, 14), (64, 28), (96, 14),
+            (96, 28), (128, 14)]
+
+
+@pytest.mark.parametrize("B", [128, 127])
+@pytest.mark.parametrize("C,H", TRAIN_GN)
+def test_group_norm_silu_at_the_training_shapes(card, B, C, H):
+    """What a train step runs at every GN site: the forward with its saved
+    statistics (equal to the plain version's), then the backward with dγ and
+    dβ through autograd (two launches counted, the dγ/dβ one among them),
+    each of dx, dγ, dβ within twice the float32 plain backward's max |err|
+    against the float64 plain backward."""
+    x, _, _, dy = _gn_backward_inputs(card, B, C, H, torch.float32, True, H)
+    w = (torch.rand(C, device=card) + 0.5).requires_grad_(True)
+    b = (torch.randn(C, device=card) * 0.1).requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    before = group_norm_silu_backward.weight_grad_launches
+    y = group_norm_silu(xs, w, b, 8)
+    torch.testing.assert_close(y, group_norm_silu_reference(x, w, b, 8),
+                               rtol=1e-4, atol=1e-4)
+    saved = y.grad_fn.saved_tensors
+    mean, rstd = gn_stats_reference(x, 8)
+    assert torch.equal(saved[3], mean) and torch.equal(saved[4], rstd)
+    got = torch.autograd.grad(y, (xs, w, b), dy)
+    torch.cuda.synchronize()
+    assert group_norm_silu_backward.weight_grad_launches == before + 1
+    assert got[0].stride() == x.stride()
+    errs = gn_backward_errors(x, w.detach(), b.detach(), dy, mean, rstd, got)
+    for nm, (err_k, err_p) in errs.items():
         assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
 
 

@@ -6,6 +6,8 @@
   JAX package's, so module names are matched exactly or by the prefix
   'ratio_guided_multimodal_fm_tpu.'.
 * Entry points default to CUDA and fail clearly without it.
+* The sampler, evaluation, bench and train CLIs refuse to run without one
+  unless asked for the CPU.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
 """
@@ -75,6 +77,9 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
         resblock_kernel_bench,
         sample,
         sample_mnist_svhn,
+        train_flow,
+        train_flow_mnist32,
+        train_flow_svhn,
     )
     from ratio_guided_multimodal_fm_tpu_torch.core.device import (
         resolve_device,
@@ -92,6 +97,9 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: evaluate.main(["--num_steps", "1"]),
                  lambda: evaluate_mnist_svhn.main(["--num_steps", "1"]),
                  lambda: resblock_kernel_bench.main([]),
+                 lambda: train_flow.main(["--modality", "x"]),
+                 lambda: train_flow_mnist32.main([]),
+                 lambda: train_flow_svhn.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

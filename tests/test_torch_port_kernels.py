@@ -145,6 +145,35 @@ def test_group_norm_silu_bf16_statistics_do_not_depend_on_the_order():
     assert torch.equal(y, yp)
 
 
+@pytest.mark.parametrize("C,H", [(32, 28), (64, 14), (128, 7)])
+def test_gn_statistics_divide_in_ieee_arithmetic(C, H):
+    """The kernel rounds the IEEE float64 quotient s / n to float32 (csrc/
+    gn_common.cuh:gn_finalize). The plain version must divide the same way
+    on every device: a product with the reciprocal 1/n, which is how
+    PyTorch divides a CUDA tensor by a Python scalar, moves the float32
+    rounding of the means whose quotient is a float32 tie where n is not a
+    power of 2 (~1 in 10^4 groups of these bf16 inputs)."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
+        gn_stats_reference,
+    )
+
+    rng = np.random.RandomState(C + H)
+    x = torch.from_numpy(rng.randn(512, C, H, H).astype(np.float32) * 2.0
+                         + 0.5).to(torch.bfloat16)
+    n = C // 8 * H * H
+    s = x.double().reshape(512, 8, n).sum(-1).numpy()
+    mean, _ = gn_stats_reference(x, 8)
+    np.testing.assert_array_equal(mean.numpy(), (s / n).astype(np.float32))
+    # where s / n is a float32 tie (25 significant bits), the quotient rounds
+    # to even and the product with the reciprocal, an ulp off, to either side
+    m = (2 * rng.randint(2**23, 2**24, 256).astype(np.float64) + 1) \
+        * 2.0**-25
+    ties = n * m
+    assert np.array_equal(ties / n, m)
+    assert ((ties / n).astype(np.float32)
+            != (ties * (1.0 / n)).astype(np.float32)).any()
+
+
 def test_group_norm_silu_channels_last_input():
     """The U-Nets hand the kernel channels_last tensors; the plain version
     must not depend on the memory layout either."""

@@ -13,7 +13,8 @@ are held, at every GroupNorm and ResBlock norm1 -> conv1 shape of both
 experiments' main paths, at B=5 and at the float32 shapes of the
 experiment-1 ratio net, to what the kernels assume — every sample, pixel
 row and channel covered exactly once, dynamic shared memory within one
-block's 232,448 bytes, clusters of at most 8 CTAs.
+block's 232,448 bytes, clusters of at most 8 CTAs; and, forward and
+backward, at the flow-matching trainer's float32 shapes (B = 128, 127).
 The kernels' library names hash every csrc header, so an edited header
 rebuilds them.
 """
@@ -296,6 +297,45 @@ def test_gn_backward_plan_at_the_ratio_net():
     assert 3 * (first.smem_bytes + 1024) <= 233_472
     assert plans[(128, 3)].samples_per_cta == 2
     assert not gn_backward_plan(256, 128, 3, 3, 8, 4, False).staged
+
+
+# The flow-matching trainer (float32, B = 128 and a ragged 127): the U-Nets'
+# GN sites are the sampler's (C, H) again, EXP2_GN for the SVHN and MNIST-32
+# nets, EXP1_GN for the 28-px net (test_training_gn_shapes_match_the_models)
+TRAIN_GN_CASES = sorted({(B, C, H) for C, H in EXP2_GN + EXP1_GN
+                         for B in (128, 127)})
+
+
+def test_training_gn_shapes_match_the_models():
+    """Every GN site of the three trained U-Nets (35 / 25 / 25 sites) has a
+    (C, H) in the training cases."""
+    for net, (c_in, h), sites in ((FlowMatchingUNetSVHN(), (3, 32), 35),
+                                  (FlowMatchingUNetMNIST(img_size=32),
+                                   (1, 32), 25),
+                                  (FlowMatchingUNet(), (1, 28), 25)):
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda m, a: seen.append(tuple(a[0].shape[1:3])))
+            for m in net.modules() if isinstance(m, GroupNormSiLU)]
+        with torch.no_grad():
+            net(torch.zeros(1, c_in, h, h), torch.zeros(1))
+        for hk in hooks:
+            hk.remove()
+        assert len(seen) == sites
+        assert set(seen) <= {(C, H) for _, C, H in TRAIN_GN_CASES}
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("B,C,H", TRAIN_GN_CASES)
+def test_gn_plans_at_the_training_shapes(B, C, H, channels_last):
+    """Forward and backward (dx and the dγ/dβ partials per CTA) cover every
+    sample, channel and pixel once at the trainer's float32 shapes."""
+    _check_gn_plan(gn_plan(B, C, H, H, 8, 4, channels_last), B, C, H,
+                   channels_last)
+    plan = gn_backward_plan(B, C, H, H, 8, 4, channels_last)
+    _check_gn_plan(plan, B, C, H, channels_last)
+    if channels_last:
+        assert plan.staged
 
 
 def test_gn_plan_main_shape_is_staged_in_a_cluster():
