@@ -33,7 +33,8 @@ which fails the script (non-zero exit) on error:
    plain backward, the forward's saved statistics equal to the plain
    version's bit for bit, and two launches bit for bit; and both GroupNorm
    kernels as a train step runs them at every GN site of the three trained
-   U-Nets (SVHN, MNIST-32, 28-px; float32, channels_last, B=128 and 127):
+   U-Nets (SVHN, MNIST-32, 28-px) and the experiment-1 ratio net (its 8
+   sites at 28, 14, 7 and 3 px; float32, channels_last, B=128 and 127):
    the forward (1e-4) with its statistics (bit for bit), dx, dγ and dβ
    through autograd (each at most twice the float32 plain backward's
    max |err| against float64) and two launches bit for bit;
@@ -63,6 +64,18 @@ which fails the script (non-zero exit) on error:
    counts derived from the code (GN forward, backward and its dγ/dβ
    launch once per GN site per step), finite loss, steps/s, images/s,
    peak memory, and a 5-step profile;
+5r. ratio-net training at full width (RatioEstimatorMNIST and
+   RatioEstimatorMNISTSVHN, disc, float32, B=128, clip 1.0, Adam lr 1e-4,
+   EMA 0.999): one step on the card against the same step on the CPU (B=4,
+   dropout off, the same batch, the CPU's max-pools routed through the
+   card's argmax and the windows whose own argmax differs counted, at most
+   1 in 10,000; loss rtol 1e-4, post-clip gradients and BatchNorm running
+   statistics within 1e-4·max|ref| + 1e-6, the clip/Adam/EMA update from
+   the card's own gradients), then --train_steps
+   steps through the epoch driver with metrics-dict steps, the launch
+   counters set to 0 and held to 8 GN forward, 8 backward and 8 dγ/dβ
+   launches per experiment-1 step and 0 per experiment-2 step; finite
+   metrics, steps/s, pairs/s, peak memory and a 5-step profile;
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -77,7 +90,9 @@ which fails the script (non-zero exit) on error:
    summed over one experiment-1 grad call's shapes; and (6t) dx with the
    dγ/dβ launch at every GN site of the SVHN U-Net at B=128, the same four
    ways beside its bytes bound, the plain backward and the library call,
-   summed over one train step's 35 sites;
+   summed over one train step's 35 sites, and the same at the experiment-1
+   ratio net's 8 sites (the row 128x32x28x28, and the sum over one ratio
+   train step);
 6c. runs the tier-C bench (cli/resblock_kernel_bench.py), the path of
    fused_gn_silu_conv, with its launch counter set to 0; the bench holds
    the kernel against the bfloat16 plain version at each of its shapes
@@ -86,10 +101,12 @@ which fails the script (non-zero exit) on error:
 7. runs both sampler CLIs on random-init reference-layout .pth files (with
    mc_feng, and with mc_feng+grad and --mc_refresh 2), and both evaluation
    CLIs (methods none, mc_feng, grad and mc_feng+grad, --fid, synthetic
-   digits) on random-init flows, ratio nets and classifiers; then the three
-   train CLIs for one epoch on 2560 synthetic digits (--ema_decay 0.999
-   --save_every 1) and both sample CLIs, with and without --ema, on the
-   checkpoints they wrote.
+   digits) on random-init flows, ratio nets and classifiers; then the seven
+   train CLIs (flows, ratio nets, classifiers) for one epoch on 2560
+   synthetic digits (--ema_decay 0.999 where the CLI has it), both sample
+   CLIs with and without --ema --ratio_ema on the checkpoints they wrote,
+   and both evaluate CLIs (none, mc_feng, mc_feng+grad, --fid, the EMA
+   weights) on those checkpoints alone.
 
 The line before the last is the `kernels` JSON; the card's name and power
 limit are printed before it, and before that a `details` JSON line (shapes
@@ -277,9 +294,9 @@ def gn_sites(net) -> int:
     return sum(isinstance(m, GroupNormSiLU) for m in net.modules())
 
 
-def unet_gn_sites(net, c_in: int, h: int):
-    """{(C, H): sites} of a U-Net's GroupNormSiLU inputs, by forward hooks
-    on one CPU forward at B=1."""
+def model_gn_sites(net, *inputs):
+    """{(C, H): sites} of a net's GroupNormSiLU inputs, by forward hooks
+    on one CPU forward of `inputs` (B=1)."""
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
@@ -295,10 +312,30 @@ def unet_gn_sites(net, c_in: int, h: int):
     hooks = [m.register_forward_pre_hook(hook) for m in net.modules()
              if isinstance(m, GroupNormSiLU)]
     with torch.no_grad():
-        net(torch.zeros(1, c_in, h, h), torch.zeros(1))
+        net(*inputs)
     for hk in hooks:
         hk.remove()
     return found
+
+
+def unet_gn_sites(net, c_in: int, h: int):
+    """{(C, H): sites} of a U-Net's GroupNormSiLU inputs."""
+    import torch
+
+    return model_gn_sites(net, torch.zeros(1, c_in, h, h), torch.zeros(1))
+
+
+def ratio_train_sites():
+    """{(C, H): sites} of the experiment-1 ratio net's GroupNormSiLU
+    inputs (its 8 sites: 2 each at 28, 14, 7 and 3 px)."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNIST,
+    )
+
+    z = torch.zeros(1, 1, 28, 28)
+    return model_gn_sites(RatioEstimatorMNIST(), z, z)
 
 
 def profile_call(run, steps: int):
@@ -502,19 +539,19 @@ def train_step_card_vs_cpu(name, make_net, shape, dev):
                                  post_adam_vs_cpu_step=end_to_end))
 
 
-def run_training(name, make_net, shape, steps, dev, smi):
-    """`steps` train steps of the full-width net at B=B_TRAIN through the
-    epoch driver (train/loop.py:train_epochs) on a dataset held on the card
-    (batches gathered there), with every launch counter set to 0 just
-    before and held to the counts derived from the code after; then a
-    profiled 5-step run. Returns the record."""
+def counted_training(name, state, step, loader, extract, batches, steps,
+                     dev, smi, sites, loss_key=None, unit="images"):
+    """`steps` train steps at B=B_TRAIN through the epoch driver
+    (train/loop.py:train_epochs over `loader`'s epoch 0, `extract` mapped
+    over its batches), two warm-up steps before it, with every launch
+    counter set to 0 just before the run and held after it to the counts
+    derived from the code (GN forward, backward and its dγ/dβ launch once
+    per GN site per step); every epoch metric finite; then a profiled
+    5-step run on `batches`. Returns the record."""
     import numpy as np
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
-    from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
-        flow_batches,
-    )
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
         flash_guidance,
         fused_gn_silu_conv,
@@ -524,6 +561,67 @@ def run_training(name, make_net, shape, steps, dev, smi):
     from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
         epoch_data_iter,
         train_epochs,
+    )
+
+    for i, b in enumerate(batches[:2]):     # warm-up, outside the count
+        step(state, b, RNG(0, dev).generator(9, i))
+    wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
+                fused_gn_silu_conv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    group_norm_silu_backward.weight_grad_launches = 0
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    h0 = time.perf_counter()
+    ev0.record()
+    _, _, hist = train_epochs(state, step, epoch_data_iter(loader, extract),
+                              1, RNG(42, dev), loss_key=loss_key,
+                              log_fn=lambda m: None)
+    ev1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    counts = {w.__name__: w.launches for w in wrappers}
+    counts["group_norm_silu_backward (dγ/dβ)"] = \
+        group_norm_silu_backward.weight_grad_launches
+    expected = {"flash_guidance": 0, "group_norm_silu": steps * sites,
+                "group_norm_silu_backward": steps * sites,
+                "fused_gn_silu_conv": 0,
+                "group_norm_silu_backward (dγ/dβ)": steps * sites}
+    if counts != expected:
+        fail(f"training {name}: launch counts {counts} != derived "
+             f"{expected}")
+    metrics = {k: v for k, v in hist[-1].items()
+               if k not in ("epoch", "steps_per_sec")}
+    if not all(np.isfinite(v) for v in metrics.values()):
+        fail(f"training {name}: non-finite epoch metrics {metrics}")
+    dev_s = ev0.elapsed_time(ev1) / 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"training {name}: {steps} steps at B={B_TRAIN} f32, Adam lr {LR}, "
+          f"EMA {EMA_DECAY}: {wall:.3f} s wall ({dev_s:.3f} s by CUDA "
+          f"events) -> {steps / wall:.2f} steps/s, {steps * B_TRAIN / wall:.0f}"
+          f" {unit}/s; " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                     metrics.items())
+          + f"; peak mem {peak_gib:.2f} GiB; {sites} GN sites, launches "
+          f"{counts}  [{smi}]")
+    prof = profile_call(lambda: [step(state, b, RNG(1, dev).generator(0, i))
+                                 for i, b in enumerate(batches)], 5)
+    return dict(batch=B_TRAIN, steps=steps, seconds_wall=wall,
+                seconds_events=dev_s, steps_per_s=steps / wall,
+                **{f"{unit}_per_s": steps * B_TRAIN / wall},
+                loss=metrics["loss"], metrics=metrics,
+                peak_mem_gib=peak_gib, gn_sites=sites, launches=counts,
+                profile=prof)
+
+
+def run_training(name, make_net, shape, steps, dev, smi):
+    """The flow-matching counted run: the full-width U-Net on a dataset
+    held on the card (batches gathered there), Adam lr 1e-4, EMA 0.999."""
+    import numpy as np
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+        flow_batches,
     )
     from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
         create_fm_state,
@@ -545,53 +643,196 @@ def run_training(name, make_net, shape, steps, dev, smi):
                                    np.random.RandomState(e))
             return (b for i, b in enumerate(batches) if i < steps)
 
-    for i in range(2):                 # warm-up, outside the count
-        step(state, data[i * B_TRAIN:(i + 1) * B_TRAIN],
-             RNG(0, dev).generator(9, i))
-    wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
-                fused_gn_silu_conv)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for w in wrappers:
-        w.launches = 0
-    group_norm_silu_backward.weight_grad_launches = 0
-    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    h0 = time.perf_counter()
-    ev0.record()
-    _, _, hist = train_epochs(state, step,
-                              epoch_data_iter(Loader(), lambda b: b["x"]), 1,
-                              RNG(42, dev), log_fn=lambda m: None)
-    ev1.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - h0
-    counts = {w.__name__: w.launches for w in wrappers}
-    counts["group_norm_silu_backward (dγ/dβ)"] = \
-        group_norm_silu_backward.weight_grad_launches
-    expected = {"flash_guidance": 0, "group_norm_silu": steps * sites,
-                "group_norm_silu_backward": steps * sites,
-                "fused_gn_silu_conv": 0,
-                "group_norm_silu_backward (dγ/dβ)": steps * sites}
-    if counts != expected:
-        fail(f"training {name}: launch counts {counts} != derived "
-             f"{expected}")
-    loss = hist[-1]["loss"]
-    if not np.isfinite(loss):
-        fail(f"training {name}: non-finite loss {loss}")
-    dev_s = ev0.elapsed_time(ev1) / 1e3
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"training {name}: {steps} steps at B={B_TRAIN} f32, Adam lr {LR}, "
-          f"EMA {EMA_DECAY}: {wall:.3f} s wall ({dev_s:.3f} s by CUDA "
-          f"events) -> {steps / wall:.2f} steps/s, {steps * B_TRAIN / wall:.0f}"
-          f" images/s; loss {loss:.4f}; peak mem {peak_gib:.2f} GiB; "
-          f"{sites} GN sites, launches {counts}  [{smi}]")
     batches = [data[i * B_TRAIN:(i + 1) * B_TRAIN] for i in range(5)]
-    prof = profile_call(lambda: [step(state, b, RNG(1, dev).generator(0, i))
-                                 for i, b in enumerate(batches)], 5)
-    return dict(batch=B_TRAIN, steps=steps, seconds_wall=wall,
-                seconds_events=dev_s, steps_per_s=steps / wall,
-                images_per_s=steps * B_TRAIN / wall, loss=loss,
-                peak_mem_gib=peak_gib, gn_sites=sites, launches=counts,
-                profile=prof)
+    return counted_training(name, state, step, Loader(), lambda b: b["x"],
+                            batches, steps, dev, smi, sites)
+
+
+def _ratio_net(make_net, seed: int, dropout: bool = True):
+    import torch
+
+    torch.manual_seed(seed)
+    net = make_net()
+    if not dropout:
+        for m in net.modules():
+            if isinstance(m, torch.nn.Dropout):
+                m.p = 0.0
+    return net
+
+
+class PoolArgmax:
+    """A stand-in for F.max_pool2d(x, k) that records each call's argmax
+    (`replay` None) or routes the pool through recorded ones (`replay`: the
+    indices of another run, in call order). The value is the window's
+    maximum either way; only which of two near-tied elements gets the
+    gradient can differ."""
+
+    def __init__(self, replay=None):
+        self.idx, self.replay = [], replay
+
+    def __call__(self, x, kernel_size, *args, **kwargs):
+        import torch
+        import torch.nn.functional as F
+
+        y, idx = F.max_pool2d_with_indices(x, kernel_size, *args, **kwargs)
+        if self.replay is not None:
+            idx = self.replay[len(self.idx)].to(x.device)
+            y = x.flatten(2).gather(2, idx.flatten(2)).view_as(y)
+            if x.is_contiguous(memory_format=torch.channels_last):
+                y = y.contiguous(memory_format=torch.channels_last)
+        self.idx.append(idx.detach().cpu())
+        return y
+
+
+def ratio_step_card_vs_cpu(name, make_net, x_shape, y_shape, dev):
+    """One ratio train step (disc, B=4, dropout off, clip 1.0, Adam lr 1e-4,
+    EMA 0.999) from the same weights on the same batch, on the card and on
+    the CPU (plain GN versions): the loss within rtol 1e-4, each post-clip
+    gradient and each BatchNorm running statistic within 1e-4·max|ref| +
+    1e-6; the card's Adam and EMA update held, within the same bound, to
+    the CPU's update from the card's own gradients (phase 5t says why).
+
+    Max-pooling routes the gradient to one element of each 2x2 window; where
+    two elements of a window are equal to float32 rounding, the card and the
+    CPU may pick different ones (for this batch one of the exp-2 net's
+    176,128 windows, in the SVHN encoder's second pool, which moves its
+    conv gradients by 231 times the bound; PERF.md, PR 7). So the CPU step routes every pool through
+    the card's argmax (PoolArgmax), the windows whose own argmax differs
+    are counted (held to at most 1 in 10,000), and the gradients of the
+    CPU's own routing are printed beside, not held."""
+    import copy
+
+    import torch
+    import torch.nn.functional as F
+
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        create_ratio_state,
+        make_ratio_train_step,
+        update_ema,
+    )
+
+    net0 = _ratio_net(make_net, 50, dropout=False)
+    g = torch.Generator().manual_seed(51)
+    x = torch.rand((4,) + x_shape, generator=g) * 2.0 - 1.0
+    y = torch.rand((4,) + y_shape, generator=g) * 2.0 - 1.0
+    is_real = torch.tensor([1.0, 0.0, 1.0, 0.0])
+    cpu = torch.device("cpu")
+    pools = {"card": PoolArgmax(), "cpu_own": PoolArgmax()}
+    pools["cpu"] = PoolArgmax(replay=pools["card"].idx)
+    out = {}
+    max_pool2d = F.max_pool2d
+    for tag, d in (("card", dev), ("cpu", cpu), ("cpu_own", cpu)):
+        st = create_ratio_state(copy.deepcopy(net0), d, lr=LR, clip_norm=1.0,
+                                ema_decay=EMA_DECAY)
+        F.max_pool2d = pools[tag]
+        try:
+            met = make_ratio_train_step("disc", EMA_DECAY)(
+                st, x.to(d), y.to(d), is_real.to(d))
+        finally:
+            F.max_pool2d = max_pool2d
+        out[tag] = ({k: float(v) for k, v in met.items()}, st)
+    (mc, card), (mp, ref) = out["card"], out["cpu"]
+    windows = sum(t.numel() for t in pools["card"].idx)
+    flips = sum(int((a != b).sum()) for a, b in zip(pools["card"].idx,
+                                                   pools["cpu_own"].idx))
+    if flips * 10_000 > windows:
+        fail(f"ratio training {name}: {flips} of {windows} max-pool windows "
+             "pick another argmax on the card than on the CPU")
+    own = out["cpu_own"][1].model
+    unpinned = max(max_abs(dict(card.model.named_parameters())[n].grad.cpu(),
+                           p.grad) / (1e-4 * float(p.grad.abs().max()) + 1e-6)
+                   for n, p in own.named_parameters())
+    if not abs(mc["loss"] - mp["loss"]) <= 1e-4 * abs(mp["loss"]):
+        fail(f"ratio training {name}: loss on the card {mc['loss']} != CPU "
+             f"{mp['loss']} (rtol 1e-4)")
+    worst = {"grad": 0.0, "bn_stats": 0.0, "adam": 0.0, "ema": 0.0}
+    card_sd = card.model.state_dict()
+    for k, t in ref.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            worst["bn_stats"] = max(worst["bn_stats"], _within(
+                card_sd[k].cpu(), t, f"ratio training {name}: {k}"))
+        elif k.endswith("num_batches_tracked") and int(card_sd[k]) != int(t):
+            fail(f"ratio training {name}: {k} {int(card_sd[k])} != {int(t)}")
+    rep = copy.deepcopy(net0)
+    again = create_ratio_state(rep, cpu, lr=LR, clip_norm=1.0,
+                               ema_decay=EMA_DECAY)
+    card_p = dict(card.model.named_parameters())
+    rep_p = dict(rep.named_parameters())
+    for n, p in ref.model.named_parameters():
+        worst["grad"] = max(worst["grad"], _within(
+            card_p[n].grad.cpu(), p.grad, f"ratio training {name}: "
+                                          f"post-clip gradient {n}"))
+        rep_p[n].grad = card_p[n].grad.cpu()
+    again.optimizer.step()
+    update_ema(again, EMA_DECAY)
+    for n, p in again.model.named_parameters():
+        worst["adam"] = max(worst["adam"], _within(
+            card_p[n].detach().cpu(), p.detach(),
+            f"ratio training {name}: post-Adam {n}"))
+        worst["ema"] = max(worst["ema"], _within(
+            card.ema[n].cpu(), again.ema[n], f"ratio training {name}: EMA "
+                                             f"{n}"))
+    print(f"ratio training {name}: one step card == CPU (B=4, dropout off, "
+          f"the CPU's max-pools routed through the card's argmax): loss "
+          f"{mc['loss']:.6f} / {mp['loss']:.6f}; metrics card {mc}, CPU "
+          f"{mp}; worst post-clip gradient, BatchNorm statistics, post-Adam "
+          f"and EMA |Δ| as a share of 1e-4·max|ref| + 1e-6: "
+          + ", ".join(f"{v:.3g}" for v in worst.values())
+          + f"; max-pool windows whose argmax differs: {flips} of {windows} "
+          f"(gradients against the CPU's own argmax, not held: "
+          f"{unpinned:.3g})")
+    return dict(card_vs_cpu=dict(metrics_card=mc, metrics_cpu=mp, **worst,
+                                 pool_argmax_flips=flips,
+                                 pool_windows=windows,
+                                 grad_vs_cpu_own_argmax=unpinned))
+
+
+def run_ratio_training(name, make_net, x_shape, y_shape, steps, dev, smi):
+    """The ratio-net counted run: the full-width net (disc, clip 1.0, Adam
+    lr 1e-4, EMA 0.999) on ratio batches of random images and labels held
+    on the card (data/pipeline.py:ratio_batches: pairs gathered there,
+    is_real moved there), through the epoch driver with metrics-dict steps
+    (loss_key 'loss')."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+        Pairing,
+        ratio_batches,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        create_ratio_state,
+        make_ratio_train_step,
+    )
+
+    net = _ratio_net(make_net, 52)
+    sites = gn_sites(net)
+    state = create_ratio_state(net, dev, lr=LR, clip_norm=1.0,
+                               ema_decay=EMA_DECAY)
+    rstep = make_ratio_train_step("disc", EMA_DECAY)
+    n = (steps + 7) * B_TRAIN
+    g = torch.Generator(dev).manual_seed(53)
+    xd = torch.rand((n,) + x_shape, generator=g, device=dev) * 2.0 - 1.0
+    yd = torch.rand((n,) + y_shape, generator=g, device=dev) * 2.0 - 1.0
+    lab = np.random.RandomState(54)
+    xl, yl = lab.randint(0, 10, n), lab.randint(0, 10, n)
+    pairing = Pairing(yl)
+
+    def batches_of(e):
+        return ratio_batches(xd, xl, yd, pairing, B_TRAIN,
+                             np.random.RandomState(e))
+
+    class Loader:
+        def epoch(self, e):
+            return itertools.islice(batches_of(e), steps)
+
+    return counted_training(
+        name, state, lambda s, b, gen: rstep(s, b["x"], b["y"], b["is_real"],
+                                             gen),
+        Loader(), lambda b: b, list(itertools.islice(batches_of(99), 5)),
+        steps, dev, smi, sites, loss_key="loss", unit="pairs")
 
 
 def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
@@ -643,6 +884,8 @@ def main(argv=None) -> int:
             FlowMatchingUNet,
             FlowMatchingUNetMNIST,
             FlowMatchingUNetSVHN,
+            RatioEstimatorMNIST,
+            RatioEstimatorMNISTSVHN,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops import _build
         from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
@@ -933,16 +1176,19 @@ def main(argv=None) -> int:
     details["gn_backward_max_abs_err"] = bwd_err
 
     # both GroupNorm kernels as a train step runs them, at every GN site of
-    # the three trained U-Nets (float32, channels_last, B=B_TRAIN and an odd
-    # B_TRAIN-1): the forward's output (1e-4) and saved statistics (bit for
-    # bit), then dx, dγ and dβ through autograd, each within twice the
-    # float32 plain backward's max |err| against the float64 plain backward,
-    # and two direct launches bit for bit
+    # the three trained U-Nets and of the experiment-1 ratio net (float32,
+    # channels_last, B=B_TRAIN and an odd B_TRAIN-1): the forward's output
+    # (1e-4) and saved statistics (bit for bit), then dx, dγ and dβ through
+    # autograd, each within twice the float32 plain backward's max |err|
+    # against the float64 plain backward, and two direct launches bit for
+    # bit
     train_sites = {}
-    for net, shp in ((FlowMatchingUNetSVHN(), (3, 32)),
-                     (FlowMatchingUNetMNIST(img_size=32), (1, 32)),
-                     (FlowMatchingUNet(), (1, 28))):
-        for key, n in unet_gn_sites(net, *shp).items():
+    ratio_sites = ratio_train_sites()
+    for sites_of in ([unet_gn_sites(net, *shp) for net, shp in (
+            (FlowMatchingUNetSVHN(), (3, 32)),
+            (FlowMatchingUNetMNIST(img_size=32), (1, 32)),
+            (FlowMatchingUNet(), (1, 28)))] + [ratio_sites]):
+        for key, n in sites_of.items():
             train_sites[key] = train_sites.get(key, 0) + n
     train_yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
     train_fwd_err = train_bwd_err = 0.0
@@ -991,7 +1237,9 @@ def main(argv=None) -> int:
                          f"{err_k:.3g} exceeds twice the float32 plain "
                          f"backward's {err_p:.3g}")
     print(f"training GN sites ({len(train_sites)} (C,H) of the SVHN, "
-          f"MNIST-32 and 28-px U-Nets, B={B_TRAIN} and {B_TRAIN - 1}, f32 "
+          f"MNIST-32 and 28-px U-Nets and the experiment-1 ratio net's "
+          f"{sum(ratio_sites.values())} sites {sorted(ratio_sites)}, "
+          f"B={B_TRAIN} and {B_TRAIN - 1}, f32 "
           f"channels_last): forward max |err| {train_fwd_err:.3g}, saved "
           f"statistics bit for bit ({stats_checked[0]} entries checked in "
           f"phase 3); dx, dγ, dβ max |err| against float64 (kernel / float32 "
@@ -1001,6 +1249,12 @@ def main(argv=None) -> int:
     details["training_gn_sites"] = {f"C{C}_H{H}": n for (C, H), n
                                     in sorted(train_sites.items())}
     details["training_gn_float64_yardstick"] = train_yard
+    details["ratio_training_gn_plans"] = {
+        f"B{B}_C{C}_H{H}": dict(
+            forward_samples_per_cta=gn_plan(B, C, H, H, 8, 4,
+                                            True).samples_per_cta,
+            backward=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+        for B in (B_TRAIN, B_TRAIN - 1) for (C, H) in sorted(ratio_sites)}
     details["gn_saved_stats_entries_checked"] = stats_checked[0]
 
     # kernel C at every ResBlock norm1 -> conv1 shape of the U-Nets
@@ -1160,6 +1414,25 @@ def main(argv=None) -> int:
         rec.update(run_training(name, make_net, shp, args.train_steps, dev,
                                 smi))
         details["training"][name] = rec
+
+    # 5r. ratio-net training at full width (disc, float32, B=B_TRAIN, clip
+    #     1.0, Adam lr 1e-4, EMA 0.999): one step card against CPU, then a
+    #     counted run of --train_steps steps through the epoch driver with
+    #     metrics-dict steps and a 5-step profile. The experiment-1 net runs
+    #     both GN kernels at its 8 sites every step; the experiment-2 net's
+    #     BatchNorm encoders run none.
+    details["ratio_training"] = {}
+    for name, make_net, xs, ys in (
+            ("experiment-1 ratio (RatioEstimatorMNIST)", RatioEstimatorMNIST,
+             E1_SHAPE, E1_SHAPE),
+            ("experiment-2 ratio (RatioEstimatorMNISTSVHN)",
+             RatioEstimatorMNISTSVHN, X_SHAPE, Y_SHAPE)):
+        rec = ratio_step_card_vs_cpu(name, make_net, xs, ys, dev)
+        rec.update(run_ratio_training(name, make_net, xs, ys,
+                                      args.train_steps, dev, smi))
+        details["ratio_training"][name.split(" (")[0]] = rec
+    if details["ratio_training"]["experiment-1 ratio"]["gn_sites"] != 8:
+        fail("the experiment-1 ratio net should hold 8 GN sites")
 
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
@@ -1328,7 +1601,9 @@ def main(argv=None) -> int:
         bound_ms=by / peak_bw * 1e3, bound_by="bytes",
         library_ms=time_ms(
             lambda: F.silu(F.group_norm(x, 8, wb, bb, 1e-6)), dev),
-        ms_is="CUDA events around 20 back-to-back calls"))
+        ms_is="CUDA events around 20 back-to-back calls",
+        exp1_ratio_train_launches=details["ratio_training"][
+            "experiment-1 ratio"]["launches"]["group_norm_silu"]))
     details["gn_per_shape_bf16"] = per_shape
     details["gn_kernel_ms_per_sampler_call"] = gn_call_ms
     details["gn_device_ms_per_sampler_call"] = gn_call_dev_ms
@@ -1386,49 +1661,64 @@ def main(argv=None) -> int:
     #     w, b, write dγ, dβ), the plain backward and the library call
     #     (autograd's backward of F.silu(F.group_norm(...)) to x, w and b);
     #     summed over one train step's sites
-    tr_rows = {}
-    tr_step = {"event_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
-               "library_ms": 0.0}
-    svhn_sites = unet_gn_sites(FlowMatchingUNetSVHN(), 3, 32)
-    for (C, H), n in sorted(svhn_sites.items()):
-        B = B_TRAIN
-        x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
-            memory_format=torch.channels_last)
-        w, b = torch.rand(C, generator=gen, device=dev) + 0.5, rnd(C) * 0.1
-        dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
-        mean, rstd = gn_stats_reference(x, 8)
-        xl, wl, bl = (v.clone().requires_grad_(True) for v in (x, w, b))
-        y_lib = F.silu(F.group_norm(xl, 8, wl, bl, 1e-6))
-        row = call_times(
-            lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd, True),
-            dev, ("gn_silu_bwd_kernel", "gn_wb_reduce_kernel"), strict=False)
-        by = 3.0 * x.numel() * 4 + 2 * B * 8 * 4 + 4 * C * 4
-        row.update(
-            calls_per_step=n, bound_ms=by / peak_bw * 1e3,
-            plain_ms=time_ms(lambda: group_norm_silu_backward_reference(
-                dy, x, w, b, mean, rstd, True), dev),
-            library_ms=time_ms(lambda: torch.autograd.grad(
-                y_lib, (xl, wl, bl), dy, retain_graph=True), dev),
-            plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
-        tr_rows[f"B{B}_C{C}_H{H}"] = row
-        for k in tr_step:
-            tr_step[k] = (None if tr_step[k] is None or row[k] is None
-                          else tr_step[k] + n * row[k])
-        print(f"  group_norm_silu_backward B={B} C={C} {H}x{H} f32 dx+dγ/dβ: "
-              f"device {ms_str(row['device_ms'])} ms (L2 cold "
-              f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
-              f"events, host {row['host_ms']:.4f} per call; plain "
-              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
-              f"bound {row['bound_ms']:.4f} by bytes; {n} per train step  "
-              f"[{smi}]")
-    print(f"  group_norm_silu_backward (dx+dγ/dβ) summed over one SVHN train "
-          f"step's {sum(svhn_sites.values())} sites: "
-          f"{tr_step['event_ms']:.3f} ms by events, "
-          f"{ms_str(tr_step['device_ms'], 3)} ms on the device, library "
-          f"{tr_step['library_ms']:.3f} ms, bound {tr_step['bound_ms']:.3f} "
-          f"ms  [{smi}]")
+    def train_backward_rows(sites, what):
+        """The backward with dγ/dβ at each (C, H) of `sites` at B_TRAIN,
+        timed four ways, with its bound, plain and library times; summed
+        over one train step of `what`."""
+        rows = {}
+        step_sum = {"event_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
+                    "library_ms": 0.0}
+        for (C, H), n in sorted(sites.items()):
+            B = B_TRAIN
+            x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
+                memory_format=torch.channels_last)
+            w, b = torch.rand(C, generator=gen, device=dev) + 0.5, \
+                rnd(C) * 0.1
+            dy = rnd(B, C, H, H).contiguous(
+                memory_format=torch.channels_last)
+            mean, rstd = gn_stats_reference(x, 8)
+            xl, wl, bl = (v.clone().requires_grad_(True) for v in (x, w, b))
+            y_lib = F.silu(F.group_norm(xl, 8, wl, bl, 1e-6))
+            row = call_times(
+                lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd,
+                                                 True),
+                dev, ("gn_silu_bwd_kernel", "gn_wb_reduce_kernel"),
+                strict=False)
+            by = 3.0 * x.numel() * 4 + 2 * B * 8 * 4 + 4 * C * 4
+            row.update(
+                calls_per_step=n, bound_ms=by / peak_bw * 1e3,
+                plain_ms=time_ms(lambda: group_norm_silu_backward_reference(
+                    dy, x, w, b, mean, rstd, True), dev),
+                library_ms=time_ms(lambda: torch.autograd.grad(
+                    y_lib, (xl, wl, bl), dy, retain_graph=True), dev),
+                plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+            rows[f"B{B}_C{C}_H{H}"] = row
+            for k in step_sum:
+                step_sum[k] = (None if step_sum[k] is None or row[k] is None
+                               else step_sum[k] + n * row[k])
+            print(f"  group_norm_silu_backward B={B} C={C} {H}x{H} f32 "
+                  f"dx+dγ/dβ: device {ms_str(row['device_ms'])} ms (L2 cold "
+                  f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} "
+                  f"by events, host {row['host_ms']:.4f} per call; plain "
+                  f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
+                  f"bound {row['bound_ms']:.4f} by bytes; {n} per {what} "
+                  f"step  [{smi}]")
+        print(f"  group_norm_silu_backward (dx+dγ/dβ) summed over one {what} "
+              f"train step's {sum(sites.values())} sites: "
+              f"{step_sum['event_ms']:.3f} ms by events, "
+              f"{ms_str(step_sum['device_ms'], 3)} ms on the device, library "
+              f"{step_sum['library_ms']:.3f} ms, bound "
+              f"{step_sum['bound_ms']:.3f} ms  [{smi}]")
+        return rows, step_sum
+
+    tr_rows, tr_step = train_backward_rows(
+        unet_gn_sites(FlowMatchingUNetSVHN(), 3, 32), "SVHN")
     details["gn_backward_training_times"] = tr_rows
     details["gn_backward_ms_per_svhn_train_step"] = tr_step
+    ratio_rows, ratio_step = train_backward_rows(ratio_sites,
+                                                 "experiment-1 ratio")
+    details["gn_backward_ratio_training_times"] = ratio_rows
+    details["gn_backward_ms_per_exp1_ratio_train_step"] = ratio_step
     # the row: the SVHN U-Net's largest training site, dx + dγ/dβ
     largest = max(tr_rows, key=lambda k: tr_rows[k]["bound_ms"])
     top = tr_rows[largest]
@@ -1440,6 +1730,8 @@ def main(argv=None) -> int:
             "CUDA events around 20 back-to-back calls (the profiler "
             "recorded nothing in this run)")
     svhn_launches = details["training"]["SVHN"]["launches"]
+    r1 = ratio_rows[f"B{B_TRAIN}_C32_H28"]      # the ratio net's largest site
+    r1_launches = details["ratio_training"]["experiment-1 ratio"]["launches"]
     kernels.append(dict(
         name="group_norm_silu_backward", route="cuda",
         source="ratio_guided_multimodal_fm_tpu_torch/csrc/"
@@ -1450,7 +1742,17 @@ def main(argv=None) -> int:
             "group_norm_silu_backward (dγ/dβ)"],
         max_abs_err=train_bwd_err, ms=bwd_ms,
         plain_ms=top["plain_ms"], bound_ms=top["bound_ms"],
-        bound_by="bytes", library_ms=top["library_ms"], ms_is=bwd_ms_is))
+        bound_by="bytes", library_ms=top["library_ms"], ms_is=bwd_ms_is,
+        exp1_ratio_train_launches=r1_launches["group_norm_silu_backward"],
+        exp1_ratio_train_weight_grad_launches=r1_launches[
+            "group_norm_silu_backward (dγ/dβ)"],
+        exp1_ratio_site=dict(
+            shape=f"{B_TRAIN}x32x28x28 f32 channels_last, dx and dγ/dβ",
+            ms=r1["device_ms"] if r1["device_ms"] is not None
+            else r1["event_ms"], event_ms=r1["event_ms"],
+            plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
+            library_ms=r1["library_ms"]),
+        exp1_ratio_step_ms=ratio_step))
 
     # 6c. the tier-C bench, kernel C's path, counted
     from ratio_guided_multimodal_fm_tpu_torch.cli import resblock_kernel_bench
@@ -1622,73 +1924,135 @@ def main(argv=None) -> int:
         details["eval_cli"][name] = dict(seconds=cli_s, results=results)
 
     # the train CLIs for one epoch on the synthetic digits (RGMF_SYNTH_N
-    # training images, B_TRAIN a step), in one directory, then the sample
-    # CLIs of both experiments on the checkpoints they wrote (with and
-    # without --ema; random-init ratio nets for the guidance)
+    # training images, B_TRAIN a step), in one directory: the flows, the
+    # ratio nets and the evaluation classifiers; then the sample CLIs of
+    # both experiments (with and without --ema and --ratio_ema) and the
+    # evaluate CLIs on those checkpoints alone: every weight the port uses
+    # in this part was trained by the port
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        train_classifier,
+        train_classifiers_mnist_svhn,
         train_flow,
         train_flow_mnist32,
         train_flow_svhn,
+        train_ratio,
+        train_ratio_mnist_svhn,
     )
 
     synth_n = os.environ.get("RGMF_SYNTH_N")
     os.environ["RGMF_SYNTH_N"] = str(CLI_TRAIN_IMAGES)
     cwd = os.getcwd()
     details["train_cli"] = {}
+    details["trained_chain"] = {}
     with tempfile.TemporaryDirectory() as tmp:
         os.chdir(tmp)
         try:
-            train_argv = ["--epochs", "1", "--batch_size", str(B_TRAIN),
-                          "--ema_decay", str(EMA_DECAY), "--save_every", "1"]
+            train_argv = ["--epochs", "1", "--batch_size", str(B_TRAIN)]
+            ema = ["--ema_decay", str(EMA_DECAY)]
+            steps = CLI_TRAIN_IMAGES // B_TRAIN
             for name, cli, extra in (
-                    ("train_flow_mnist32", train_flow_mnist32, []),
-                    ("train_flow_svhn", train_flow_svhn, []),
-                    ("train_flow x", train_flow, ["--modality", "x"]),
-                    ("train_flow y", train_flow, ["--modality", "y"])):
+                    ("train_flow_mnist32", train_flow_mnist32,
+                     ema + ["--save_every", "1"]),
+                    ("train_flow_svhn", train_flow_svhn,
+                     ema + ["--save_every", "1"]),
+                    ("train_flow x", train_flow,
+                     ema + ["--save_every", "1", "--modality", "x"]),
+                    ("train_flow y", train_flow,
+                     ema + ["--save_every", "1", "--modality", "y"]),
+                    ("train_ratio", train_ratio, ema),
+                    ("train_ratio_mnist_svhn", train_ratio_mnist_svhn, ema)):
                 h0 = time.perf_counter()
                 _, best, hist = cli.main(train_argv + extra)
                 cli_s = time.perf_counter() - h0
                 if not (np.isfinite(best) and hist and hist[-1]["epoch"] == 1):
                     fail(f"CLI {name}: best loss {best}, history {hist}")
-                steps = CLI_TRAIN_IMAGES // B_TRAIN
+                metrics = {k: v for k, v in hist[-1].items()
+                           if k not in ("epoch", "steps_per_sec")}
                 print(f"CLI {name} (1 epoch, {steps} steps at B={B_TRAIN}, "
                       f"EMA {EMA_DECAY}): {cli_s:.1f} s wall (synthetic "
-                      f"digits and the first step included), loss "
-                      f"{best:.4f}, {hist[-1]['steps_per_sec']:.2f} steps/s "
-                      f"in the epoch  [{smi}]")
+                      f"digits and the first step included), "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+                      + f", {hist[-1]['steps_per_sec']:.2f} steps/s in the "
+                      f"epoch  [{smi}]")
                 details["train_cli"][name] = dict(
-                    seconds=cli_s, loss=best,
+                    seconds=cli_s, loss=best, metrics=metrics,
                     steps_per_s=hist[-1]["steps_per_sec"])
+            for name, cli in (("train_classifier", train_classifier),
+                              ("train_classifiers_mnist_svhn",
+                               train_classifiers_mnist_svhn)):
+                h0 = time.perf_counter()
+                out = cli.main(train_argv)
+                cli_s = time.perf_counter() - h0
+                runs = out.values() if isinstance(out, dict) else [out]
+                hists = [h[-1] for _, h in runs]
+                if not all(np.isfinite(h["loss"]) for h in hists):
+                    fail(f"CLI {name}: non-finite loss {hists}")
+                print(f"CLI {name} (1 epoch, {steps} steps at B={B_TRAIN}): "
+                      f"{cli_s:.1f} s wall; " + "; ".join(
+                          f"loss {h['loss']:.4f}, train_acc "
+                          f"{h['train_acc']:.4f}, test_acc "
+                          f"{h['test_acc']:.4f}" for h in hists)
+                      + f"  [{smi}]")
+                details["train_cli"][name] = dict(seconds=cli_s,
+                                                  epochs=hists)
             written = sorted(os.listdir("checkpoints"))
-            want = sorted(f"flow_{m}{e}_{s}.pth"
-                          for m in ("mnist32", "svhn", "x", "y_rotate90")
-                          for e, s in (("", "best"), ("_ema", "best"),
-                                       ("", "epoch1")))
+            want = sorted([f"flow_{m}{e}_{s}.pth"
+                           for m in ("mnist32", "svhn", "x", "y_rotate90")
+                           for e, s in (("", "best"), ("_ema", "best"),
+                                        ("", "epoch1"))]
+                          + [f"ratio_disc_{t}{e}_best.pth"
+                             for t in ("rotate90", "mnist_svhn")
+                             for e in ("", "_ema")]
+                          + [f"{c}_classifier.pth"
+                             for c in ("mnist", "mnist32", "svhn")])
             if written != want:
                 fail(f"train CLIs wrote {written}, expected {want}")
-            for net, fname in ((models[2], "ratio_disc_mnist_svhn_best.pth"),
-                               (e1_models[2], "ratio_disc_rotate90_best.pth")):
-                torch.save({k: v.detach().cpu().contiguous()
-                            for k, v in net.state_dict().items()},
-                           os.path.join("checkpoints", fname))
-            for name, cli, ema in (("sample_mnist_svhn", sample_mnist_svhn,
-                                    []),
-                                   ("sample_mnist_svhn", sample_mnist_svhn,
-                                    ["--ema"]),
-                                   ("sample", sample, []),
-                                   ("sample", sample, ["--ema"])):
+            for name, cli, flags in (
+                    ("sample_mnist_svhn", sample_mnist_svhn, []),
+                    ("sample_mnist_svhn", sample_mnist_svhn,
+                     ["--ema", "--ratio_ema"]),
+                    ("sample", sample, []),
+                    ("sample", sample, ["--ema", "--ratio_ema"])):
                 h0 = time.perf_counter()
                 sx, sy, diags = cli.main(
                     ["--guidance_method", "mc_feng", "--num_samples", "64",
-                     "--num_steps", "20", "--mc_batch_size", str(N_MC)] + ema)
+                     "--num_steps", "20", "--mc_batch_size", str(N_MC)]
+                    + flags)
                 if not (bool(torch.isfinite(sx).all())
                         and bool(torch.isfinite(sy).all())
                         and len(diags["ess"]) == 20):
-                    fail(f"CLI {name} {ema} on the trained checkpoints: "
+                    fail(f"CLI {name} {flags} on the trained checkpoints: "
                          "non-finite samples or a short trace")
-                print(f"CLI {name} {' '.join(ema)} on the checkpoints the "
-                      f"train CLIs wrote (mc_feng, 64 pairs, 20 steps): "
-                      f"{time.perf_counter() - h0:.1f} s wall  [{smi}]")
+                print(f"CLI {name} {' '.join(flags)} on the flows and ratio "
+                      f"net the train CLIs wrote (mc_feng, 64 pairs, 20 "
+                      f"steps): {time.perf_counter() - h0:.1f} s wall  "
+                      f"[{smi}]")
+            chain_argv = ["--guidance_methods", "none", "mc_feng",
+                          "mc_feng+grad", "--guidance_strengths", "0",
+                          str(GAMMA), "--num_steps", "20", "--num_samples",
+                          str(B_MAIN // 2), "--mc_batch_size", str(N_MC),
+                          "--fid", "--ema", "--ratio_ema", "--dtype", "bf16"]
+            for name, cli, fid_key in (
+                    ("evaluate", evaluate, "classifier_fid_x"),
+                    ("evaluate_mnist_svhn", evaluate_mnist_svhn,
+                     "classifier_fid_mnist")):
+                h0 = time.perf_counter()
+                results = cli.main(chain_argv)
+                cli_s = time.perf_counter() - h0
+                if (len(results) != 5 or not all(
+                        np.isfinite(r["coherence_acc"])
+                        and np.isfinite(r[fid_key]) for r in results)):
+                    fail(f"CLI {name} on the trained checkpoints: {results}")
+                print(f"CLI {name} on the flows, ratio net and classifiers "
+                      f"the train CLIs wrote (EMA weights; none, mc_feng, "
+                      f"mc_feng+grad at γ in (0, {GAMMA}), {B_MAIN // 2} "
+                      f"pairs, 20 steps, bf16, --fid): {cli_s:.1f} s wall; "
+                      + ", ".join(f"{r['method']}@{r['guidance_strength']} "
+                                  f"coherence {r['coherence_acc']:.3f} FID "
+                                  f"{r[fid_key]:.2f}" for r in results)
+                      + f"  [{smi}]")
+                details["trained_chain"][name] = dict(seconds=cli_s,
+                                                      results=results)
         finally:
             os.chdir(cwd)
             if synth_n is None:

@@ -1,7 +1,7 @@
 """Shared CLI plumbing (port of the parts of cli/common.py the sampler,
 evaluation and train CLIs need): flag groups, the train CLIs' runtime set-up
-and refusals, model factory, checkpoint names and loading, NHWC closures
-over the NCHW models, diagnostics."""
+and refusals, the ratio train CLIs' body, model factory, checkpoint names
+and loading, NHWC closures over the NCHW models, diagnostics."""
 from __future__ import annotations
 
 import argparse
@@ -12,12 +12,26 @@ import numpy as np
 import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.core.device import resolve_device
+from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
 from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNet
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (  # noqa: F401
     checkpoint_path,   # the CLIs take it from here
+    ema_checkpoint_path,
+    ema_state_dict,
     load_params,
+    save_checkpoint,
+)
+from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
+    epoch_data_iter,
+    finish_preemptible,
+    restore_preempt,
+    train_epochs,
+)
+from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+    create_ratio_state,
+    make_ratio_train_step,
 )
 _EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
                 "ratio_guided_multimodal_fm_tpu.cli.export_torch "
@@ -117,7 +131,7 @@ def add_ema_flag(p: argparse.ArgumentParser):
 
 
 def add_fused_flag(p: argparse.ArgumentParser):
-    """--fused_steps of the FM train CLIs: 1 only until the fused K-step
+    """--fused_steps of the train CLIs: 1 only until the fused K-step
     trainer is ported (init_runtime refuses more)."""
     p.add_argument("--fused_steps", type=int, default=1,
                    help="K optimizer steps per dispatch (JAX: one lax.scan "
@@ -151,6 +165,73 @@ def add_train_runtime_flags(p: argparse.ArgumentParser):
                    help="multi-process training: not yet ported (refused)")
     p.add_argument("--process_id", type=int, default=None,
                    help="multi-process training: not yet ported (refused)")
+
+
+def add_ratio_train_flags(p: argparse.ArgumentParser):
+    """The flags both ratio-net train CLIs share (JAX train_ratio.py and
+    train_ratio_mnist_svhn.py), with the train runtime and common flags."""
+    p.add_argument("--loss_type", type=str, default="disc",
+                   choices=["disc", "rulsif"])
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--batch_size", type=int, default=128)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--real_fake_ratio", type=float, default=0.5)
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="Maintain a Polyak (EMA) average of the ratio "
+                        "params; every best save writes a ratio_*_ema_best "
+                        "sibling (EMA params + the current BatchNorm "
+                        "statistics) loadable with --ratio_ema")
+    p.add_argument("--preempt_path", type=str, default=None,
+                   help="Preemption-safe training: on SIGTERM, save a "
+                        "step-granular resumable checkpoint here and exit; "
+                        "if it exists at startup, resume from it")
+    add_fused_flag(p)
+    add_fast_rng_flag(p)
+    add_train_runtime_flags(p)
+    add_common_flags(p)
+
+
+def run_ratio_training(args, model: torch.nn.Module, loader, device,
+                       ckpt_name, **loss_kwargs):
+    """The ratio train CLIs' body: clip(1.0)+Adam(--lr) with the optional
+    EMA, a preempted run restored, --epochs through the epoch driver
+    (patience 5, a periodic save every 10 epochs, early stopping on the
+    mean loss), the best and periodic weights written as bare
+    reference-layout state dicts `ckpt_name(part)` (with BatchNorm buffers)
+    and, with an EMA, the `_ema` sibling of the best (train/checkpoint.py:
+    ema_state_dict). Returns (state, best, history)."""
+    state = create_ratio_state(model, device, lr=args.lr,
+                               ema_decay=args.ema_decay)
+    print(f"Model parameters: {count_params(state.model):,}")
+    step = make_ratio_train_step(args.loss_type, ema_decay=args.ema_decay,
+                                 **loss_kwargs)
+    state, resume = restore_preempt(args.preempt_path, state)
+    if resume["start_epoch"] or resume["start_step"]:
+        print(f"Resuming preempted run: epoch {resume['start_epoch']}, "
+              f"step {resume['start_step']} "
+              f"(best {resume['start_best']:.4f})")
+
+    def save_best(s, epoch, best):
+        path = ckpt_name("best")
+        save_checkpoint(path, s.model.state_dict())
+        print(f"  -> Saved best model: {path}")
+        if s.ema is not None:
+            save_checkpoint(ema_checkpoint_path(path), ema_state_dict(s))
+            print(f"  -> Saved EMA model: {ema_checkpoint_path(path)}")
+
+    def save_periodic(s, epoch, best):
+        save_checkpoint(ckpt_name(f"epoch{epoch}"), s.model.state_dict())
+
+    state, best, history = train_epochs(
+        state, lambda s, b, g: step(s, b["x"], b["y"], b["is_real"], g),
+        epoch_data_iter(loader), args.epochs, RNG(args.seed + 1, device),
+        loss_key="loss", save_best_fn=save_best,
+        save_periodic_fn=save_periodic, save_every=10, patience=5,
+        preempt_path=args.preempt_path, **resume)
+    if not finish_preemptible(history, args.preempt_path):
+        print("\nTraining complete!")
+        print(f"Best loss: {best:.4f}")
+    return state, best, history
 
 
 def arm_preemption():

@@ -58,7 +58,10 @@ from ratio_guided_multimodal_fm_tpu_torch.eval.chunked import (
 from ratio_guided_multimodal_fm_tpu_torch.eval.coherence import (
     evaluate_coherence,
 )
-from ratio_guided_multimodal_fm_tpu_torch.eval.fid import compute_fid
+from ratio_guided_multimodal_fm_tpu_torch.eval.fid import (
+    compute_fid,
+    compute_inception_fid,
+)
 from ratio_guided_multimodal_fm_tpu_torch.models import MNISTClassifier
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
     GUIDANCE_METHODS,
@@ -106,6 +109,12 @@ def add_sweep_flags(parser: argparse.ArgumentParser):
                              "gamma*min(1, ESS/ess_floor)")
     add_mc_refresh_flag(parser)
     add_eval_flags(parser)
+    parser.add_argument("--inception_weights", type=str, default=None,
+                        help="Path to an Inception network (TorchScript or "
+                             "torchvision inception_v3 .pth) for true "
+                             "Inception-FID beside --fid's classifier-"
+                             "feature distance (eval/fid.py); none ships "
+                             "with the repository")
 
 
 def sweep_config(args, method: str, strength: float, x_shape, y_shape):
@@ -239,6 +248,10 @@ def main(argv=None):
                 # Inception-FID (eval/fid.py)
                 result["classifier_fid_x"] = compute_fid(
                     clf, real_images, samples_x.cpu().numpy())
+                if args.inception_weights:
+                    result["inception_fid_x"] = compute_inception_fid(
+                        real_images, samples_x, args.inception_weights,
+                        device=device)
             if args.save_samples:
                 os.makedirs("outputs", exist_ok=True)
                 np.savez_compressed(

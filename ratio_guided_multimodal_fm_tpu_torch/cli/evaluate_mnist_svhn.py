@@ -48,7 +48,10 @@ from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
 from ratio_guided_multimodal_fm_tpu_torch.eval.coherence import (
     evaluate_coherence_dual,
 )
-from ratio_guided_multimodal_fm_tpu_torch.eval.fid import compute_fid
+from ratio_guided_multimodal_fm_tpu_torch.eval.fid import (
+    compute_fid,
+    compute_inception_fid,
+)
 from ratio_guided_multimodal_fm_tpu_torch.models import (
     MNISTClassifier32,
     SVHNClassifier,
@@ -108,6 +111,10 @@ def main(argv=None):
                 # classifier-feature Frechet distance, not Inception-FID
                 result["classifier_fid_mnist"] = compute_fid(
                     clf_m, real_m, samples_x.cpu().numpy())
+                if args.inception_weights:
+                    result["inception_fid_mnist"] = compute_inception_fid(
+                        real_m, samples_x, args.inception_weights,
+                        device=device)
             results.append(result)
             print(f"  -> Coherence accuracy: {metrics['coherence_acc']:.3f}")
 

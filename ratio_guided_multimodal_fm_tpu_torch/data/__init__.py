@@ -2,9 +2,12 @@
 (the JAX package's `__init__` imports jax, so the port keeps its own)."""
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     get_classifier_dataloader,
+    get_ratio_dataloader,
 )
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
     get_mnist32_flow_dataloader,
+    get_mnist_svhn_dataloader,
+    get_mnist_svhn_ratio_dataloader,
     get_svhn_flow_dataloader,
 )
 from ratio_guided_multimodal_fm_tpu_torch.data.sources import (
@@ -18,5 +21,7 @@ from ratio_guided_multimodal_fm_tpu_torch.data.transforms import (
 )
 
 __all__ = ["TRANSFORM_NAMES", "apply_transform", "get_classifier_dataloader",
-           "get_mnist32_flow_dataloader", "get_svhn_flow_dataloader",
-           "inverse_transform", "load_mnist", "load_svhn"]
+           "get_mnist32_flow_dataloader", "get_mnist_svhn_dataloader",
+           "get_mnist_svhn_ratio_dataloader", "get_ratio_dataloader",
+           "get_svhn_flow_dataloader", "inverse_transform", "load_mnist",
+           "load_svhn"]

@@ -1,7 +1,7 @@
 """Experiment-1 data (port of the parts of data/mnist_dataset.py that the
 training, sampling and evaluation CLIs read): the epoch loader, the flow
-batches of MNIST-28 and of its transformed twin, and the classifier
-batches. The batch order is numpy's, the same as the JAX package's for the
+batches of MNIST-28 and of its transformed twin, the ratio (real/fake
+pair) batches and the classifier batches. The batch order is numpy's, the same as the JAX package's for the
 same seed; with a `device`, the dataset lives there as one tensor and the
 batches are gathered there (data/pipeline.py)."""
 from __future__ import annotations
@@ -11,8 +11,10 @@ from typing import Optional
 import numpy as np
 
 from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+    Pairing,
     _epoch_order,
     gather,
+    ratio_batches,
     to_device,
     to_unit_range,
 )
@@ -82,18 +84,40 @@ def get_flow_dataset(transform_type: Optional[str] = None,
     return to_device(y, device)
 
 
-def get_classifier_dataloader(batch_size: int = 128, train: bool = True,
-                              root: str = "./data",
-                              seed: int = 0) -> _EpochLoader:
-    """Plain (image, label) batches for the MNIST-28 eval classifier."""
+def get_ratio_dataloader(transform_type: str = "rotate90",
+                         batch_size: int = 128, real_fake_ratio: float = 0.5,
+                         train: bool = True, root: str = "./data",
+                         seed: int = 0, device=None) -> _EpochLoader:
+    """Ratio batches {'x', 'y', 'is_real', 'label_x', 'label_y'}: x an
+    MNIST-28 image, y = T(a same-label image) for a real pair and T(a
+    different-label image) for a fake one (JAX get_ratio_dataloader; per
+    batch the draws are rand, same_label, different_label, as
+    pipeline.ratio_batches draws them). With `device`, both modalities live
+    there and the batches are gathered there."""
     imgs_u8, labels = load_mnist(root, train)
     x = to_unit_range(imgs_u8)
-    n_batches = len(x) // batch_size
+    y_all = to_device(np.ascontiguousarray(apply_transform(transform_type,
+                                                           x)), device)
+    x = to_device(x, device)
+    pairing = Pairing(labels)
 
     def make_iter(rng):
-        order = rng.permutation(len(x)) if train else np.arange(len(x))
-        for b in range(n_batches):
-            idx = order[b * batch_size:(b + 1) * batch_size]
-            yield {"x": x[idx], "label": labels[idx]}
+        return ratio_batches(x, labels, y_all, pairing, batch_size, rng,
+                             real_fake_ratio=real_fake_ratio, shuffle=train)
 
-    return _EpochLoader(make_iter, n_batches, seed)
+    return _EpochLoader(make_iter, len(labels) // batch_size, seed)
+
+
+def get_classifier_dataloader(batch_size: int = 128, train: bool = True,
+                              root: str = "./data", seed: int = 0,
+                              device=None) -> _EpochLoader:
+    """Plain {'x', 'label'} batches for the MNIST-28 eval classifier; with
+    `device`, the images live there and the batches are gathered there."""
+    imgs_u8, labels = load_mnist(root, train)
+    x = to_device(to_unit_range(imgs_u8), device)
+
+    def make_iter(rng):
+        for idx in _epoch_order(len(labels), batch_size, train, rng):
+            yield {"x": gather(x, idx), "label": labels[idx]}
+
+    return _EpochLoader(make_iter, len(labels) // batch_size, seed)

@@ -1,6 +1,9 @@
-"""Experiment-2 data (the part of data/mnist_svhn.py that the training and
-evaluation CLIs read): MNIST resized 28 → 32 and SVHN, both in [-1, 1],
-in the JAX package's batch order for the same seed; numpy batches, or
+"""Experiment-2 data (port of data/mnist_svhn.py's loaders): MNIST
+resized 28 → 32 and SVHN, both in [-1, 1]; label-aligned pairs with a
+fresh same-label SVHN partner per epoch (D1), ratio batches with
+Bernoulli real/fake and different-label fakes (D2), and the SVHN-only and
+MNIST-32-only flow loaders (D3/D4), in the JAX package's batch order and
+pairings for the same seed; numpy batches, or
 with a `device` batches gathered there from the dataset held there as one
 tensor (data/pipeline.py)."""
 from __future__ import annotations
@@ -9,7 +12,10 @@ from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     _EpochLoader,
 )
 from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
+    Pairing,
     flow_batches,
+    paired_batches,
+    ratio_batches,
     to_device,
     to_unit_range,
 )
@@ -36,6 +42,42 @@ def _svhn(root, train):
         imgs, labels = load_svhn(root, train)
         _CACHE[key] = (to_unit_range(imgs), labels)
     return _CACHE[key]
+
+
+def get_mnist_svhn_dataloader(batch_size: int = 128, train: bool = True,
+                              root: str = "./data", seed: int = 0,
+                              device=None, **_ignored) -> _EpochLoader:
+    """Batches {'x': [B,32,32,1], 'y': [B,32,32,3], 'label': [B]}: each
+    MNIST-32 image with a same-label SVHN image."""
+    x, xl = _mnist32(root, train)
+    y, yl = _svhn(root, train)
+    xd, yd = to_device(x, device), to_device(y, device)
+    pairing = Pairing(yl)
+
+    def make_iter(rng):
+        return paired_batches(xd, xl, yd, pairing, batch_size, rng,
+                              shuffle=train)
+
+    return _EpochLoader(make_iter, len(x) // batch_size, seed)
+
+
+def get_mnist_svhn_ratio_dataloader(batch_size: int = 128,
+                                    real_fake_ratio: float = 0.5,
+                                    train: bool = True, root: str = "./data",
+                                    seed: int = 0, device=None,
+                                    **_ignored) -> _EpochLoader:
+    """Ratio batches {'x', 'y', 'is_real', 'label_x', 'label_y'} of
+    MNIST-32 / SVHN pairs (pipeline.ratio_batches)."""
+    x, xl = _mnist32(root, train)
+    y, yl = _svhn(root, train)
+    xd, yd = to_device(x, device), to_device(y, device)
+    pairing = Pairing(yl)
+
+    def make_iter(rng):
+        return ratio_batches(xd, xl, yd, pairing, batch_size, rng,
+                             real_fake_ratio=real_fake_ratio, shuffle=train)
+
+    return _EpochLoader(make_iter, len(x) // batch_size, seed)
 
 
 def get_svhn_flow_dataloader(batch_size: int = 128, train: bool = True,

@@ -9,8 +9,8 @@
 * `RatioEstimatorMNISTSVHN` (experiment 2): asymmetric BatchNorm conv
   encoders and a deep score MLP, 3,327,617 params, keys of
   `export_ratio_mnist_svhn` (including BatchNorm running stats and
-  `num_batches_tracked`). Evaluation only: BatchNorm always normalises
-  with its running statistics (training is a later slice of the port).
+  `num_batches_tracked`). Its BatchNorm has flax's semantics: batch
+  statistics in train mode, running statistics in eval mode.
 
 Score is terminal-time only (t=1). `log_ratio` follows the training loss:
   disc:   log r̂ = T
@@ -40,17 +40,36 @@ def log_ratio_from_scores(scores: torch.Tensor, loss_type: str) -> torch.Tensor:
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """Eval-mode BatchNorm (eps 1e-5 as in both frameworks): float32
-    (x − mean)·rsqrt(var + eps)·scale + bias, cast to the compute dtype."""
+    """BatchNorm with flax's semantics (`nn.BatchNorm(momentum=0.9)`, eps
+    1e-5 as in both frameworks), in float32, output in the compute dtype:
+    (x − mean)·rsqrt(var + eps)·scale + bias.
+
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch's mean and biased variance over (N, H, W), computed as
+    flax computes them (E[x²] − E[x]², clamped at 0), and then, outside
+    autograd, running = 0.9·running + 0.1·batch with the biased variance
+    (torch's own BatchNorm would feed the unbiased one) and
+    `num_batches_tracked` counts the step."""
 
     def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
         super().__init__(ch, eps=1e-5)
         self.dtype = dtype
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = ((x.to(torch.float32) - self.running_mean[None, :, None, None])
-             * mul[None, :, None, None] + self.bias[None, :, None, None])
+        xf = x.to(torch.float32)
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                for run, new in ((self.running_mean, mean),
+                                 (self.running_var, var)):
+                    run.copy_(0.9 * run + 0.1 * new)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = ((xf - mean[None, :, None, None]) * mul[None, :, None, None]
+             + self.bias[None, :, None, None])
         return y.to(self.dtype)
 
 

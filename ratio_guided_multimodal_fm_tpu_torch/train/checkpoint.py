@@ -2,7 +2,8 @@
 train/checkpoint.py; the JAX package writes Orbax directories).
 
 * a bare state dict (the EMA weights, experiment 1's best and periodic
-  saves), or
+  saves, the ratio nets and classifiers with their BatchNorm buffers; a
+  BatchNorm net's EMA file is `ema_state_dict`), or
 * a resumable training dict {'model_state_dict', 'optimizer_state_dict',
   'epoch', 'best_loss'} (ref train_flow_svhn.py:165-170),
 
@@ -86,6 +87,17 @@ def save_train_checkpoint(path: str, state, epoch: int,
         "epoch": int(epoch),
         "best_loss": float(best_loss),
     })
+
+
+def ema_state_dict(state) -> dict:
+    """The EMA sibling of `state.model` as a full reference-layout state
+    dict: the EMA parameters with the model's *current* buffers (BatchNorm
+    running statistics and `num_batches_tracked`), as the JAX CLIs pair
+    `ema_params` with the current `batch_stats` (the running averages are
+    already an EMA of the activation moments). For a net without buffers
+    it is the EMA alone. A strict `load_state_dict` takes it."""
+    return {k: state.ema.get(k, v)
+            for k, v in state.model.state_dict().items()}
 
 
 def load_params(path: str, model: torch.nn.Module) -> torch.nn.Module:

@@ -7,10 +7,11 @@ save_every periodic saves, stop after `patience` non-improving epochs).
 flow wrapper that experiment 1's train CLI uses. The JAX driver's
 `metrics_logger` waits for core/observability.py (not ported yet).
 
-Losses stay on the device until the epoch ends (or a preemption saves),
-then are summed in float64 on the host: one synchronisation per epoch,
-none per step. float32 losses of a few thousand steps sum exactly in
-float64, so a resumed epoch's sum (carried part + the rest) equals the
+Step outputs (a scalar loss, or a metrics dict of scalars for the ratio
+steps) stay on the device until the epoch ends (or a preemption saves),
+then are summed per key in float64 on the host: one synchronisation per
+epoch, none per step. float32 values of a few thousand steps sum exactly
+in float64, so a resumed epoch's sums (carried part + the rest) equal the
 uninterrupted one's.
 """
 from __future__ import annotations
@@ -119,17 +120,37 @@ def epoch_data_iter(loader, extract: Callable = lambda b: b):
     return data_iter
 
 
-def _loss_sum(outs) -> float:
-    """The float64 host sum of the step losses so far."""
-    return float(torch.stack(outs).double().sum()) if outs else 0.0
+def _sums(outs, loss_key: Optional[str]) -> dict:
+    """Per-key float64 host sums of the step outputs so far (one
+    synchronisation): {'loss': Σ} for scalar losses, else one sum per key
+    of the metrics dicts."""
+    if not outs:
+        return {}
+    if loss_key is None:
+        return {"loss": float(torch.stack(outs).double().sum())}
+    keys = list(outs[0])
+    tot = torch.stack([torch.stack([o[k] for k in keys])
+                       for o in outs]).double().sum(0).tolist()
+    return dict(zip(keys, tot))
+
+
+def _add(sums: dict, carry: dict) -> dict:
+    """`sums` plus the sums carried over a preemption, key by key."""
+    out = dict(sums)
+    for k, v in carry.items():
+        out[k] = out.get(k, 0.0) + v
+    return out
 
 
 def train_epochs(
     state,
-    train_step: Callable,              # (state, batch, generator) -> loss
+    train_step: Callable,              # (state, batch, generator) -> out
     data_iter_fn: Callable,            # (epoch[, skip]) -> batches
     epochs: int,
     rng: RNG,
+    loss_key: Optional[str] = None,    # None: out is a scalar loss; else
+                                       # out is a metrics dict and
+                                       # out[loss_key] drives early stopping
     save_best_fn: Optional[Callable] = None,      # (state, epoch, best)
     save_periodic_fn: Optional[Callable] = None,  # (state, epoch, best)
     save_every: int = 10,
@@ -143,14 +164,15 @@ def train_epochs(
     start_partial_sums: Optional[dict] = None,
     start_partial_count: int = 0,
 ):
-    """Training driver over scalar-loss steps (the JAX driver's metrics-dict
-    steps arrive with ratio-net training). Returns (state, best_loss,
-    history).
+    """Training driver over scalar-loss steps (`loss_key` None) or
+    metrics-dict steps (the ratio nets, `loss_key='loss'`). Returns (state,
+    best_loss, history); history rows hold the epoch's mean of every key.
 
     Preemption-safe: SIGTERM sets a flag (train/preemption.py); the driver
     finishes the in-flight step, saves {model_state_dict,
     optimizer_state_dict, ema?, epoch, step, best_loss, patience_counter,
-    partial_sums, partial_count} to `preempt_path` and returns with
+    partial_sums, partial_count} to `preempt_path` (the state dict carries
+    BatchNorm buffers, the partial sums every key) and returns with
     history[-1]["preempted"] = True. `restore_preempt` restores the state
     and gives the start_* kwargs. The early-stop state and the partial
     epoch's loss sums survive the restart, so the best-checkpoint and
@@ -189,8 +211,7 @@ def train_epochs(
             outs = []
             restarting = epoch == start_epoch
             skip = start_step if restarting else 0
-            carry_loss = ((start_partial_sums or {}).get("loss", 0.0)
-                          if restarting else 0.0)
+            carry = dict(start_partial_sums or {}) if restarting else {}
             carry_n = start_partial_count if restarting else 0
             # iterators that take the skip count do not extract the
             # skipped batches; plain (epoch)-only ones skip inline
@@ -206,9 +227,8 @@ def train_epochs(
                 outs.append(train_step(state, batch,
                                        rng.generator(epoch, step_i)))
                 if guard.preempted:
-                    _save_preempt(epoch, step_i + 1,
-                                  {"loss": _loss_sum(outs) + carry_loss},
-                                  len(outs) + carry_n)
+                    _save_preempt(epoch, step_i + 1, _add(_sums(
+                        outs, loss_key), carry), len(outs) + carry_n)
                     history.append({"epoch": epoch + 1,
                                     "preempted_at_step": step_i + 1,
                                     "preempted": True})
@@ -216,12 +236,19 @@ def train_epochs(
             n_steps = len(outs) + carry_n
             if not n_steps:
                 continue    # the epoch yielded no batch and carried none
-            # the sum synchronises the device, so the rate is the card's
-            avg_loss = (_loss_sum(outs) + carry_loss) / n_steps
+            # the sums synchronise the device, so the rate is the card's
+            totals = _add(_sums(outs, loss_key), carry)
             steps_per_sec = len(outs) / max(time.time() - t0, 1e-9)
-            log_fn(f"Epoch {epoch+1}/{epochs} - Loss: {avg_loss:.4f} "
-                   f"({steps_per_sec:.1f} steps/s)")
-            history.append({"epoch": epoch + 1, "loss": avg_loss,
+            avg = {k: v / n_steps for k, v in totals.items()}
+            avg_loss = avg[loss_key or "loss"]
+            if loss_key is None:
+                log_fn(f"Epoch {epoch+1}/{epochs} - Loss: {avg_loss:.4f} "
+                       f"({steps_per_sec:.1f} steps/s)")
+            else:
+                log_fn(f"Epoch {epoch+1}/{epochs} - " + " - ".join(
+                    f"{k}: {v:.4f}" for k, v in avg.items())
+                    + f" ({steps_per_sec:.1f} steps/s)")
+            history.append({"epoch": epoch + 1, **avg,
                             "steps_per_sec": steps_per_sec})
             if stopper.update(avg_loss) and save_best_fn:
                 save_best_fn(state, epoch + 1, stopper.best)

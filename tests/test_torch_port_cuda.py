@@ -331,10 +331,13 @@ TRAIN_GN = [(32, 16), (32, 32), (64, 16), (64, 32), (96, 16), (96, 32),
             (128, 8), (128, 16), (128, 32), (192, 16), (192, 32), (256, 8),
             (256, 16), (32, 14), (32, 28), (64, 14), (64, 28), (96, 14),
             (96, 28), (128, 14)]
+# the experiment-1 ratio net's sites not among them (its 28 and 14 px sites
+# are); at B = 128 / 127 their plans hold one sample a CTA
+RATIO_TRAIN_GN = [(128, 7), (128, 3)]
 
 
 @pytest.mark.parametrize("B", [128, 127])
-@pytest.mark.parametrize("C,H", TRAIN_GN)
+@pytest.mark.parametrize("C,H", TRAIN_GN + RATIO_TRAIN_GN)
 def test_group_norm_silu_at_the_training_shapes(card, B, C, H):
     """What a train step runs at every GN site: the forward with its saved
     statistics (equal to the plain version's), then the backward with dγ and

@@ -77,9 +77,13 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
         resblock_kernel_bench,
         sample,
         sample_mnist_svhn,
+        train_classifier,
+        train_classifiers_mnist_svhn,
         train_flow,
         train_flow_mnist32,
         train_flow_svhn,
+        train_ratio,
+        train_ratio_mnist_svhn,
     )
     from ratio_guided_multimodal_fm_tpu_torch.core.device import (
         resolve_device,
@@ -100,6 +104,10 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: train_flow.main(["--modality", "x"]),
                  lambda: train_flow_mnist32.main([]),
                  lambda: train_flow_svhn.main([]),
+                 lambda: train_ratio.main([]),
+                 lambda: train_ratio_mnist_svhn.main([]),
+                 lambda: train_classifier.main([]),
+                 lambda: train_classifiers_mnist_svhn.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y)):
         with pytest.raises(RuntimeError, match="no CUDA device"):

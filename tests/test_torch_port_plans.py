@@ -338,6 +338,48 @@ def test_gn_plans_at_the_training_shapes(B, C, H, channels_last):
         assert plan.staged
 
 
+# The ratio-net trainer (experiment 1's RatioEstimatorMNIST, float32, B =
+# 128 and 127): conv3x3 -> GN(8)+SiLU at 28, 14, 7 and 3 px in each encoder
+RATIO_TRAIN_GN_CASES = sorted({(B, C, H) for C, H in ((32, 28), (64, 14),
+                                                      (128, 7), (128, 3))
+                               for B in (128, 127)})
+
+
+def test_ratio_training_gn_shapes_match_the_model():
+    """The experiment-1 ratio net runs 8 GN sites, 2 at each (C, H) of the
+    ratio training cases."""
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNIST,
+    )
+
+    seen = []
+    net = RatioEstimatorMNIST()
+    for m in net.modules():
+        if isinstance(m, GroupNormSiLU):
+            m.register_forward_pre_hook(
+                lambda m, a: seen.append(tuple(a[0].shape[1:3])))
+    with torch.no_grad():
+        net(torch.zeros(1, 1, 28, 28), torch.zeros(1, 1, 28, 28))
+    assert sorted(seen) == sorted(2 * [(C, H) for B, C, H
+                                       in RATIO_TRAIN_GN_CASES if B == 128])
+
+
+@pytest.mark.parametrize("channels_last", [True, False])
+@pytest.mark.parametrize("B,C,H", RATIO_TRAIN_GN_CASES)
+def test_gn_plans_at_the_ratio_training_shapes(B, C, H, channels_last):
+    """Forward and backward plans (dx and the per-CTA dγ/dβ partials) cover
+    every sample, channel and pixel once at the ratio trainer's shapes. At
+    B = 128 / 127 every CTA holds one sample (at B = 512 the 3x3 site takes
+    two, test_gn_backward_plan_at_the_ratio_net), so each CTA's dγ/dβ
+    partial covers one sample or a slice of one."""
+    _check_gn_plan(gn_plan(B, C, H, H, 8, 4, channels_last), B, C, H,
+                   channels_last)
+    plan = gn_backward_plan(B, C, H, H, 8, 4, channels_last)
+    _check_gn_plan(plan, B, C, H, channels_last)
+    if channels_last:
+        assert plan.samples_per_cta == 1
+
+
 def test_gn_plan_main_shape_is_staged_in_a_cluster():
     """512x64x32x32 bf16 (128 KiB a sample): two CTAs of a cluster split
     each sample, both slices bulk-copied into shared memory; the 384 KiB
