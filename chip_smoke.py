@@ -41,6 +41,9 @@ which fails the script (non-zero exit) on error:
 4. checks each experiment's full-width sampler on the card against the
    same sampler on the CPU (plain versions) on a small input, with mc_feng,
    grad and mc_feng+grad guidance;
+4s. the same for SMC (sample/smc.py), both experiments: float32 nets, B=8,
+   islands of 4, γ=1, 10 steps, the same injected draws; x1, y1 within 1e-3
+   and every resampling decision equal;
 5. drives the main path once with the launch counters set to 0: random-init
    FlowMatchingUNetMNIST(32) + FlowMatchingUNetSVHN + RatioEstimatorMNISTSVHN,
    bf16 activations, B=512 pairs, N_mc=256, --steps Euler steps (default
@@ -54,6 +57,14 @@ which fails the script (non-zero exit) on error:
    net's forward and the backward kernel at each of its 8 GN sites every
    step) and experiment 2 with grad (its BatchNorm ratio net runs no GN
    kernel);
+5s. SMC at full width on both experiments (phase 5's and 5e's nets, the
+   ratio net's last layer redrawn from a seed so that log r̂ varies: see
+   SMC_SCORE_STD), B=512, --steps Euler steps, γ=1, each experiment's CLI
+   defaults (islands of 8, tau 0.7 / 16, 0.5): launch counts as derived (no
+   flash_guidance; one GN launch per site of both U-Nets and the ratio net
+   a step), finite samples, 1 <= final ESS <= B, at least one resampling
+   event; one 10-step call under torch.cuda.set_sync_debug_mode("warn")
+   that fails on a synchronisation from sample/smc.py; a 5-step profile;
 5t. flow-matching training at full width (FlowMatchingUNetSVHN and
    FlowMatchingUNetMNIST(32), float32, B=128, Adam lr 1e-4, EMA 0.999):
    one step on the card against the same step on the CPU (B=4, dropout
@@ -76,6 +87,10 @@ which fails the script (non-zero exit) on error:
    counters set to 0 and held to 8 GN forward, 8 backward and 8 dγ/dβ
    launches per experiment-1 step and 0 per experiment-2 step; finite
    metrics, steps/s, pairs/s, peak memory and a 5-step profile;
+5f. reflow at full width: flow/reflow.py:generate_couplings with the SVHN
+   and MNIST-32 teachers (float32, batches of 512, 100 steps, 2 batches),
+   launches held to 100 × GN sites a batch, pairs/s; one reflow step on the
+   card against the CPU as in 5t, its launches one per GN site;
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -106,7 +121,17 @@ which fails the script (non-zero exit) on error:
    synthetic digits (--ema_decay 0.999 where the CLI has it), both sample
    CLIs with and without --ema --ratio_ema on the checkpoints they wrote,
    and both evaluate CLIs (none, mc_feng, mc_feng+grad, --fid, the EMA
-   weights) on those checkpoints alone.
+   weights) on those checkpoints alone; then cli/reflow.py on those flows
+   (x, y, mnist32, svhn: 1024 pairs, 20-step teacher, 1 epoch), both sample
+   CLIs with --reflow --num_steps 8 and with --guidance_method smc, and both
+   evaluate CLIs with smc;
+7v. cli/serve.py's SamplerService and handler in-process on a thread
+   (experiment 2 on phase 7's checkpoints, batch 64, 100 steps): /healthz
+   and 8 concurrent POSTs mixing none, mc_feng and smc (shapes, finite
+   values, fewer dispatches than requests, a repeated seed's samples equal),
+   p50 / p90 latency and samples/s.
+
+Every phase prints its wall time (`phase ...: N s wall`).
 
 The line before the last is the `kernels` JSON; the card's name and power
 limit are printed before it, and before that a `details` JSON line (shapes
@@ -388,10 +413,11 @@ def profile_call(run, steps: int):
 
 
 def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
-                  y_shape, steps, smi, method="mc_feng"):
+                  y_shape, steps, smi, method="mc_feng", gamma=GAMMA):
     """One counted sampler call: every launch counter set to 0 just before,
     read just after and held to `expected`; finite samples of the right
-    shape and, where the method mixes in mc_feng, 1 <= ESS <= N_mc.
+    shape and, where the method mixes in mc_feng, 1 <= ESS <= N_mc; with
+    smc, 1 <= final ESS <= B and at least one resampling event.
     Returns the record."""
     import torch
 
@@ -436,17 +462,32 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
             fail(f"{name}: ESS outside [1, {N_MC}]: [{float(ess.min())}, "
                  f"{float(ess.max())}]")
         ess_txt = f"ESS [{float(ess.min()):.3f}, {float(ess.max()):.3f}]"
+    elif method == "smc":
+        final_ess, events = float(diags["final_ess"]), float(
+            diags["resampled"].sum())
+        if not 1.0 - 1e-4 <= final_ess <= B_MAIN * (1 + 1e-4):
+            fail(f"{name}: final ESS {final_ess} outside [1, {B_MAIN}]")
+        if not events > 0.0:
+            fail(f"{name}: no resampling event in {steps} steps")
+        ess_txt = (f"final ESS {final_ess:.1f}, {events:.3f} resampling "
+                   "events (sum over steps of the islands' share)")
     elif diags:
         fail(f"{name}: {method} returned diagnostics {sorted(diags)}")
     sps = B_MAIN / dev_s
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{name}: B={B_MAIN} N_mc={N_MC} steps={steps} bf16 "
-          f"{method} γ={GAMMA}: {dev_s:.3f} s on the card (CUDA events), "
+    print(f"{name}: B={B_MAIN} "
+          + (f"N_mc={N_MC} " if "mc_feng" in method else "")
+          + f"steps={steps} bf16 "
+          f"{method} γ={gamma}: {dev_s:.3f} s on the card (CUDA events), "
           f"{wall_s:.3f} s wall -> {sps:.1f} samples/s; peak mem "
           f"{peak_gib:.2f} GiB; launches {counts}; {ess_txt}  [{smi}]")
-    return dict(batch=B_MAIN, n_mc=N_MC, steps=steps, method=method,
-                seconds_device=dev_s, seconds_wall=wall_s, samples_per_s=sps,
-                peak_mem_gib=peak_gib, launches=counts)
+    rec = dict(batch=B_MAIN, n_mc=N_MC, steps=steps, method=method,
+               seconds_device=dev_s, seconds_wall=wall_s, samples_per_s=sps,
+               peak_mem_gib=peak_gib, launches=counts)
+    if method == "smc":
+        rec.update(final_ess=final_ess, resampling_events=events,
+                   resampled_per_step=diags["resampled"].tolist())
+    return rec
 
 
 def _train_net(make_net, seed: int, dropout: bool = True):
@@ -475,7 +516,7 @@ def _within(a, b, name):
     return err / bound
 
 
-def train_step_card_vs_cpu(name, make_net, shape, dev):
+def train_step_card_vs_cpu(name, make_net, shape, dev, reflow=False):
     """One train step (B=4, dropout off, Adam lr 1e-4, EMA 0.999) from the
     same weights and the same injected x_0 and t, on the card and on the
     CPU (plain GN versions): the loss within rtol 1e-4 and each gradient
@@ -483,60 +524,97 @@ def train_step_card_vs_cpu(name, make_net, shape, dev):
     held, within the same bound, to the CPU's update from the card's own
     gradients: the first Adam step divides each gradient element by its
     own size, so an element near eps = 1e-8 whose float32 rounding differs
-    between the two runs moves its update by up to lr (PERF.md)."""
+    between the two runs moves its update by up to lr (PERF.md). With
+    `reflow` it is the reflow step (flow/reflow.py: the coupling (x_0, x_1)
+    as data, no EMA), and the card step's launches are held to one GN
+    forward, backward and dγ/dβ per GN site."""
     import copy
 
     import torch
 
+    from ratio_guided_multimodal_fm_tpu_torch.flow.reflow import (
+        make_reflow_train_step,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        group_norm_silu,
+        group_norm_silu_backward,
+    )
     from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
         create_fm_state,
         make_fm_train_step,
         update_ema,
     )
 
+    what = "reflow" if reflow else "training"
+    ema_decay = None if reflow else EMA_DECAY
     net0 = _train_net(make_net, 30, dropout=False)
     g = torch.Generator().manual_seed(31)
     x1, x0 = (torch.randn((4,) + shape, generator=g) for _ in range(2))
     t = torch.rand(4, generator=g)
     cpu = torch.device("cpu")
     out = []
+    launches = None
     for d in (dev, cpu):
         st = create_fm_state(copy.deepcopy(net0), d, lr=LR,
-                             ema_decay=EMA_DECAY)
-        loss = make_fm_train_step(EMA_DECAY)(st, x1.to(d), t=t.to(d),
-                                             x0=x0.to(d))
+                             ema_decay=ema_decay)
+        if reflow:
+            torch.cuda.synchronize()
+            group_norm_silu.launches = group_norm_silu_backward.launches = 0
+            group_norm_silu_backward.weight_grad_launches = 0
+            loss = make_reflow_train_step()(st, x0.to(d), x1.to(d), t=t.to(d))
+            if d == dev:
+                launches = {
+                    "group_norm_silu": group_norm_silu.launches,
+                    "group_norm_silu_backward":
+                        group_norm_silu_backward.launches,
+                    "group_norm_silu_backward (dγ/dβ)":
+                        group_norm_silu_backward.weight_grad_launches}
+        else:
+            loss = make_fm_train_step(EMA_DECAY)(st, x1.to(d), t=t.to(d),
+                                                 x0=x0.to(d))
         out.append((float(loss), st))
     (lc, card), (lp, ref) = out
     if not abs(lc - lp) <= 1e-4 * abs(lp):
-        fail(f"training {name}: loss on the card {lc} != CPU {lp} (rtol "
+        fail(f"{what} {name}: loss on the card {lc} != CPU {lp} (rtol "
              "1e-4)")
+    if reflow:
+        sites = gn_sites(net0)
+        if set(launches.values()) != {sites}:
+            fail(f"reflow {name}: the card step's launches {launches} != "
+                 f"one per GN site ({sites})")
     rep = copy.deepcopy(net0)
-    again = create_fm_state(rep, cpu, lr=LR, ema_decay=EMA_DECAY)
+    again = create_fm_state(rep, cpu, lr=LR, ema_decay=ema_decay)
     card_p = dict(card.model.named_parameters())
     worst = {"grad": 0.0, "adam": 0.0, "ema": 0.0}
     for n, p in ref.model.named_parameters():
         worst["grad"] = max(worst["grad"], _within(
-            card_p[n].grad.cpu(), p.grad, f"training {name}: gradient {n}"))
+            card_p[n].grad.cpu(), p.grad, f"{what} {name}: gradient {n}"))
         dict(rep.named_parameters())[n].grad = card_p[n].grad.cpu()
     again.optimizer.step()
-    update_ema(again, EMA_DECAY)
+    if not reflow:
+        update_ema(again, EMA_DECAY)
     end_to_end = 0.0
     for n, p in again.model.named_parameters():
         worst["adam"] = max(worst["adam"], _within(
             card_p[n].detach().cpu(), p.detach(),
-            f"training {name}: post-Adam {n}"))
-        worst["ema"] = max(worst["ema"], _within(
-            card.ema[n].cpu(), again.ema[n], f"training {name}: EMA {n}"))
+            f"{what} {name}: post-Adam {n}"))
+        if not reflow:
+            worst["ema"] = max(worst["ema"], _within(
+                card.ema[n].cpu(), again.ema[n], f"training {name}: EMA {n}"))
         q = dict(ref.model.named_parameters())[n].detach()
         end_to_end = max(end_to_end, max_abs(card_p[n].detach().cpu(), q)
                          / (1e-4 * float(q.abs().max()) + 1e-6))
-    print(f"training {name}: one step card == CPU (B=4, dropout off): loss "
+    print(f"{what} {name}: one step card == CPU (B=4, dropout off): loss "
           f"{lc:.6f} / {lp:.6f}; worst gradient, post-Adam and EMA |Δ| as "
           f"a share of 1e-4·max|ref| + 1e-6: {worst['grad']:.3g}, "
           f"{worst['adam']:.3g}, {worst['ema']:.3g} (post-Adam against the "
-          f"CPU's own step, not held: {end_to_end:.3g})")
-    return dict(card_vs_cpu=dict(loss_card=lc, loss_cpu=lp, **worst,
-                                 post_adam_vs_cpu_step=end_to_end))
+          f"CPU's own step, not held: {end_to_end:.3g})"
+          + (f"; card launches {launches}" if reflow else ""))
+    rec = dict(card_vs_cpu=dict(loss_card=lc, loss_cpu=lp, **worst,
+                                post_adam_vs_cpu_step=end_to_end))
+    if reflow:
+        rec["launches"] = launches
+    return rec
 
 
 def counted_training(name, state, step, loader, extract, batches, steps,
@@ -854,6 +932,400 @@ def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
                                  lambda r, x, y: ratio_log_fn(r)(x, y))
 
 
+# SMC needs a ratio net whose log r̂ varies across pairs: the random-init
+# nets give a nearly constant one (std 0.003 / 0.05 over noise pairs for
+# experiments 2 / 1), on which selection never fires. The SMC phases redraw
+# the score MLP's last Linear from a seed with these stds (log r̂ std about
+# 1.2 / 0.7 over noise pairs).
+SMC_SCORE_STD = {"exp2": 15.0, "exp1": 1.0}
+SMC_GAMMA = 1.0
+
+
+def smc_ratio(ratio, std: float):
+    """A copy of `ratio` whose score MLP's last Linear is redrawn N(0, std²)
+    from a seed (bias 0)."""
+    import copy
+
+    import torch
+
+    net = copy.deepcopy(ratio)
+    last = net.score_net[-1]
+    g = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        last.weight.copy_(torch.randn(last.weight.shape, generator=g) * std)
+        last.bias.zero_()
+    return net
+
+
+def make_smc(cfg_kw):
+    """The SMC sampler over (model_x, model_y, ratio) at SMC_GAMMA."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
+        ratio_log_fn,
+        velocity_fn,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.sample.smc import (
+        SMCSamplerConfig,
+        make_smc_sampler_p,
+    )
+
+    cfg = SMCSamplerConfig(**{"guidance_strength": SMC_GAMMA, **cfg_kw})
+    return make_smc_sampler_p(lambda m, x, t: velocity_fn(m)(x, t),
+                              lambda m, y, t: velocity_fn(m)(y, t), cfg,
+                              lambda r, x, y: ratio_log_fn(r)(x, y))
+
+
+def smc_card_vs_cpu(name, make_models, std, x_shape, y_shape, dev):
+    """Phase 4s: SMC on the card against SMC on the CPU (plain versions),
+    full-width float32 nets, B=8, islands of 4, γ=1, 10 Euler steps, the
+    same injected draws: x1 and y1 within 1e-3 (phase 4's bound) and the
+    per-step `resampled` equal (a decision that flips on a float32 near-tie
+    is counted and fails the phase)."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
+
+    b, g, steps = 8, 4, 10
+    gen = torch.Generator().manual_seed(5)
+    init = (torch.randn((b,) + x_shape, generator=gen),
+            torch.randn((b,) + y_shape, generator=gen))
+    draws = [(torch.rand(b // g, generator=gen),
+              torch.randn((b,) + x_shape, generator=gen),
+              torch.randn((b,) + y_shape, generator=gen), [])
+             for _ in make_time_grid(steps)[0]]
+    sampler = make_smc(dict(num_steps=steps, x_shape=x_shape,
+                            y_shape=y_shape, resample_group=g))
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        fx, fy, r = make_models(torch.float32, d)
+        x1, y1, diags = sampler(
+            (fx, fy, smc_ratio(r, std)), torch.Generator(d).manual_seed(0),
+            b, init_noise=tuple(a.to(d) for a in init),
+            step_noise=[(u.to(d), nx.to(d), ny.to(d), m)
+                        for u, nx, ny, m in draws])
+        outs.append((x1.cpu(), y1.cpu(), diags["resampled"].cpu()))
+    (cx, cy, cr), (px, py, pr) = outs
+    flips = int((cr != pr).sum())
+    print(f"{name} SMC (f32, B={b}, islands of {g}, γ={SMC_GAMMA}, {steps} "
+          f"steps, injected draws): resampled per step card {cr.tolist()}, "
+          f"CPU {pr.tolist()}; {flips} decision(s) flipped")
+    if flips:
+        fail(f"{name} SMC: {flips} resampling decision(s) differ between the "
+             "card and the CPU")
+    if not float(pr.sum()) > 0:
+        fail(f"{name} SMC: no resampling event in the card-vs-CPU case")
+    for nm, a, bb in (("x1", cx, px), ("y1", cy, py)):
+        try:
+            torch.testing.assert_close(a, bb, rtol=1e-3, atol=1e-3)
+        except AssertionError as e:
+            fail(f"{name} SMC on the card != on the CPU ({nm})\n{e}")
+    err = max(max_abs(cx, px), max_abs(cy, py))
+    print(f"{name} SMC: card == CPU within 1e-3 (max |err| {err:.3g})")
+    return dict(resampled=pr.tolist(), flips=flips, max_abs_err=err)
+
+
+def sync_debug_smc(name, sampler, models, dev):
+    """One SMC call under torch.cuda.set_sync_debug_mode('warn'): fails if
+    any synchronising call was made from sample/smc.py's own lines; the
+    others (in the models or the kernel wrappers) are counted."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            sampler(models, torch.Generator(dev).manual_seed(6), B_MAIN)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    own = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs
+           if w.filename.endswith(os.path.join("sample", "smc.py"))]
+    others = sorted({f"{w.filename}:{w.lineno}" for w in syncs
+                     if not w.filename.endswith(os.path.join("sample",
+                                                             "smc.py"))})
+    print(f"{name}: sync-debug call (10 steps): {len(own)} synchronising "
+          f"calls from sample/smc.py, {len(syncs) - len(own)} elsewhere "
+          f"{others}")
+    if own:
+        fail(f"{name}: sample/smc.py synchronises with the device at {own}")
+    return dict(smc_py=len(own), elsewhere=len(syncs) - len(own),
+                sites=others)
+
+
+def run_couplings(name, make_net, shape, steps, batches, dev, smi):
+    """Phase 5f: generate_couplings with a full-width float32 teacher at
+    gen_batch_size B_MAIN, `steps` Euler steps, `batches` batches, the
+    launch counters at 0 just before and held to `steps` × GN sites per
+    batch; finite couplings; pairs/s and peak memory."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import velocity_fn
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
+    from ratio_guided_multimodal_fm_tpu_torch.flow.reflow import (
+        generate_couplings,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        flash_guidance,
+        fused_gn_silu_conv,
+        group_norm_silu,
+        group_norm_silu_backward,
+    )
+
+    net = place_model(_train_net(make_net, 60), dev)
+    sites = gn_sites(net)
+
+    def apply(m, x, t):
+        return velocity_fn(m)(x, t)
+
+    generate_couplings(apply, net, 0, B_MAIN, shape, num_steps=2,
+                       gen_batch_size=B_MAIN, device=dev)        # warm-up
+    wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
+                fused_gn_silu_conv)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers:
+        w.launches = 0
+    h0 = time.perf_counter()
+    x0, x1 = generate_couplings(apply, net, 1, batches * B_MAIN, shape,
+                                num_steps=steps, gen_batch_size=B_MAIN,
+                                device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - h0
+    counts = {w.__name__: w.launches for w in wrappers}
+    expected = {"flash_guidance": 0,
+                "group_norm_silu": batches * steps * sites,
+                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
+    if counts != expected:
+        fail(f"reflow couplings {name}: launch counts {counts} != derived "
+             f"{expected}")
+    if (tuple(x1.shape) != (batches * B_MAIN,) + shape
+            or not bool(torch.isfinite(x1).all())):
+        fail(f"reflow couplings {name}: non-finite or mis-shaped couplings")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pps = batches * B_MAIN / wall
+    print(f"reflow couplings {name}: {batches} batches of {B_MAIN}, {steps} "
+          f"Euler steps, f32 teacher: {wall:.3f} s wall -> {pps:.1f} pairs/s; "
+          f"peak mem {peak:.2f} GiB; launches {counts} ({sites} GN sites)  "
+          f"[{smi}]")
+    return dict(batches=batches, batch=B_MAIN, steps=steps, seconds=wall,
+                pairs_per_s=pps, peak_mem_gib=peak, gn_sites=sites,
+                launches=counts)
+
+
+def reflow_and_smc_clis(smi):
+    """Phase 7, after the train CLIs (in their directory): cli/reflow.py on
+    their flow checkpoints for experiment 1 (x and y) and experiment 2
+    (mnist32 and svhn) with --pairs 1024 --teacher_steps 20 --epochs 1;
+    both sample CLIs with --reflow --num_steps 8 and with --guidance_method
+    smc; both evaluate CLIs with smc in --guidance_methods."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        evaluate,
+        evaluate_mnist_svhn,
+        reflow,
+        sample,
+        sample_mnist_svhn,
+    )
+
+    rec = {}
+    for name, extra in (("x", ["--modality", "x"]),
+                        ("y", ["--modality", "y"]),
+                        ("mnist32", ["--experiment", "mnist_svhn", "--flow",
+                                     "mnist32"]),
+                        ("svhn", ["--experiment", "mnist_svhn", "--flow",
+                                  "svhn"])):
+        h0 = time.perf_counter()
+        best = reflow.main(["--pairs", "1024", "--teacher_steps", "20",
+                            "--epochs", "1"] + extra)
+        cli_s = time.perf_counter() - h0
+        if not np.isfinite(best):
+            fail(f"CLI reflow {name}: best loss {best}")
+        print(f"CLI reflow {name} (1024 pairs, 20-step teacher, 1 epoch of 8 "
+              f"steps at B=128): {cli_s:.1f} s wall, best loss {best:.4f}  "
+              f"[{smi}]")
+        rec[f"reflow {name}"] = dict(seconds=cli_s, loss=best)
+    written = sorted(f for f in os.listdir("checkpoints") if "reflow" in f)
+    want = sorted(f"flow_{m}_reflow_best.pth"
+                  for m in ("x", "y_rotate90", "mnist32", "svhn"))
+    if written != want:
+        fail(f"the reflow CLI wrote {written}, expected {want}")
+    for name, cli, flags, steps in (
+            ("sample_mnist_svhn", sample_mnist_svhn,
+             ["--reflow", "--guidance_method", "mc_feng"], 8),
+            ("sample", sample, ["--reflow", "--guidance_method", "mc_feng"],
+             8),
+            ("sample_mnist_svhn", sample_mnist_svhn,
+             ["--guidance_method", "smc"], 20),
+            ("sample", sample, ["--guidance_method", "smc"], 20)):
+        h0 = time.perf_counter()
+        sx, sy, diags = cli.main(["--num_samples", "64", "--num_steps",
+                                  str(steps), "--mc_batch_size", str(N_MC)]
+                                 + flags)
+        cli_s = time.perf_counter() - h0
+        key = "smc_ess" if "smc" in flags else "ess"
+        if not (bool(torch.isfinite(sx).all())
+                and bool(torch.isfinite(sy).all())
+                and len(diags[key]) == steps):
+            fail(f"CLI {name} {flags}: non-finite samples or a short trace")
+        extra = ""
+        if "smc" in flags:
+            fe = float(diags["final_ess"])
+            if not 1.0 - 1e-4 <= fe <= 64 * (1 + 1e-4):
+                fail(f"CLI {name} smc: final ESS {fe} outside [1, 64]")
+            extra = (f", final ESS {fe:.1f}, "
+                     f"{float(diags['resampled'].sum()):.3f} events")
+        print(f"CLI {name} {' '.join(flags)} (64 pairs, {steps} steps): "
+              f"{cli_s:.1f} s wall{extra}  [{smi}]")
+        rec[f"{name} {' '.join(flags)}"] = dict(seconds=cli_s)
+    smc_keys = {"smc_final_ess", "smc_resamples", "smc_churn",
+                "smc_resample_tau"}
+    for name, cli, tau in (("evaluate", evaluate, 0.5),
+                           ("evaluate_mnist_svhn", evaluate_mnist_svhn, 0.7)):
+        h0 = time.perf_counter()
+        results = cli.main(["--guidance_methods", "smc",
+                            "--guidance_strengths", "1.0", "--num_steps",
+                            "20", "--num_samples", str(B_MAIN // 2),
+                            "--fid", "--dtype", "bf16"])
+        cli_s = time.perf_counter() - h0
+        r = results[0] if len(results) == 1 else {}
+        nums = [r.get(k, float("nan")) for k in smc_keys | {"coherence_acc"}]
+        if (not smc_keys <= set(r) or not all(np.isfinite(nums))
+                or r["smc_resample_tau"] != tau or r["n_chunks"] != 1
+                or not 1.0 - 1e-4 <= r["smc_final_ess"] <= B_MAIN // 2):
+            fail(f"CLI {name} smc: {results}")
+        print(f"CLI {name} smc γ=1 ({B_MAIN // 2} pairs in one chunk, 20 "
+              f"steps, bf16, --fid): {cli_s:.1f} s wall; coherence "
+              f"{r['coherence_acc']:.3f}, final ESS {r['smc_final_ess']:.1f}, "
+              f"resamples {r['smc_resamples']:.3f}  [{smi}]")
+        rec[f"{name} smc"] = dict(seconds=cli_s, result=r)
+    return rec
+
+
+def serve_phase(smi):
+    """Phase 7v: cli/serve.py's SamplerService and handler in-process on a
+    thread (experiment 2 on the checkpoints under ./checkpoints, batch 64,
+    100 steps): /healthz, then 8 concurrent POSTs mixing none, mc_feng and
+    smc (16 pairs each; two mc_feng requests share a seed), holding shapes,
+    finite values, fewer dispatches than requests and identical samples for
+    the repeated seed; p50 / p90 latency and samples/s."""
+    import base64
+    import io
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli import serve
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        flash_guidance,
+        group_norm_silu,
+    )
+
+    h0 = time.perf_counter()
+    svc = serve.build_service(serve.make_parser().parse_args(
+        ["--batch_size", "64", "--num_steps", "100"]))
+    svc.warmup(("none", "mc_feng", "smc"))
+    setup_s = time.perf_counter() - h0
+    server = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(svc))
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok":
+            fail(f"serve: /healthz answered {health}")
+        # the first request occupies the dispatcher; the other seven queue
+        # behind it grouped by method, so same-method requests coalesce
+        reqs = ([("mc_feng", 0.5, 1)] + [("mc_feng", 0.5, s)
+                                         for s in (2, 1, 3)]
+                + [("none", 0.0, s) for s in (4, 5)]
+                + [("smc", 0.5, s) for s in (6, 7)])
+        results = [None] * len(reqs)
+        base = dict(svc.stats)
+        torch.cuda.synchronize()
+        flash_guidance.launches = group_norm_silu.launches = 0
+
+        def post(i):
+            method, strength, seed = reqs[i]
+            body = json.dumps({"num_samples": 16, "guidance_method": method,
+                               "guidance_strength": strength,
+                               "seed": seed}).encode()
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"{url}/sample", data=body, method="POST"),
+                        timeout=600) as r:
+                    out = json.loads(r.read())
+            except Exception as e:  # noqa: BLE001 — reported below
+                out = {"error": repr(e)}
+            results[i] = (time.perf_counter() - t0, out)
+
+        t_all = time.perf_counter()
+        threads = []
+        for i in range(len(reqs)):
+            threads.append(threading.Thread(target=post, args=(i,)))
+            threads[-1].start()
+            time.sleep(0.3 if i == 0 else 0.05)
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t_all
+        launches = {"flash_guidance": flash_guidance.launches,
+                    "group_norm_silu": group_norm_silu.launches}
+        if any(th.is_alive() for th in threads) or None in results:
+            fail("serve: a request did not finish")
+        samples = []
+        for (method, _, seed), (lat, out) in zip(reqs, results):
+            if "data_b64" not in out:
+                fail(f"serve: {method} seed {seed} failed: {out}")
+            z = np.load(io.BytesIO(base64.b64decode(out["data_b64"])))
+            if (z["x"].shape != (16, 32, 32, 1)
+                    or z["y"].shape != (16, 32, 32, 3)
+                    or not np.isfinite(z["x"]).all()
+                    or not np.isfinite(z["y"]).all()):
+                fail(f"serve: {method} seed {seed}: shapes {z['x'].shape}, "
+                     f"{z['y'].shape} or non-finite samples")
+            samples.append((z["x"], z["y"]))
+        d = svc.stats["dispatches"] - base["dispatches"]
+        n = svc.stats["requests"] - base["requests"]
+        if not (n == len(reqs) and d < n):
+            fail(f"serve: {d} dispatches for {n} requests (no coalescing)")
+        if not (np.array_equal(samples[0][0], samples[2][0])
+                and np.array_equal(samples[0][1], samples[2][1])):
+            fail("serve: two mc_feng requests with seed 1 gave different "
+                 "samples (max |Δ| "
+                 f"{np.abs(samples[0][0] - samples[2][0]).max():.3g})")
+        if launches["flash_guidance"] % 100 or not launches[
+                "flash_guidance"]:
+            fail(f"serve: flash_guidance launched "
+                 f"{launches['flash_guidance']} times, not 100 per mc_feng "
+                 "batch")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    lat = np.array([r[0] for r in results])
+    rec = dict(setup_s=setup_s, requests=len(reqs), dispatches=d,
+               coalesced_max=svc.stats["coalesced_max"],
+               latency_p50_s=float(np.percentile(lat, 50)),
+               latency_p90_s=float(np.percentile(lat, 90)),
+               seconds=wall, samples_per_s=16 * len(reqs) / wall,
+               launches=launches)
+    print(f"serve (experiment 2, batch 64, 100 steps, the phase-7 "
+          f"checkpoints): start-up and warm-up {setup_s:.1f} s; 8 concurrent "
+          f"POSTs of 16 pairs (mc_feng x4, none x2, smc x2) in {wall:.2f} s "
+          f"-> {rec['samples_per_s']:.1f} samples/s; latency p50 "
+          f"{rec['latency_p50_s']:.2f} s, p90 {rec['latency_p90_s']:.2f} s; "
+          f"{d} dispatches for 8 requests; repeated seed identical; "
+          f"launches {launches}  [{smi}]")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -916,7 +1388,15 @@ def main(argv=None) -> int:
         fail(f"the port package is not importable ({e}); run from the "
              "repository root")
     t_start = time.perf_counter()
-    details = {}
+    details = {"phase_s": {}}
+    t_phase = [t_start]
+
+    def mark(label):
+        """Print and record the wall time since the previous mark."""
+        now = time.perf_counter()
+        details["phase_s"][label] = now - t_phase[0]
+        print(f"phase {label}: {now - t_phase[0]:.1f} s wall")
+        t_phase[0] = now
 
     # 1. versions and the card
     dev = resolve_device("cuda")       # pins float32 (no TF32)
@@ -941,6 +1421,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
     details["build_s"] = time.perf_counter() - t0
+    mark("1-2 versions, card, build")
 
     # 3. every kernel against its plain version, at main-path shapes
     gen = torch.Generator(dev).manual_seed(0)
@@ -1293,6 +1774,8 @@ def main(argv=None) -> int:
                                    in sorted(e1_rb_shapes.items())}
     details["conv_max_abs_err"] = conv_err
 
+    mark("3 kernels against their plain versions")
+
     # 4. each sampler on the card against the sampler on the CPU (plain
     #    versions): the same seeded weights in float32, injected noise and
     #    MC set
@@ -1326,6 +1809,16 @@ def main(argv=None) -> int:
         card_vs_cpu("sampler", build_models, X_SHAPE, Y_SHAPE, method)
         card_vs_cpu("experiment-1 sampler", build_exp1_models, E1_SHAPE,
                     E1_SHAPE, method)
+    mark("4 samplers card against CPU")
+
+    # 4s. SMC on the card against SMC on the CPU, both experiments
+    details["smc_card_vs_cpu"] = {
+        "exp2": smc_card_vs_cpu("sampler", build_models, SMC_SCORE_STD["exp2"],
+                                X_SHAPE, Y_SHAPE, dev),
+        "exp1": smc_card_vs_cpu("experiment-1 sampler", build_exp1_models,
+                                SMC_SCORE_STD["exp1"], E1_SHAPE, E1_SHAPE,
+                                dev)}
+    mark("4s SMC card against CPU")
 
     # 5. the main path, counted; 5b. where its time goes (a profiled
     #    5-step call, outside the counted run)
@@ -1345,6 +1838,8 @@ def main(argv=None) -> int:
     details["profile"] = profile_call(
         lambda: prof_sampler(models, torch.Generator(dev).manual_seed(4),
                              B_MAIN), 5)
+
+    mark("5 main path")
 
     # 5e. the experiment-1 path, counted, and its profile. The ratio net's
     #     GN sites run once, on the MC set.
@@ -1366,6 +1861,8 @@ def main(argv=None) -> int:
     details["exp1_profile"] = profile_call(
         lambda: e1_prof(e1_models, torch.Generator(dev).manual_seed(4),
                         B_MAIN), 5)
+
+    mark("5e experiment-1 path")
 
     # 5g. gradient guidance at full width. Experiment 1, mc_feng+grad: phase
     #     A and B as above, plus every step the ratio net's forward (its 8
@@ -1402,6 +1899,41 @@ def main(argv=None) -> int:
         lambda: make_sampler(dict(e2g_kw, num_steps=5))(
             models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
 
+    mark("5g grad paths")
+
+    # 5s. SMC at full width on both experiments (the nets of phases 5 and
+    #     5e, bf16 U-Nets, the ratio net's last layer redrawn: SMC_SCORE_STD),
+    #     B=512, --steps Euler steps, γ=1, each experiment's CLI defaults
+    #     (exp 2: islands of 8, tau 0.7; exp 1: 16, 0.5). No MC set, so no
+    #     flash_guidance; per step both U-Nets and the ratio net once each.
+    #     Then one 10-step call under the sync debug mode and a 5-step profile
+    details["smc_paths"] = {}
+    for tag, mdl, (xs, ys), grp, tau in (
+            ("exp2", models, (X_SHAPE, Y_SHAPE), 8, 0.7),
+            ("exp1", e1_models, (E1_SHAPE, E1_SHAPE), 16, 0.5)):
+        smc_models = mdl[:2] + (smc_ratio(mdl[2], SMC_SCORE_STD[tag]),)
+        kw = dict(x_shape=xs, y_shape=ys, resample_group=grp,
+                  resample_tau=tau)
+        make_smc(dict(kw, num_steps=2))(
+            smc_models, torch.Generator(dev).manual_seed(1), B_MAIN)
+        smc_sites = [gn_sites(net) for net in smc_models]
+        rec = run_main_path(
+            f"SMC path ({tag})", make_smc(dict(kw, num_steps=args.steps)),
+            smc_models, {"flash_guidance": 0,
+                         "group_norm_silu": args.steps * sum(smc_sites),
+                         "group_norm_silu_backward": 0,
+                         "fused_gn_silu_conv": 0},
+            2, xs, ys, args.steps, smi, method="smc", gamma=SMC_GAMMA)
+        rec.update(gn_sites=smc_sites, group=grp, tau=tau)
+        rec["sync_debug"] = sync_debug_smc(
+            f"SMC path ({tag})", make_smc(dict(kw, num_steps=10)),
+            smc_models, dev)
+        rec["profile"] = profile_call(
+            lambda: make_smc(dict(kw, num_steps=5))(
+                smc_models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
+        details["smc_paths"][tag] = rec
+    mark("5s SMC paths")
+
     # 5t. flow-matching training at full width (float32, B=B_TRAIN, Adam
     #     lr 1e-4, EMA 0.999): one step card against CPU, then a counted run
     #     of --train_steps steps through the epoch driver and a 5-step profile
@@ -1414,6 +1946,8 @@ def main(argv=None) -> int:
         rec.update(run_training(name, make_net, shp, args.train_steps, dev,
                                 smi))
         details["training"][name] = rec
+
+    mark("5t flow-matching training")
 
     # 5r. ratio-net training at full width (disc, float32, B=B_TRAIN, clip
     #     1.0, Adam lr 1e-4, EMA 0.999): one step card against CPU, then a
@@ -1433,6 +1967,22 @@ def main(argv=None) -> int:
         details["ratio_training"][name.split(" (")[0]] = rec
     if details["ratio_training"]["experiment-1 ratio"]["gn_sites"] != 8:
         fail("the experiment-1 ratio net should hold 8 GN sites")
+    mark("5r ratio-net training")
+
+    # 5f. reflow at full width: coupling generation with the SVHN and
+    #     MNIST-32 teachers (float32, gen batch B_MAIN, 100 Euler steps, 2
+    #     batches each), counted; one reflow step card against CPU, its card
+    #     launches held to one GN forward, backward and dγ/dβ per site
+    details["reflow"] = {}
+    for name, make_net, shp in (("SVHN", FlowMatchingUNetSVHN, (32, 32, 3)),
+                                ("MNIST-32",
+                                 lambda: FlowMatchingUNetMNIST(img_size=32),
+                                 (32, 32, 1))):
+        rec = run_couplings(name, make_net, shp, 100, 2, dev, smi)
+        rec["step"] = train_step_card_vs_cpu(name, make_net, shp, dev,
+                                             reflow=True)
+        details["reflow"][name] = rec
+    mark("5f reflow")
 
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
@@ -1754,6 +2304,8 @@ def main(argv=None) -> int:
             library_ms=r1["library_ms"]),
         exp1_ratio_step_ms=ratio_step))
 
+    mark("6 kernel times")
+
     # 6c. the tier-C bench, kernel C's path, counted
     from ratio_guided_multimodal_fm_tpu_torch.cli import resblock_kernel_bench
 
@@ -1808,6 +2360,8 @@ def main(argv=None) -> int:
           f"(backend: {sdpa_backend}; backends that take the "
           f"inputs: {sdpa_eligible}) {sdpa_ms:.4f} ms, g only; max |err| of "
           f"its g {sdpa_err:.3g}  [{smi}]")
+
+    mark("6c tier-C bench")
 
     # 7. the CLIs on random-init reference-layout .pth files
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
@@ -1922,6 +2476,8 @@ def main(argv=None) -> int:
                           f"{r['coherence_acc']:.3f}" for r in results)
               + f"  [{smi}]")
         details["eval_cli"][name] = dict(seconds=cli_s, results=results)
+
+    mark("7 sample and evaluate CLIs")
 
     # the train CLIs for one epoch on the synthetic digits (RGMF_SYNTH_N
     # training images, B_TRAIN a step), in one directory: the flows, the
@@ -2053,6 +2609,11 @@ def main(argv=None) -> int:
                       + f"  [{smi}]")
                 details["trained_chain"][name] = dict(seconds=cli_s,
                                                       results=results)
+            mark("7 train CLIs and the trained chain")
+            details["reflow_cli"] = reflow_and_smc_clis(smi)
+            mark("7 reflow and smc CLIs")
+            details["serve"] = serve_phase(smi)
+            mark("7v serve")
         finally:
             os.chdir(cwd)
             if synth_n is None:
@@ -2060,6 +2621,19 @@ def main(argv=None) -> int:
             else:
                 os.environ["RGMF_SYNTH_N"] = synth_n
 
+    # the kernels' launches on this slice's paths: SMC (5s), the couplings
+    # and the reflow step (5f), serve (7v)
+    by_name = {k["name"]: k for k in kernels}
+    for tag, rec in details["smc_paths"].items():
+        for k in kernels:
+            k[f"smc_{tag}_launches"] = rec["launches"][k["name"]]
+    by_name["group_norm_silu"]["reflow_coupling_launches"] = {
+        n: r["launches"]["group_norm_silu"]
+        for n, r in details["reflow"].items()}
+    by_name["group_norm_silu_backward"]["reflow_step_launches"] = {
+        n: r["step"]["launches"] for n, r in details["reflow"].items()}
+    for nm in ("flash_guidance", "group_norm_silu"):
+        by_name[nm]["serve_launches"] = details["serve"]["launches"][nm]
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start
     print(f"total {details['total_s']:.1f} s")

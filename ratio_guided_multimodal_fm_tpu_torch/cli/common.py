@@ -1,5 +1,6 @@
 """Shared CLI plumbing (port of the parts of cli/common.py the sampler,
-evaluation and train CLIs need): flag groups, the train CLIs' runtime set-up
+evaluation, train, reflow and serve CLIs need): flag groups (--smc_*
+included), the train CLIs' runtime set-up
 and refusals, the ratio train CLIs' body, model factory, checkpoint names
 and loading, NHWC closures over the NCHW models, diagnostics."""
 from __future__ import annotations
@@ -36,6 +37,10 @@ from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
 _EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
                 "ratio_guided_multimodal_fm_tpu.cli.export_torch "
                 "--checkpoint {ckpt} --model {model} --out {path}")
+
+
+# every sampling method of the sample, evaluate and serve CLIs
+METHODS = ("none", "mc_feng", "grad", "mc_feng+grad", "smc")
 
 
 def not_yet_ported(what: str):
@@ -90,6 +95,77 @@ def add_mc_refresh_flag(p: argparse.ArgumentParser):
                         "num_steps/K steps (mc_feng methods); with K>1 the "
                         "evaluation chunk policy drops to 1 chunk. 1 = "
                         "reference protocol (keep it).")
+
+
+def add_smc_flags(p: argparse.ArgumentParser):
+    """--smc_* of the SMC (particle-filter) guidance method (sample/smc.py):
+    Langevin churn and systematic resampling on the ratio potential."""
+    p.add_argument("--smc_churn", type=float, default=1.0,
+                   help="Langevin churn coefficient (beta_t = churn*(1-t)^2;"
+                        " regenerates diversity after resampling; 0 = "
+                        "deterministic ODE proposal)")
+    p.add_argument("--smc_churn_iters", type=int, default=1,
+                   help="Langevin iterations per ODE step: >1 adds pure "
+                        "marginal-preserving mixing iterations at t+dt (two "
+                        "velocity evaluations each)")
+    p.add_argument("--smc_resample_tau", type=float, default=0.5,
+                   help="systematic-resample when the ESS < tau*B")
+    p.add_argument("--smc_t_min", type=float, default=0.2,
+                   help="no resampling before this t (early endpoint "
+                        "predictions are off-distribution for the "
+                        "terminal-time ratio net)")
+    p.add_argument("--smc_t_max", type=float, default=0.9,
+                   help="no resampling after this t (leave churn time to "
+                        "decorrelate resampled clones)")
+    p.add_argument("--smc_resample_window", type=str, default="t",
+                   choices=["t", "step"],
+                   help="'t' gates resampling on raw time, 'step' on the "
+                        "step fraction i/num_steps (the same on the uniform "
+                        "grid; keeps the number of eligible steps under a "
+                        "non-uniform --time_grid). Read by the evaluation "
+                        "CLIs only, as in the JAX package")
+    p.add_argument("--smc_group", type=int, default=16,
+                   help="island size: particles resample within "
+                        "independent groups of this size (0 = one global "
+                        "population; a non-dividing batch is padded with "
+                        "phantoms)")
+
+
+def smc_config_from_args(args, strength: float, x_shape, y_shape):
+    """An SMCSamplerConfig from the CLI flags (JAX cli/common.py)."""
+    from ratio_guided_multimodal_fm_tpu_torch.sample.smc import (
+        SMCSamplerConfig,
+    )
+
+    return SMCSamplerConfig(
+        guidance_strength=strength, num_steps=args.num_steps,
+        x_shape=tuple(x_shape), y_shape=tuple(y_shape),
+        churn=args.smc_churn,
+        churn_iters=getattr(args, "smc_churn_iters", 1),
+        resample_tau=args.smc_resample_tau,
+        resample_t_min=args.smc_t_min, resample_t_max=args.smc_t_max,
+        resample_group=args.smc_group,
+        resample_window=getattr(args, "smc_resample_window", "t"),
+        log_ratio_clip=getattr(args, "ratio_clip", None),
+        solver=args.solver, time_grid=args.time_grid,
+        grid_power=args.grid_power)
+
+
+def sample_smc_from_args(args, fm_x, fm_y, log_ratio, x_shape, y_shape,
+                         generator):
+    """The sample CLIs' SMC call: (x1, y1, diags) of args.num_samples pairs.
+    Like the JAX CLIs they pass every --smc_* flag on but
+    --smc_resample_window, so their SMC keeps the 't' window (ROADMAP F6)."""
+    import dataclasses
+
+    from ratio_guided_multimodal_fm_tpu_torch.sample.smc import (
+        make_smc_sampler,
+    )
+
+    cfg = dataclasses.replace(smc_config_from_args(
+        args, args.guidance_strength, x_shape, y_shape), resample_window="t")
+    return make_smc_sampler(fm_x, fm_y, cfg, log_ratio)(generator,
+                                                        args.num_samples)
 
 
 def add_eval_flags(p: argparse.ArgumentParser):
@@ -244,6 +320,16 @@ def arm_preemption():
     arm()
 
 
+def refuse_unported_runtime(args) -> None:
+    """Refuse add_train_runtime_flags' --merged_unet and multi-process
+    flags until models/merged.py and parallel/ are ported."""
+    if getattr(args, "merged_unet", False):
+        not_yet_ported("--merged_unet (models/merged.py)")
+    if any(getattr(args, f, None) is not None for f in
+           ("coordinator_address", "num_processes", "process_id")):
+        not_yet_ported("multi-process runs (parallel/)")
+
+
 def init_runtime(args) -> torch.device:
     """The train CLIs' runtime set-up: refuse what is not ported, then
     resolve the device (`cuda` unless --device cpu; float32 pinned)."""
@@ -256,11 +342,7 @@ def init_runtime(args) -> torch.device:
     for flag in ("metrics_dir", "profile_dir"):
         if getattr(args, flag, None):
             not_yet_ported(f"--{flag} (core/observability.py)")
-    if getattr(args, "merged_unet", False):
-        not_yet_ported("--merged_unet (models/merged.py)")
-    if any(getattr(args, f, None) is not None for f in
-           ("coordinator_address", "num_processes", "process_id")):
-        not_yet_ported("multi-process training (parallel/)")
+    refuse_unported_runtime(args)
     if getattr(args, "dtype", "f32") != "f32":
         print("--dtype is ignored by training, which runs in float32 as "
               "the JAX package's train CLIs do")
@@ -359,11 +441,18 @@ def report_guidance_diagnostics(diags, num_steps: int, save_path=None,
         if "ess_mean" in r:
             parts.append(f"ESS mean={r['ess_mean']:.1f} "
                          f"min={r['ess_min']:.1f}")
+        if "smc_ess" in r:
+            # 'resampled' is 0/1 in global mode and the fraction of the
+            # islands that resampled in island mode: a float
+            parts.append(f"SMC-ESS={r['smc_ess']:.1f}"
+                         f" resampled={r.get('resampled', 0.0):.2f}")
         for k in ("v_x_norm", "v_y_norm", "g_x_norm", "g_y_norm"):
             if k in r:
                 parts.append(f"{k.replace('_norm', '')}||={r[k]:.3f}")
         if "w_max" in r:
             parts.append(f"w∈[{r.get('w_min', 0):.2e},{r['w_max']:.2e}]")
+        if "Z_bar_mean" in r:
+            parts.append(f"Z̄={r['Z_bar_mean']:.3e}")
         log_fn("  [guidance diag] " + "  ".join(parts))
     if save_path:
         with open(save_path, "w") as f:

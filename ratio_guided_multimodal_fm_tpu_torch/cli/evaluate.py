@@ -1,7 +1,7 @@
 """Evaluate the coherence of generated pairs over a (method × strength)
 sweep, experiment 1: MNIST-28 ↔ a transformed MNIST (port of
-cli/evaluate.py: methods 'none', 'mc_feng', 'grad' and 'mc_feng+grad';
-'smc' is not ported yet and raises).
+cli/evaluate.py: methods 'none', 'mc_feng', 'grad', 'mc_feng+grad' and
+'smc').
 
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes: the flows and the ratio
@@ -10,7 +10,8 @@ net as cli/sample.py reads them, and the eval classifier
     checkpoints/mnist_classifier.pth      (--model classifier_mnist)
 
 Samples each configuration in chunks with a fresh MC set per chunk
-(eval/chunked.py), classifies x and the inverse-transformed y, and writes
+(eval/chunked.py; one chunk for a method without an MC set, such as
+smc), classifies x and the inverse-transformed y, and writes
 outputs/evaluation_results.json with the JAX CLI's keys; `--fid` adds the
 classifier-feature FID against the test set (eval/fid.py).
 
@@ -26,18 +27,20 @@ import os
 import numpy as np
 
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
+    METHODS,
     add_common_flags,
     add_ema_flag,
     add_eval_flags,
     add_grad_flags,
     add_mc_refresh_flag,
     add_reflow_flag,
+    add_smc_flags,
     add_solver_flag,
     classifier_fn,
     load_state_dict,
-    not_yet_ported,
     ratio_log_fn,
     report_guidance_diagnostics,
+    smc_config_from_args,
     velocity_fn,
 )
 from ratio_guided_multimodal_fm_tpu_torch.cli.sample import (
@@ -64,12 +67,12 @@ from ratio_guided_multimodal_fm_tpu_torch.eval.fid import (
 )
 from ratio_guided_multimodal_fm_tpu_torch.models import MNISTClassifier
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
-    GUIDANCE_METHODS,
     MC_METHODS,
     GuidedSamplerConfig,
     generate_mc_set,
     make_guided_sampler_p,
 )
+from ratio_guided_multimodal_fm_tpu_torch.sample.smc import make_smc_sampler
 
 CHUNK_INFO_KEYS = ("n_chunks", "chunk_policy", "mc_set_ess", "ess_final_mean",
                    "ess_final_min", "ess_trajectory_min",
@@ -77,21 +80,18 @@ CHUNK_INFO_KEYS = ("n_chunks", "chunk_policy", "mc_set_ess", "ess_final_mean",
 
 
 def check_methods(methods) -> None:
-    """'smc' is a method of the JAX package the port has not ported yet."""
     for m in methods:
-        if m == "smc":
-            not_yet_ported("--guidance_methods smc (SMC guidance)")
-        if m not in GUIDANCE_METHODS:
+        if m not in METHODS:
             raise SystemExit(f"ERROR: unknown guidance method {m!r}; one of "
-                             f"{GUIDANCE_METHODS}")
+                             f"{METHODS}")
 
 
 def add_sweep_flags(parser: argparse.ArgumentParser):
     """The flags both evaluation CLIs share."""
     parser.add_argument("--guidance_methods", nargs="+",
                         default=["none", "mc_feng"],
-                        help="any of: none, mc_feng, grad, mc_feng+grad "
-                             "(smc is not ported yet)")
+                        help="any of: none, mc_feng, grad, mc_feng+grad, "
+                             "smc (particle-filter guidance, sample/smc.py)")
     parser.add_argument("--guidance_strengths", nargs="+", type=float,
                         default=[0.0, 0.5, 1.0])
     parser.add_argument("--mc_batch_size", type=int, default=256)
@@ -101,6 +101,7 @@ def add_sweep_flags(parser: argparse.ArgumentParser):
     add_solver_flag(parser)
     add_reflow_flag(parser)
     add_ema_flag(parser)
+    add_smc_flags(parser)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
     add_grad_flags(parser)
@@ -140,13 +141,20 @@ def sample_config(args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
                 y_shape, args.num_steps, log_ratio_clip=args.ratio_clip,
                 solver=args.solver, time_grid=args.time_grid,
                 grid_power=args.grid_power)
-    sampler = make_guided_sampler_p(
-        lambda _, x, t: fm_x(x, t), lambda _, y, t: fm_y(y, t),
-        sweep_config(args, method, strength, x_shape, y_shape),
-        None if log_ratio is None else (lambda _, x, y: log_ratio(x, y)))
+    if method == "smc":
+        smc = make_smc_sampler(fm_x, fm_y, smc_config_from_args(
+            args, strength, x_shape, y_shape), log_ratio)
 
-    def sample_chunk(gen, n_i, mc_ci):
-        return sampler((None, None, None), gen, n_i, mc_ci)
+        def sample_chunk(gen, n_i, mc_ci):
+            return smc(gen, n_i)
+    else:
+        sampler = make_guided_sampler_p(
+            lambda _, x, t: fm_x(x, t), lambda _, y, t: fm_y(y, t),
+            sweep_config(args, method, strength, x_shape, y_shape),
+            None if log_ratio is None else (lambda _, x, y: log_ratio(x, y)))
+
+        def sample_chunk(gen, n_i, mc_ci):
+            return sampler((None, None, None), gen, n_i, mc_ci)
 
     no_mc = ("mc_refresh>1: fresh candidate sets generated inside the "
              "sampler (refresh subsumes per-chunk sets)"
@@ -164,7 +172,9 @@ def sample_config(args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
     return out
 
 
-def base_result(args, method, strength, metrics, chunk_info) -> dict:
+def base_result(args, method, strength, metrics, chunk_info, diags) -> dict:
+    """The JAX CLIs' result keys of one configuration; `diags` are the
+    merged diagnostics of its chunks (numpy)."""
     result = {"method": method, "guidance_strength": strength}
     if getattr(args, "transform_type", None) is not None:
         result["transform_type"] = args.transform_type
@@ -175,6 +185,13 @@ def base_result(args, method, strength, metrics, chunk_info) -> dict:
                    if k in chunk_info})
     if args.mc_refresh > 1 and method in MC_METHODS:
         result["mc_refresh"] = args.mc_refresh
+    if method == "smc":
+        result["smc_final_ess"] = float(np.mean(diags["final_ess"]))
+        # the sum over steps of 'resampled': an event count in global mode,
+        # the island-average event count in island mode
+        result["smc_resamples"] = float(np.sum(diags["resampled"]))
+        result["smc_churn"] = args.smc_churn
+        result["smc_resample_tau"] = args.smc_resample_tau
     return result
 
 
@@ -237,12 +254,13 @@ def main(argv=None):
                 except SystemExit as e:
                     print(f"ERROR: Ratio estimator not found ({e})")
                     continue
-            samples_x, samples_y, _, chunk_info = sample_config(
+            samples_x, samples_y, diags, chunk_info = sample_config(
                 args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
                 device, SHAPE, SHAPE)
             metrics = evaluate_coherence(samples_x, samples_y, classify,
                                          args.transform_type)
-            result = base_result(args, method, strength, metrics, chunk_info)
+            result = base_result(args, method, strength, metrics, chunk_info,
+                                 diags)
             if real_images is not None:
                 # Frechet distance on eval-classifier features, NOT
                 # Inception-FID (eval/fid.py)

@@ -1,7 +1,8 @@
 """Evaluate MNIST-SVHN guided sampling over a (method × strength) sweep:
 dual-classifier coherence (+ classifier-FID), experiment 2 (port of
-cli/evaluate_mnist_svhn.py: methods 'none', 'mc_feng', 'grad' and
-'mc_feng+grad'; 'smc' is not ported yet and raises).
+cli/evaluate_mnist_svhn.py: methods 'none', 'mc_feng', 'grad',
+'mc_feng+grad' and 'smc', whose defaults here are islands of 8 and
+--smc_resample_tau 0.7, as in the JAX CLI).
 
 Loads reference-layout state dicts from ./checkpoints: the flows and the
 ratio net as cli/sample_mnist_svhn.py reads them, and the classifiers
@@ -64,6 +65,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(
         description="Evaluate MNIST-SVHN sampling")
     add_sweep_flags(parser)
+    # experiment 2's SMC defaults: islands of 8, tau 0.7 (the JAX CLI's)
+    parser.set_defaults(smc_group=8, smc_resample_tau=0.7)
     add_common_flags(parser)
     args = parser.parse_args(argv)
     check_methods(args.guidance_methods)
@@ -100,13 +103,14 @@ def main(argv=None):
                 continue
             print(f"\n{'=' * 60}\nEvaluating: method={method}, "
                   f"gamma={strength}\n{'=' * 60}")
-            samples_x, samples_y, _, chunk_info = sample_config(
+            samples_x, samples_y, diags, chunk_info = sample_config(
                 args, method, strength, v_m, v_s,
                 log_ratio if method != "none" else None, mc_cache, device,
                 X_SHAPE, Y_SHAPE)
             metrics = evaluate_coherence_dual(samples_x, samples_y,
                                               classify_m, classify_s)
-            result = base_result(args, method, strength, metrics, chunk_info)
+            result = base_result(args, method, strength, metrics, chunk_info,
+                                 diags)
             if real_m is not None:
                 # classifier-feature Frechet distance, not Inception-FID
                 result["classifier_fid_mnist"] = compute_fid(

@@ -1,6 +1,6 @@
 """Generate (x, y) pairs via guided sampling, experiment 1: MNIST-28 ↔ a
 transformed MNIST (port of cli/sample.py: methods 'none', 'mc_feng',
-'grad' and 'mc_feng+grad'; 'smc' is not ported yet).
+'grad', 'mc_feng+grad' and 'smc', with the --smc_* flags).
 
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes:
@@ -29,6 +29,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_ema_flag,
     add_mc_refresh_flag,
     add_reflow_flag,
+    add_smc_flags,
     add_solver_flag,
     checkpoint_path,
     dtype_of,
@@ -36,6 +37,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     load_state_dict,
     ratio_log_fn,
     report_guidance_diagnostics,
+    sample_smc_from_args,
     velocity_fn,
 )
 from ratio_guided_multimodal_fm_tpu_torch.core.device import (
@@ -87,10 +89,12 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Sample bimodal pairs")
     parser.add_argument("--transform_type", type=str, default="rotate90")
     parser.add_argument("--guidance_method", type=str, default="none",
-                        choices=["none", "mc_feng", "grad", "mc_feng+grad"],
+                        choices=["none", "mc_feng", "grad", "mc_feng+grad",
+                                 "smc"],
                         help="none=independent, mc_feng=Feng MC guidance, "
                              "grad=ratio-gradient guidance, mc_feng+grad "
-                             "both (smc is not ported yet)")
+                             "both, smc=particle-filter guidance "
+                             "(sample/smc.py; no candidate pool)")
     parser.add_argument("--guidance_strength", type=float, default=0.5)
     parser.add_argument("--mc_batch_size", type=int, default=128)
     parser.add_argument("--loss_type", type=str, default="disc")
@@ -99,6 +103,7 @@ def main(argv=None):
     add_solver_flag(parser)
     add_reflow_flag(parser)
     add_ema_flag(parser)
+    add_smc_flags(parser)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
     add_mc_refresh_flag(parser)
@@ -124,17 +129,22 @@ def main(argv=None):
     print(f"\nSampling {args.num_samples} pairs "
           f"(method={args.guidance_method}, gamma={args.guidance_strength}, "
           f"mc_batch_size={args.mc_batch_size}, steps={args.num_steps})")
-    samples_x, samples_y, diags = sample_bimodal_guided(
-        velocity_fn(fm_x), velocity_fn(fm_y),
-        log_ratio_fn=None if ratio is None else ratio_log_fn(ratio),
-        guidance_method=args.guidance_method,
-        guidance_strength=args.guidance_strength,
-        num_samples=args.num_samples, num_steps=args.num_steps,
-        mc_batch_size=args.mc_batch_size, x_shape=SHAPE, y_shape=SHAPE,
-        generator=generator, log_ratio_clip=args.ratio_clip,
-        ess_floor=args.ess_floor, solver=args.solver,
-        time_grid=args.time_grid, grid_power=args.grid_power,
-        mc_refresh=args.mc_refresh, return_diagnostics=True)
+    if args.guidance_method == "smc":
+        samples_x, samples_y, diags = sample_smc_from_args(
+            args, velocity_fn(fm_x), velocity_fn(fm_y), ratio_log_fn(ratio),
+            SHAPE, SHAPE, generator)
+    else:
+        samples_x, samples_y, diags = sample_bimodal_guided(
+            velocity_fn(fm_x), velocity_fn(fm_y),
+            log_ratio_fn=None if ratio is None else ratio_log_fn(ratio),
+            guidance_method=args.guidance_method,
+            guidance_strength=args.guidance_strength,
+            num_samples=args.num_samples, num_steps=args.num_steps,
+            mc_batch_size=args.mc_batch_size, x_shape=SHAPE, y_shape=SHAPE,
+            generator=generator, log_ratio_clip=args.ratio_clip,
+            ess_floor=args.ess_floor, solver=args.solver,
+            time_grid=args.time_grid, grid_power=args.grid_power,
+            mc_refresh=args.mc_refresh, return_diagnostics=True)
 
     os.makedirs("outputs", exist_ok=True)
     tag = (f"{args.guidance_method}"

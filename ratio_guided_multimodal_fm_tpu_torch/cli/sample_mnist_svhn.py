@@ -1,6 +1,7 @@
 """Generate MNIST-SVHN pairs via guided sampling (port of
-cli/sample_mnist_svhn.py: methods 'none', 'mc_feng', 'grad' and
-'mc_feng+grad'; 'smc' is not ported yet).
+cli/sample_mnist_svhn.py: methods 'none', 'mc_feng', 'grad',
+'mc_feng+grad' and 'smc', whose defaults here are islands of 8 and
+--smc_resample_tau 0.7, as in the JAX CLI).
 
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes:
@@ -29,11 +30,13 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_ema_flag,
     add_mc_refresh_flag,
     add_reflow_flag,
+    add_smc_flags,
     add_solver_flag,
     dtype_of,
     load_state_dict,
     ratio_log_fn,
     report_guidance_diagnostics,
+    sample_smc_from_args,
     velocity_fn,
 )
 from ratio_guided_multimodal_fm_tpu_torch.core.device import (
@@ -77,8 +80,8 @@ def load_mnist_svhn_models(loss_type: str, need_ratio: bool,
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Sample MNIST-SVHN pairs")
     parser.add_argument("--guidance_method", type=str, default="none",
-                        choices=["none", "mc_feng", "grad", "mc_feng+grad"],
-                        help="smc is not ported yet")
+                        choices=["none", "mc_feng", "grad", "mc_feng+grad",
+                                 "smc"])
     parser.add_argument("--guidance_strength", type=float, default=0.5)
     parser.add_argument("--mc_batch_size", type=int, default=256)
     parser.add_argument("--loss_type", type=str, default="disc")
@@ -87,6 +90,9 @@ def main(argv=None):
     add_solver_flag(parser)
     add_reflow_flag(parser)
     add_ema_flag(parser)
+    add_smc_flags(parser)
+    # experiment 2's SMC defaults: islands of 8, tau 0.7 (the JAX CLI's)
+    parser.set_defaults(smc_group=8, smc_resample_tau=0.7)
     parser.add_argument("--ratio_clip", type=float, default=None,
                         help="Clip |log ratio| of MC samples")
     add_mc_refresh_flag(parser)
@@ -109,18 +115,23 @@ def main(argv=None):
 
     print(f"\nSampling {args.num_samples} pairs "
           f"(method={args.guidance_method}, gamma={args.guidance_strength})")
-    samples_x, samples_y, diags = sample_bimodal_guided(
-        velocity_fn(fm_m), velocity_fn(fm_s),
-        log_ratio_fn=None if ratio is None else ratio_log_fn(ratio),
-        guidance_method=args.guidance_method,
-        guidance_strength=args.guidance_strength,
-        num_samples=args.num_samples, num_steps=args.num_steps,
-        mc_batch_size=args.mc_batch_size,
-        x_shape=(32, 32, 1), y_shape=(32, 32, 3), generator=generator,
-        log_ratio_clip=args.ratio_clip, ess_floor=args.ess_floor,
-        solver=args.solver, time_grid=args.time_grid,
-        grid_power=args.grid_power, mc_refresh=args.mc_refresh,
-        return_diagnostics=True)
+    if args.guidance_method == "smc":
+        samples_x, samples_y, diags = sample_smc_from_args(
+            args, velocity_fn(fm_m), velocity_fn(fm_s), ratio_log_fn(ratio),
+            (32, 32, 1), (32, 32, 3), generator)
+    else:
+        samples_x, samples_y, diags = sample_bimodal_guided(
+            velocity_fn(fm_m), velocity_fn(fm_s),
+            log_ratio_fn=None if ratio is None else ratio_log_fn(ratio),
+            guidance_method=args.guidance_method,
+            guidance_strength=args.guidance_strength,
+            num_samples=args.num_samples, num_steps=args.num_steps,
+            mc_batch_size=args.mc_batch_size,
+            x_shape=(32, 32, 1), y_shape=(32, 32, 3), generator=generator,
+            log_ratio_clip=args.ratio_clip, ess_floor=args.ess_floor,
+            solver=args.solver, time_grid=args.time_grid,
+            grid_power=args.grid_power, mc_refresh=args.mc_refresh,
+            return_diagnostics=True)
 
     os.makedirs("outputs/mnist_svhn", exist_ok=True)
     tag = f"{args.guidance_method}_gamma{args.guidance_strength}"

@@ -303,6 +303,8 @@ EXP1_KEYS = {"method", "guidance_strength", "transform_type", "coherence_acc",
              "chunk_policy"}
 MC_KEYS = {"mc_set_ess", "ess_final_mean", "ess_final_min",
            "ess_trajectory_min", "ess_trajectory_mean"}
+SMC_KEYS = {"smc_final_ess", "smc_resamples", "smc_churn",
+            "smc_resample_tau"}
 
 
 def _save(root, fname, kind, variables):
@@ -340,15 +342,21 @@ def test_evaluate_mnist_svhn_cli_on_cpu(exp2_dir, monkeypatch):
     results = evaluate_mnist_svhn.main([
         "--device", "cpu", "--num_samples", "4", "--num_steps", "2",
         "--mc_batch_size", "3", "--guidance_methods", "none", "mc_feng",
-        "grad", "mc_feng+grad", "--guidance_strengths", "0", "0.5", "--fid",
-        "--auto_chunks", "2", "--data_root", str(exp2_dir / "data")])
+        "grad", "mc_feng+grad", "smc", "--guidance_strengths", "0", "0.5",
+        "--fid", "--auto_chunks", "2", "--data_root", str(exp2_dir / "data")])
     assert [(r["method"], r["guidance_strength"]) for r in results] == [
         ("none", 0.0), ("mc_feng", 0.0), ("mc_feng", 0.5), ("grad", 0.0),
-        ("grad", 0.5), ("mc_feng+grad", 0.0), ("mc_feng+grad", 0.5)]
+        ("grad", 0.5), ("mc_feng+grad", 0.0), ("mc_feng+grad", 0.5),
+        ("smc", 0.0), ("smc", 0.5)]
     for r in results:
         keys = (EXP1_KEYS - {"transform_type"}) | {"classifier_fid_mnist"}
         if "mc_feng" in r["method"]:
             keys |= MC_KEYS
+        if r["method"] == "smc":
+            keys |= SMC_KEYS
+            # experiment 2's defaults: islands of 8, tau 0.7
+            assert r["smc_resample_tau"] == 0.7 and r["smc_churn"] == 1.0
+            assert 1.0 <= r["smc_final_ess"] <= 4.0
         assert set(r) == keys, r["method"]
         assert r["n_chunks"] == (2 if "mc_feng" in r["method"] else 1)
         assert np.isfinite(r["classifier_fid_mnist"])
@@ -367,12 +375,13 @@ def test_evaluate_mnist_svhn_cli_on_cpu(exp2_dir, monkeypatch):
 
 
 def test_evaluate_cli_on_cpu(tmp_path, monkeypatch):
-    """Experiment 1 from exported flows, ratio net and classifier; then
-    what it refuses: smc, and a missing classifier."""
+    """Experiment 1 from exported flows, ratio net and classifier (smc with
+    the JAX CLI's smc_* keys among the rows); what it refuses: an unknown
+    method, and a missing classifier."""
     monkeypatch.chdir(tmp_path)
     monkeypatch.setenv("RGMF_SYNTH_N", "200")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        evaluate.main(["--device", "cpu", "--guidance_methods", "smc"])
+    with pytest.raises(SystemExit, match="unknown guidance method"):
+        evaluate.main(["--device", "cpu", "--guidance_methods", "bogus"])
     with pytest.raises(SystemExit, match="checkpoint not found"):
         evaluate.main(["--device", "cpu"])
     (tmp_path / "checkpoints").mkdir()
@@ -390,14 +399,19 @@ def test_evaluate_cli_on_cpu(tmp_path, monkeypatch):
     results = evaluate.main([
         "--device", "cpu", "--num_samples", "3", "--num_steps", "2",
         "--mc_batch_size", "3", "--guidance_methods", "none", "mc_feng+grad",
-        "grad", "--guidance_strengths", "0.5", "--fid", "--eval_chunks", "1",
-        "--save_samples"])
+        "grad", "smc", "--guidance_strengths", "0.5", "--fid",
+        "--eval_chunks", "1", "--save_samples", "--smc_group", "2"])
     # 'none' runs at strength 0 only, as in the JAX CLI
-    assert [r["method"] for r in results] == ["mc_feng+grad", "grad"]
+    assert [r["method"] for r in results] == ["mc_feng+grad", "grad", "smc"]
     for r in results:
         keys = EXP1_KEYS | {"classifier_fid_x"}
         if r["method"] == "mc_feng+grad":
             keys |= MC_KEYS
+        if r["method"] == "smc":
+            keys |= SMC_KEYS
+            assert r["smc_resample_tau"] == 0.5
+            assert 1.0 <= r["smc_final_ess"] <= 3.0
+            assert 0.0 <= r["smc_resamples"] <= 2.0
         assert set(r) == keys and r["n_chunks"] == 1
         assert np.isfinite(r["classifier_fid_x"])
     saved = np.load(tmp_path / "outputs" /

@@ -242,13 +242,12 @@ def exported_dir(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("argv", [["--guidance_method", "smc"],
-                                  ["--merged_unet"],
+@pytest.mark.parametrize("argv", [["--merged_unet"],
                                   ["--model", "original"]])
 def test_exp1_cli_rejects_what_is_not_ported(argv, exported_dir, capsys,
                                              monkeypatch):
-    """smc, --merged_unet and --model original are not flags of the port
-    yet: argparse refuses them."""
+    """--merged_unet and --model original are not flags of the port yet:
+    argparse refuses them."""
     monkeypatch.chdir(exported_dir)
     with pytest.raises(SystemExit) as e:
         sample.main(["--device", "cpu"] + argv)
@@ -272,6 +271,28 @@ def test_exp1_cli_grad_and_mc_refresh(argv, exported_dir, monkeypatch):
     assert x1.shape == y1.shape == (2,) + SHAPE
     assert torch.isfinite(x1).all() and torch.isfinite(y1).all()
     assert (diags == {}) == (argv[1] == "grad")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--smc_group", "0", "--solver", "midpoint"],
+    ["--smc_churn_iters", "2", "--smc_resample_tau", "1.0",
+     "--ratio_clip", "3.0"]])
+def test_exp1_cli_smc(argv, exported_dir, monkeypatch):
+    """smc from the exported checkpoints (the full-width GroupNorm ratio net
+    on the endpoint predictions), its per-step diagnostics in the trace."""
+    monkeypatch.chdir(exported_dir)
+    x1, y1, diags = sample.main(["--device", "cpu", "--guidance_method",
+                                 "smc", "--num_samples", "3", "--num_steps",
+                                 "3"] + argv)
+    assert x1.shape == y1.shape == (3,) + SHAPE
+    assert torch.isfinite(x1).all() and torch.isfinite(y1).all()
+    assert diags["smc_ess"].shape == (3,) and diags["final_ess"].shape == ()
+    assert 1.0 <= float(diags["final_ess"]) <= 3.0 + 1e-4
+    rows = json.loads((exported_dir / "outputs" /
+                       "diagnostics_smc_gamma0.5_rotate90.json").read_text())
+    assert len(rows) == 3 and {"smc_ess", "resampled", "log_r_mean",
+                               "logw_spread"} <= set(rows[1])
 
 
 def _no_matplotlib() -> bool:

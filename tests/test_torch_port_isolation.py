@@ -6,8 +6,8 @@
   JAX package's, so module names are matched exactly or by the prefix
   'ratio_guided_multimodal_fm_tpu.'.
 * Entry points default to CUDA and fail clearly without it.
-* The sampler, evaluation, bench and train CLIs refuse to run without one
-  unless asked for the CPU.
+* The sampler, evaluation, bench, train, reflow and serve CLIs refuse to
+  run without one unless asked for the CPU.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
 """
@@ -74,9 +74,11 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
         evaluate,
         evaluate_mnist_svhn,
+        reflow,
         resblock_kernel_bench,
         sample,
         sample_mnist_svhn,
+        serve,
         train_classifier,
         train_classifiers_mnist_svhn,
         train_flow,
@@ -90,6 +92,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     )
     from ratio_guided_multimodal_fm_tpu_torch.sample import (
         sample_bimodal_guided,
+        sample_bimodal_smc,
     )
 
     if torch.cuda.is_available():
@@ -108,8 +111,12 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: train_ratio_mnist_svhn.main([]),
                  lambda: train_classifier.main([]),
                  lambda: train_classifiers_mnist_svhn.main([]),
+                 lambda: reflow.main([]),
+                 lambda: serve.main(["--port", "0"]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
-                                               lambda y, t: y)):
+                                               lambda y, t: y),
+                 lambda: sample_bimodal_smc(lambda x, t: x, lambda y, t: y,
+                                            lambda x, y: x[:, 0])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
