@@ -37,10 +37,22 @@ which fails the script (non-zero exit) on error:
    sites at 28, 14, 7 and 3 px; float32, channels_last, B=128 and 127):
    the forward (1e-4) with its statistics (bit for bit), dx, dγ and dβ
    through autograd (each at most twice the float32 plain backward's
-   max |err| against float64) and two launches bit for bit;
+   max |err| against float64) and two launches bit for bit; and, for
+   slice 9, flash_guidance at the 64-px path's B=64, N=128, D=24,576
+   against its float64 plain version (quarter-integer and N(0,1) images;
+   reruns bit for bit), group_norm_silu at every sampler shape of the
+   encoder-decoder (FlowMatchingModel), the 64-px U-Nets and ratio net and
+   every merged-pair site (2C channels in 16 groups), and both GN kernels
+   as a train step runs them at the encoder-decoder's 7 sites and
+   FlowMatchingUNet64's 45;
 4. checks each experiment's full-width sampler on the card against the
    same sampler on the CPU (plain versions) on a small input, with mc_feng,
-   grad and mc_feng+grad guidance;
+   grad and mc_feng+grad guidance, and experiment 1 with --model original;
+4m. merged-pair evaluation against the two nets on the card (experiment-1
+   U-Nets, float32, both phases): within 5e-5;
+4x. the 64-px sampler (narrow U-Nets, float32, D=24,576) on the card and
+   the CPU against the CPU run with float64 guidance: the card's max |err|
+   at most twice the float32 CPU run's, plus 1e-3;
 4s. the same for SMC (sample/smc.py), both experiments: float32 nets, B=8,
    islands of 4, γ=1, 10 steps, the same injected draws; x1, y1 within 1e-3
    and every resampling decision equal;
@@ -52,6 +64,9 @@ which fails the script (non-zero exit) on error:
 5e. the same for experiment 1 (MNIST-28 ↔ transformed MNIST): random-init
    FlowMatchingUNet (28 px) x2 in bf16 + RatioEstimatorMNIST (disc,
    float32), B=512, N_mc=256, --steps steps, mc_feng at γ=0.5;
+5o. the same with --model original (two FlowMatchingModel in bf16);
+5m. 5e's path with --merged_unet (one GN launch per site pair), counted
+   and profiled, then two-net and merged calls in turns;
 5g. gradient guidance at full width, counted and profiled the same way:
    experiment 1 with mc_feng+grad (γ=0.5, grad_strength 0.5; the ratio
    net's forward and the backward kernel at each of its 8 GN sites every
@@ -91,6 +106,14 @@ which fails the script (non-zero exit) on error:
    and MNIST-32 teachers (float32, batches of 512, 100 steps, 2 batches),
    launches held to 100 × GN sites a batch, pairs/s; one reflow step on the
    card against the CPU as in 5t, its launches one per GN site;
+5x. the 64-px config at full width: FlowMatchingUNet64 x2 (ch 96) and
+   FlexibleRatioEstimator(3, 3) in bf16, one mc_feng chunk at the demo's
+   sizes (B=64, N_mc=128, --steps steps, γ=0.5), two-net and merged,
+   counted (kernel B 18,008 / 9,008, kernel A 100) and profiled; then one
+   FlowMatchingUNet64 trained as in 5t at B=64 (20 counted steps, 45/45/45
+   GN launches a step, one step card against CPU). Every full-width
+   sampler path prints its convolution and dense FLOP rate
+   (core/flops.py) and its share of the bf16 dense peak;
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -107,7 +130,9 @@ which fails the script (non-zero exit) on error:
    ways beside its bytes bound, the plain backward and the library call,
    summed over one train step's 35 sites, and the same at the experiment-1
    ratio net's 8 sites (the row 128x32x28x28, and the sum over one ratio
-   train step);
+   train step); flash_guidance at D=24,576 (B=64, N=128) the same four
+   ways, and group_norm_silu at the 64-px U-Net's largest site
+   (64x288x64x64 bf16) beside its bytes bound;
 6c. runs the tier-C bench (cli/resblock_kernel_bench.py), the path of
    fused_gn_silu_conv, with its launch counter set to 0; the bench holds
    the kernel against the bfloat16 plain version at each of its shapes
@@ -129,7 +154,13 @@ which fails the script (non-zero exit) on error:
    (experiment 2 on phase 7's checkpoints, batch 64, 100 steps): /healthz
    and 8 concurrent POSTs mixing none, mc_feng and smc (shapes, finite
    values, fewer dispatches than requests, a repeated seed's samples equal),
-   p50 / p90 latency and samples/s.
+   p50 / p90 latency and samples/s;
+7 (slice 9). the sample CLI and the service with --merged_unet on the
+   trained experiment-1 U-Nets; train_flow --model original (x and y, one
+   epoch, --metrics_dir, --profile_dir), then sample and evaluate with
+   --model original on what it wrote; cli/config5_demo.py at --n 512
+   --epochs 1 --ratio_epochs 1 --num_samples 64 --eval_chunks 2
+   --num_steps 20, two-net and --merged_unet.
 
 Every phase prints its wall time (`phase ...: N s wall`).
 
@@ -156,6 +187,13 @@ CLI_TRAIN_IMAGES = 2560         # phase 7's synthetic digits: 20 steps an epoch
 GRAD_STRENGTH = 0.5
 X_SHAPE, Y_SHAPE = (32, 32, 1), (32, 32, 3)
 E1_SHAPE = (28, 28, 1)          # experiment 1: both modalities
+S64 = (64, 64, 3)               # the 64-px config: both modalities
+B64, N64, B64_TRAIN = 64, 128, 64   # its demo's chunk, N_mc and batch
+TRAIN64_STEPS = 20
+# phase 7's run of cli/config5_demo.py: short, but every step of it
+CONFIG5_ARGV = ["--n", "512", "--epochs", "1", "--ratio_epochs", "1",
+                "--num_samples", "64", "--eval_chunks", "2", "--num_steps",
+                "20"]
 TOL_GUIDANCE = dict(rtol=1e-3, atol=1e-4)
 TOL_GN_F32 = dict(rtol=1e-4, atol=1e-4)   # bf16: ops/groupnorm.py:TOL_BF16
 # tests/test_resblock_pallas.py: float32 2e-4; bf16 against float32 0.1/0.15
@@ -205,11 +243,7 @@ def build_models(dtype, device):
     fm_m = FlowMatchingUNetMNIST(img_size=32, dtype=dtype)
     fm_s = FlowMatchingUNetSVHN(dtype=dtype)
     ratio = RatioEstimatorMNISTSVHN(dtype=dtype)
-    g = torch.Generator().manual_seed(1)
-    with torch.no_grad():
-        for net in (fm_m, fm_s):
-            net.out_conv.weight.copy_(
-                torch.randn(net.out_conv.weight.shape, generator=g) * 0.02)
+    _perturb_out_convs((fm_m, fm_s), 1)
     return tuple(place_model(m, device) for m in (fm_m, fm_s, ratio))
 
 
@@ -229,20 +263,67 @@ def build_exp1_models(unet_dtype, device):
     fm_x = FlowMatchingUNet(dtype=unet_dtype)
     fm_y = FlowMatchingUNet(dtype=unet_dtype)
     ratio = RatioEstimatorMNIST()
-    g = torch.Generator().manual_seed(11)
-    with torch.no_grad():
-        for net in (fm_x, fm_y):
-            net.out_conv.weight.copy_(
-                torch.randn(net.out_conv.weight.shape, generator=g) * 0.02)
+    _perturb_out_convs((fm_x, fm_y), 11)
     return tuple(place_model(m, device) for m in (fm_x, fm_y, ratio))
 
 
-def layer_shapes(models, device, x_shape, y_shape):
-    """Shapes on the main path (B=N_MC in phase A, B=B_MAIN in phase B), by
-    forward hooks: {(B, C, H): calls} of every GroupNormSiLU and
-    {(B, C, H, O): calls} of every ResBlock's norm1 -> conv1, per forward
-    pair at that B, plus the ratio net's GroupNormSiLU calls on the MC set
-    (experiment 1)."""
+def _perturb_out_convs(nets, seed: int):
+    """Perturb the zero-initialised out_conv of U-Nets (the velocity nets
+    are identically zero otherwise)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for net in nets:
+            net.out_conv.weight.copy_(
+                torch.randn(net.out_conv.weight.shape, generator=g) * 0.02)
+
+
+def build_original_models(unet_dtype, device):
+    """Experiment 1 with `--model original`: two random-init encoder-decoder
+    FlowMatchingModels in `unet_dtype` and RatioEstimatorMNIST (disc) in
+    float32, as the experiment-1 CLI builds them."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingModel,
+        RatioEstimatorMNIST,
+    )
+
+    torch.manual_seed(12)
+    nets = (FlowMatchingModel(dtype=unet_dtype),
+            FlowMatchingModel(dtype=unet_dtype), RatioEstimatorMNIST())
+    return tuple(place_model(m, device) for m in nets)
+
+
+def build_64_models(dtype, device, model_channels: int = 96):
+    """The 64-px config: two random-init 64-px U-Nets (FlowMatchingUNet64 at
+    model_channels 96, out_conv perturbed) and FlexibleRatioEstimator(3, 3),
+    all in `dtype`, as cli/config5_demo.py builds them."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlexibleRatioEstimator,
+        FlexibleUNet,
+    )
+
+    torch.manual_seed(14)
+    kw = dict(in_channels=3, img_size=64, model_channels=model_channels,
+              channel_mult=(1, 2, 2, 4), num_res_blocks=2, dtype=dtype)
+    nets = (FlexibleUNet(**kw), FlexibleUNet(**kw))
+    _perturb_out_convs(nets, 15)
+    ratio = FlexibleRatioEstimator(x_channels=3, y_channels=3, dtype=dtype)
+    return tuple(place_model(m, device) for m in nets + (ratio,))
+
+
+def layer_shapes(models, device, x_shape, y_shape, batches=None):
+    """Shapes on the main path (B=N_MC in phase A, B=B_MAIN in phase B, or
+    the given `batches`: N_mc first), by forward hooks: {(B, C, H): calls}
+    of every GroupNormSiLU and {(B, C, H, O): calls} of every ResBlock's
+    norm1 -> conv1, per forward pair at that B, plus the ratio net's
+    GroupNormSiLU calls on the MC set."""
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
@@ -256,6 +337,7 @@ def layer_shapes(models, device, x_shape, y_shape):
 
     gn, rb = {}, {}
     hooks = []
+    batches = batches or (N_MC, B_MAIN)
 
     def gn_hook(mod, args):
         B, C, H, _ = args[0].shape
@@ -273,12 +355,13 @@ def layer_shapes(models, device, x_shape, y_shape):
             elif isinstance(m, ResBlock):
                 hooks.append(m.register_forward_pre_hook(rb_hook))
     with torch.no_grad():
-        for B in (N_MC, B_MAIN):
+        for B in batches:
             t = torch.full((B,), 0.5, device=device)
             for net, shp in zip(models, (x_shape, y_shape)):
                 velocity_fn(net)(torch.zeros((B,) + shp, device=device), t)
-        ratio_log_fn(models[2])(torch.zeros((N_MC,) + x_shape, device=device),
-                                torch.zeros((N_MC,) + y_shape, device=device))
+        n = batches[0]
+        ratio_log_fn(models[2])(torch.zeros((n,) + x_shape, device=device),
+                                torch.zeros((n,) + y_shape, device=device))
     for h in hooks:
         h.remove()
     torch.cuda.synchronize()
@@ -413,12 +496,16 @@ def profile_call(run, steps: int):
 
 
 def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
-                  y_shape, steps, smi, method="mc_feng", gamma=GAMMA):
-    """One counted sampler call: every launch counter set to 0 just before,
-    read just after and held to `expected`; finite samples of the right
-    shape and, where the method mixes in mc_feng, 1 <= ESS <= N_mc; with
-    smc, 1 <= final ESS <= B and at least one resampling event.
-    Returns the record."""
+                  y_shape, steps, smi, method="mc_feng", gamma=GAMMA,
+                  batch=None, n_mc=None, flops=None, peak=None):
+    """One counted sampler call of `batch` pairs: every launch counter set
+    to 0 just before, read just after and held to `expected`; finite
+    samples of the right shape and, where the method mixes in mc_feng,
+    1 <= ESS <= n_mc; with smc, 1 <= final ESS <= B and at least one
+    resampling event. With `flops` (the call's convolution and dense
+    FLOPs, core/flops.py) and `peak` ((name, FLOP/s)), the FLOP rate by
+    the call's CUDA-event time and its share of that peak. Returns the
+    record."""
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
@@ -428,6 +515,7 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
         group_norm_silu_backward,
     )
 
+    batch, n_mc = batch or B_MAIN, n_mc or N_MC
     wrappers = {"flash_guidance": flash_guidance,
                 "group_norm_silu": group_norm_silu,
                 "group_norm_silu_backward": group_norm_silu_backward,
@@ -441,7 +529,7 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
     h0 = time.perf_counter()
     ev0.record()
     x1, y1, diags = sampler(models, torch.Generator(dev).manual_seed(gen_seed),
-                            B_MAIN)
+                            batch)
     ev1.record()
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - h0
@@ -449,8 +537,8 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
     dev_s = ev0.elapsed_time(ev1) / 1e3
     if counts != expected:
         fail(f"{name}: launch counts {counts} != derived {expected}")
-    if (tuple(x1.shape) != (B_MAIN,) + x_shape
-            or tuple(y1.shape) != (B_MAIN,) + y_shape
+    if (tuple(x1.shape) != (batch,) + x_shape
+            or tuple(y1.shape) != (batch,) + y_shape
             or not bool(torch.isfinite(x1).all())
             or not bool(torch.isfinite(y1).all())):
         fail(f"{name}: non-finite or mis-shaped samples")
@@ -458,32 +546,43 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
     if "mc_feng" in method:
         ess = diags["ess"]
         if not (float(ess.min()) >= 1.0 - 1e-4
-                and float(ess.max()) <= N_MC * (1 + 1e-4)):
-            fail(f"{name}: ESS outside [1, {N_MC}]: [{float(ess.min())}, "
+                and float(ess.max()) <= n_mc * (1 + 1e-4)):
+            fail(f"{name}: ESS outside [1, {n_mc}]: [{float(ess.min())}, "
                  f"{float(ess.max())}]")
         ess_txt = f"ESS [{float(ess.min()):.3f}, {float(ess.max()):.3f}]"
     elif method == "smc":
         final_ess, events = float(diags["final_ess"]), float(
             diags["resampled"].sum())
-        if not 1.0 - 1e-4 <= final_ess <= B_MAIN * (1 + 1e-4):
-            fail(f"{name}: final ESS {final_ess} outside [1, {B_MAIN}]")
+        if not 1.0 - 1e-4 <= final_ess <= batch * (1 + 1e-4):
+            fail(f"{name}: final ESS {final_ess} outside [1, {batch}]")
         if not events > 0.0:
             fail(f"{name}: no resampling event in {steps} steps")
         ess_txt = (f"final ESS {final_ess:.1f}, {events:.3f} resampling "
                    "events (sum over steps of the islands' share)")
     elif diags:
         fail(f"{name}: {method} returned diagnostics {sorted(diags)}")
-    sps = B_MAIN / dev_s
+    sps = batch / dev_s
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"{name}: B={B_MAIN} "
-          + (f"N_mc={N_MC} " if "mc_feng" in method else "")
+    rate_txt = ""
+    if flops is not None:
+        rate = flops / dev_s
+        rate_txt = (f"; convolutions and dense layers {flops / 1e12:.2f} "
+                    f"TFLOP -> {rate / 1e12:.1f} TFLOP/s, "
+                    f"{100 * rate / peak[1]:.2f}% of the {peak[0]} peak "
+                    f"({peak[1] / 1e12:.0f} TFLOP/s)")
+    print(f"{name}: B={batch} "
+          + (f"N_mc={n_mc} " if "mc_feng" in method else "")
           + f"steps={steps} bf16 "
           f"{method} γ={gamma}: {dev_s:.3f} s on the card (CUDA events), "
           f"{wall_s:.3f} s wall -> {sps:.1f} samples/s; peak mem "
-          f"{peak_gib:.2f} GiB; launches {counts}; {ess_txt}  [{smi}]")
-    rec = dict(batch=B_MAIN, n_mc=N_MC, steps=steps, method=method,
+          f"{peak_gib:.2f} GiB; launches {counts}; {ess_txt}{rate_txt}  "
+          f"[{smi}]")
+    rec = dict(batch=batch, n_mc=n_mc, steps=steps, method=method,
                seconds_device=dev_s, seconds_wall=wall_s, samples_per_s=sps,
                peak_mem_gib=peak_gib, launches=counts)
+    if flops is not None:
+        rec.update(flops=flops, flop_per_s=flops / dev_s,
+                   peak_share=flops / dev_s / peak[1], peak_used=peak[0])
     if method == "smc":
         rec.update(final_ess=final_ess, resampling_events=events,
                    resampled_per_step=diags["resampled"].tolist())
@@ -618,8 +717,9 @@ def train_step_card_vs_cpu(name, make_net, shape, dev, reflow=False):
 
 
 def counted_training(name, state, step, loader, extract, batches, steps,
-                     dev, smi, sites, loss_key=None, unit="images"):
-    """`steps` train steps at B=B_TRAIN through the epoch driver
+                     dev, smi, sites, loss_key=None, unit="images",
+                     batch=None):
+    """`steps` train steps at B=`batch` through the epoch driver
     (train/loop.py:train_epochs over `loader`'s epoch 0, `extract` mapped
     over its batches), two warm-up steps before it, with every launch
     counter set to 0 just before the run and held after it to the counts
@@ -641,6 +741,7 @@ def counted_training(name, state, step, loader, extract, batches, steps,
         train_epochs,
     )
 
+    batch = batch or B_TRAIN
     for i, b in enumerate(batches[:2]):     # warm-up, outside the count
         step(state, b, RNG(0, dev).generator(9, i))
     wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
@@ -675,26 +776,27 @@ def counted_training(name, state, step, loader, extract, batches, steps,
         fail(f"training {name}: non-finite epoch metrics {metrics}")
     dev_s = ev0.elapsed_time(ev1) / 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"training {name}: {steps} steps at B={B_TRAIN} f32, Adam lr {LR}, "
+    print(f"training {name}: {steps} steps at B={batch} f32, Adam lr {LR}, "
           f"EMA {EMA_DECAY}: {wall:.3f} s wall ({dev_s:.3f} s by CUDA "
-          f"events) -> {steps / wall:.2f} steps/s, {steps * B_TRAIN / wall:.0f}"
+          f"events) -> {steps / wall:.2f} steps/s, {steps * batch / wall:.0f}"
           f" {unit}/s; " + ", ".join(f"{k} {v:.4f}" for k, v in
                                      metrics.items())
           + f"; peak mem {peak_gib:.2f} GiB; {sites} GN sites, launches "
           f"{counts}  [{smi}]")
     prof = profile_call(lambda: [step(state, b, RNG(1, dev).generator(0, i))
                                  for i, b in enumerate(batches)], 5)
-    return dict(batch=B_TRAIN, steps=steps, seconds_wall=wall,
+    return dict(batch=batch, steps=steps, seconds_wall=wall,
                 seconds_events=dev_s, steps_per_s=steps / wall,
-                **{f"{unit}_per_s": steps * B_TRAIN / wall},
+                **{f"{unit}_per_s": steps * batch / wall},
                 loss=metrics["loss"], metrics=metrics,
                 peak_mem_gib=peak_gib, gn_sites=sites, launches=counts,
                 profile=prof)
 
 
-def run_training(name, make_net, shape, steps, dev, smi):
+def run_training(name, make_net, shape, steps, dev, smi, batch=None):
     """The flow-matching counted run: the full-width U-Net on a dataset
-    held on the card (batches gathered there), Adam lr 1e-4, EMA 0.999."""
+    held on the card (batches gathered there) at B=`batch`, Adam lr 1e-4,
+    EMA 0.999."""
     import numpy as np
     import torch
 
@@ -706,24 +808,25 @@ def run_training(name, make_net, shape, steps, dev, smi):
         make_fm_train_step,
     )
 
+    batch = batch or B_TRAIN
     net = _train_net(make_net, 40)
     sites = gn_sites(net)
     state = create_fm_state(net, dev, lr=LR, ema_decay=EMA_DECAY)
     step = make_fm_train_step(EMA_DECAY)
     g = torch.Generator(dev).manual_seed(41)
-    data = torch.rand(((steps + 7) * B_TRAIN,) + shape, generator=g,
+    data = torch.rand(((steps + 7) * batch,) + shape, generator=g,
                       device=dev) * 2.0 - 1.0
     labels = np.zeros(len(data), np.int64)
 
     class Loader:
         def epoch(self, e):
-            batches = flow_batches(data, labels, B_TRAIN,
+            batches = flow_batches(data, labels, batch,
                                    np.random.RandomState(e))
             return (b for i, b in enumerate(batches) if i < steps)
 
-    batches = [data[i * B_TRAIN:(i + 1) * B_TRAIN] for i in range(5)]
+    batches = [data[i * batch:(i + 1) * batch] for i in range(5)]
     return counted_training(name, state, step, Loader(), lambda b: b["x"],
-                            batches, steps, dev, smi, sites)
+                            batches, steps, dev, smi, sites, batch=batch)
 
 
 def _ratio_net(make_net, seed: int, dropout: bool = True):
@@ -913,7 +1016,8 @@ def run_ratio_training(name, make_net, x_shape, y_shape, steps, dev, smi):
         steps, dev, smi, sites, loss_key="loss", unit="pairs")
 
 
-def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
+def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE,
+                 fm_pair_apply=None):
     from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
         ratio_log_fn,
         velocity_fn,
@@ -929,7 +1033,8 @@ def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE):
                                  **cfg_kw})
     return make_guided_sampler_p(lambda m, x, t: velocity_fn(m)(x, t),
                                  lambda m, y, t: velocity_fn(m)(y, t), cfg,
-                                 lambda r, x, y: ratio_log_fn(r)(x, y))
+                                 lambda r, x, y: ratio_log_fn(r)(x, y),
+                                 fm_pair_apply=fm_pair_apply)
 
 
 # SMC needs a ratio net whose log r̂ varies across pairs: the random-init
@@ -1326,6 +1431,222 @@ def serve_phase(smi):
     return rec
 
 
+def merged_card_vs_two_net(dev):
+    """Phase 4m: merged-pair evaluation against the two nets on the card,
+    both in float32: the experiment-1 U-Nets (full width), mc_feng, B=8,
+    N_mc=16, 4 steps, phase A drawn inside from one seeded generator; x1 and
+    y1 within 5e-5 (the bound of the JAX package's
+    tests/test_merged_unet.py). Returns the max |Δ|."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.models.merged import (
+        merged_pair_apply,
+    )
+
+    models = build_exp1_models(torch.float32, dev)
+    outs = []
+    for pair in (None, merged_pair_apply(models[0])):
+        x1, y1, _ = make_sampler(dict(num_steps=4, mc_batch_size=16),
+                                 E1_SHAPE, E1_SHAPE, pair)(
+            models, torch.Generator(dev).manual_seed(5), 8)
+        outs.append((x1, y1))
+    err = max(max_abs(a, b) for a, b in zip(*outs))
+    if not err <= 5e-5:
+        fail(f"merged-pair sampler on the card != two-net sampler: max |Δ| "
+             f"{err:.3g} > 5e-5")
+    print(f"experiment-1 sampler, --merged_unet against two nets on the card "
+          f"(f32, B=8, N_mc=16, 4 steps, both phases): max |Δ| {err:.3g} "
+          f"(bound 5e-5)")
+    return err
+
+
+def sampler64_card_vs_cpu(dev):
+    """Phase 4x: the 64-px sampler (narrow U-Nets, ch 16, and
+    FlexibleRatioEstimator(3, 3), float32; mc_feng, B=4, N_mc=16, 4 steps,
+    injected noise and MC set) on the card and on the CPU, each held to a
+    yardstick: the CPU run with the guidance (and so the state) in float64.
+    At D = 24,576 the scores are ~6x those at D = 4,096 and two correct
+    float32 runs differ on near-tied rows beyond phase 4's 1e-3 (ROADMAP
+    F4), so the card's max |err| against the yardstick may be at most twice
+    the float32 CPU run's, plus 1e-3."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
+        flash_guidance_reference,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.sample import guided
+
+    g = torch.Generator().manual_seed(6)
+    inj = [torch.randn((n,) + S64, generator=g) for n in (4, 4, 16, 16)]
+    inj.append(torch.exp(torch.randn(16, generator=g)))
+    sampler = make_sampler(dict(num_steps=4, mc_batch_size=16), S64, S64)
+    cpu = torch.device("cpu")
+
+    def run(d):
+        x1, y1, _ = sampler(build_64_models(torch.float32, d, 16),
+                            torch.Generator(d).manual_seed(0), 4,
+                            mc_set=tuple(a.to(d) for a in inj[2:]),
+                            init_noise=(inj[0].to(d), inj[1].to(d)))
+        return x1.double().cpu(), y1.double().cpu()
+
+    card, plain = run(dev), run(cpu)
+    kernel = guided.flash_guidance
+    guided.flash_guidance = lambda *a: flash_guidance_reference(
+        *a, torch.float64)
+    try:
+        exact = run(cpu)
+    finally:
+        guided.flash_guidance = kernel
+    err_k, err_p = (max(float((a - e).abs().max()) for a, e in zip(r, exact))
+                    for r in (card, plain))
+    if not err_k <= 2.0 * err_p + 1e-3:
+        fail(f"64-px sampler: card max |err| against the float64-guidance "
+             f"CPU run {err_k:.3g} > twice the float32 CPU run's "
+             f"{err_p:.3g} + 1e-3")
+    print(f"64-px sampler (ch 16, f32, B=4, N_mc=16, 4 steps, D=24576): max "
+          f"|err| against the float64-guidance CPU run: card {err_k:.3g}, "
+          f"float32 CPU {err_p:.3g} (card held to 2x + 1e-3)")
+    return dict(card_err=err_k, cpu_f32_err=err_p)
+
+
+def slice9_clis(smi):
+    """Phase 7, slice 9, in the train CLIs' directory: the sample CLI and
+    the service with --merged_unet on the experiment-1 U-Net checkpoints;
+    then, in a subdirectory with the trained ratio net and classifier,
+    train_flow --model original (x and y, one epoch, --metrics_dir and
+    --profile_dir) and the sample and evaluate CLIs with --model original
+    on what it wrote; then cli/config5_demo.py at a short setting that
+    covers every step, two-net and --merged_unet (the second run reloads
+    the first run's checkpoints)."""
+    import shutil
+
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        config5_demo,
+        evaluate,
+        sample,
+        serve,
+        train_flow,
+    )
+
+    rec = {}
+    argv = ["--guidance_method", "mc_feng", "--num_samples", "64",
+            "--num_steps", "20", "--mc_batch_size", str(N_MC)]
+    out = {}
+    for tag, extra in (("two-net", []), ("merged", ["--merged_unet"])):
+        h0 = time.perf_counter()
+        out[tag] = sample.main(argv + extra)
+        rec[f"sample {tag}"] = time.perf_counter() - h0
+        x1, y1, diags = out[tag]
+        if not (bool(torch.isfinite(x1).all()) and bool(
+                torch.isfinite(y1).all()) and len(diags["ess"]) == 20):
+            fail(f"CLI sample {extra}: non-finite samples or a short trace")
+    diff = max(max_abs(a, b) for a, b in zip(out["two-net"][:2],
+                                             out["merged"][:2]))
+    print(f"CLI sample --merged_unet on the trained experiment-1 flows "
+          f"(mc_feng, 64 pairs, 20 steps, f32): {rec['sample merged']:.1f} s "
+          f"wall (two nets {rec['sample two-net']:.1f} s); max |Δ| against "
+          f"the two-net run {diff:.3g} (not held: phase 4m holds 5e-5)  "
+          f"[{smi}]")
+    h0 = time.perf_counter()
+    svc = serve.build_service(serve.make_parser().parse_args([
+        "--experiment", "mnist_transform", "--merged_unet", "--batch_size",
+        "64", "--num_steps", "20", "--mc_batch_size", str(N_MC)]))
+    if svc._fm_pair is None:
+        fail("serve --merged_unet: the experiment-1 flows were not merged")
+    x, y, _ = svc.sample(16, "mc_feng", 0.5, seed=3)
+    rec["serve merged"] = time.perf_counter() - h0
+    if x.shape != (16,) + E1_SHAPE or not (np.isfinite(x).all()
+                                            and np.isfinite(y).all()):
+        fail(f"serve --merged_unet: samples {x.shape}, finite "
+             f"{np.isfinite(x).all() and np.isfinite(y).all()}")
+    print(f"serve --experiment mnist_transform --merged_unet: start-up and "
+          f"one mc_feng request of 16 pairs (batch 64, 20 steps) "
+          f"{rec['serve merged']:.1f} s wall  [{smi}]")
+
+    os.makedirs(os.path.join("original", "checkpoints"))
+    for f in ("ratio_disc_rotate90_best.pth", "mnist_classifier.pth"):
+        shutil.copy(os.path.join("checkpoints", f),
+                    os.path.join("original", "checkpoints", f))
+    cwd = os.getcwd()
+    os.chdir("original")
+    try:
+        for modality in ("x", "y"):
+            h0 = time.perf_counter()
+            state, best, hist = train_flow.main([
+                "--model", "original", "--modality", modality, "--epochs",
+                "1", "--batch_size", str(B_TRAIN), "--metrics_dir", "m",
+                "--profile_dir", "p"])
+            rec[f"train_flow original {modality}"] = time.perf_counter() - h0
+            with open(os.path.join("m", f"flow_{modality}.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            if (not np.isfinite(best) or len(rows) != 1 or set(rows[0])
+                    != {"step", "time", "loss", "steps_per_sec"}):
+                fail(f"CLI train_flow --model original: best {best}, "
+                     f"metrics {rows}")
+        traces = os.listdir("p")
+        if len(traces) != 2:
+            fail(f"train_flow --profile_dir wrote {traces}")
+        print(f"CLI train_flow --model original x, y (1 epoch at B="
+              f"{B_TRAIN}, --metrics_dir, --profile_dir): "
+              f"{rec['train_flow original x']:.1f} / "
+              f"{rec['train_flow original y']:.1f} s wall, loss "
+              f"{rows[0]['loss']:.4f}, {rows[0]['steps_per_sec']:.2f} steps/s "
+              f"(profiler on), traces {traces}  [{smi}]")
+        h0 = time.perf_counter()
+        x1, y1, diags = sample.main(argv + ["--model", "original", "--dtype",
+                                            "bf16"])
+        rec["sample original"] = time.perf_counter() - h0
+        if not (bool(torch.isfinite(x1).all())
+                and bool(torch.isfinite(y1).all())):
+            fail("CLI sample --model original: non-finite samples")
+        h0 = time.perf_counter()
+        results = evaluate.main([
+            "--model", "original", "--guidance_methods", "none", "mc_feng",
+            "--guidance_strengths", "0", str(GAMMA), "--num_steps", "20",
+            "--num_samples", str(B_MAIN // 2), "--mc_batch_size", str(N_MC),
+            "--fid", "--dtype", "bf16"])
+        rec["evaluate original"] = time.perf_counter() - h0
+        if len(results) != 3 or not all(
+                np.isfinite(r["coherence_acc"])
+                and np.isfinite(r["classifier_fid_x"]) for r in results):
+            fail(f"CLI evaluate --model original: {results}")
+        print(f"CLI sample / evaluate --model original on the flows "
+              f"train_flow wrote (bf16, 20 steps): {rec['sample original']:.1f}"
+              f" / {rec['evaluate original']:.1f} s wall; coherence "
+              + ", ".join(f"{r['method']}@{r['guidance_strength']} "
+                          f"{r['coherence_acc']:.3f}" for r in results)
+              + f"  [{smi}]")
+    finally:
+        os.chdir(cwd)
+
+    os.makedirs("config5")
+    os.chdir("config5")
+    try:
+        c5 = CONFIG5_ARGV
+        for tag, extra in (("two-net", []), ("merged", ["--merged_unet"])):
+            h0 = time.perf_counter()
+            res = config5_demo.main(c5 + extra)
+            rec[f"config5_demo {tag}"] = time.perf_counter() - h0
+            if (len(res["eval"]) != 4 or not all(r["finite"]
+                                                 for r in res["eval"])
+                    or (res["fm_params_per_modality"] != 37_375_683
+                        and "--model_channels" not in c5)):
+                fail(f"cli/config5_demo.py {extra}: {res}")
+            print(f"CLI config5_demo {' '.join(c5 + extra)}: "
+                  f"{rec[f'config5_demo {tag}']:.1f} s wall; sources "
+                  f"{res['data_sources']}, classifier acc "
+                  f"{res['classifier_acc']}; " + ", ".join(
+                      f"γ={r['gamma']} coherence {r['coherence']} "
+                      f"{r['samples_per_sec']} samples/s"
+                      for r in res["eval"]) + f"  [{smi}]")
+            rec[f"config5_demo {tag} eval"] = res["eval"]
+    finally:
+        os.chdir(cwd)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -1513,6 +1834,44 @@ def main(argv=None) -> int:
                  "same inputs differ")
     print("flash_guidance: two launches on the same inputs are bit-identical "
           "(D=4096, D=1568, ragged)")
+    # the 64-px path: B=B64, N=N64, D=24,576 (both modalities 64x64x3). Its
+    # scores are ~6x those at D=4096, so both kinds of input are held to
+    # the float64 yardstick (quarter-integers no longer keep the scaled
+    # scores exact): g at most twice the float32 plain version's max |err|,
+    # ess and l within rtol 2e-2; and two launches bit for bit
+    yard64 = {}
+    s64_in = None
+    for tag, images in (("quarter_ints", quarter_ints), ("normal", rnd)):
+        inputs = (images(B64, 64, 64, 3), images(B64, 64, 64, 3),
+                  images(N64, 64, 64, 3), images(N64, 64, 64, 3), rnd(N64))
+        s64_in = s64_in or inputs
+        for t in (0.05, 0.5, 0.95):
+            got = flash_guidance(*inputs, t)
+            flush()
+            again = flash_guidance(*inputs, t)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_guidance D=24576 {tag} t={t}: two launches on "
+                     "the same inputs differ")
+            plain = flash_guidance_reference(*inputs, t)
+            exact = flash_guidance_reference(*inputs, t, torch.float64)
+            err_k, err_p = (max(float((r[i].double() - exact[i]).abs().max())
+                                for i in (0, 1)) for r in (got, plain))
+            yard64[f"{tag}_t{t}"] = dict(kernel=err_k, plain_f32=err_p)
+            for i, nm in ((2, "ess"), (3, "l")):
+                check_close(f"flash_guidance {nm} D=24576 {tag} t={t} "
+                            "against float64", got[i].double(), exact[i],
+                            rtol=2e-2, atol=1e-4)
+            if err_k > 2.0 * err_p + 1e-6:
+                fail(f"flash_guidance D=24576 {tag} t={t}: max |err| in g "
+                     f"against float64 {err_k:.3g} exceeds twice the float32 "
+                     f"plain version's {err_p:.3g}")
+    print(f"flash_guidance at the 64-px path's B={B64} N={N64} D=24576 "
+          f"against the float64 plain version, max |err| in g (kernel / "
+          f"float32 plain): " + ", ".join(
+              f"{k} {v['kernel']:.3g} / {v['plain_f32']:.3g}"
+              for k, v in yard64.items()) + "; reruns bit-identical")
+    details["flash_guidance_d24576_yardstick"] = yard64
 
     models = build_models(torch.bfloat16, dev)
     shapes, rb_shapes = layer_shapes(models, dev, X_SHAPE, Y_SHAPE)
@@ -1672,51 +2031,59 @@ def main(argv=None) -> int:
         for key, n in sites_of.items():
             train_sites[key] = train_sites.get(key, 0) + n
     train_yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
-    train_fwd_err = train_bwd_err = 0.0
+    train_err = {"forward": 0.0, "backward": 0.0}
+
+    def check_train_site(B, C, H, yard):
+        """Both GN kernels at one site as a train step runs them (above);
+        the float64 yardstick's worst errors go into `yard`."""
+        name = f"training GN B={B} C={C} {H}x{H} f32 channels_last"
+        x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
+            memory_format=torch.channels_last)
+        w = (torch.rand(C, generator=gen, device=dev) + 0.5
+             ).requires_grad_(True)
+        b = (rnd(C) * 0.1).requires_grad_(True)
+        dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
+        xs = x.clone().requires_grad_(True)
+        y = group_norm_silu(xs, w, b, 8)
+        train_err["forward"] = max(train_err["forward"], check_close(
+            f"{name} forward", y.detach(),
+            group_norm_silu_reference(x, w.detach(), b.detach(), 8),
+            **TOL_GN_F32))
+        saved = y.grad_fn.saved_tensors
+        mean, rstd = gn_stats_reference(x, 8)
+        check_saved_stats(name, saved, mean, rstd)
+        got = torch.autograd.grad(y, (xs, w, b), dy)
+        wd, bd = w.detach(), b.detach()
+        first = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
+        flush()
+        again = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
+        torch.cuda.synchronize()
+        if not (all(torch.equal(u, v) for u, v in zip(first, again))
+                and all(torch.equal(u, v) for u, v in zip(got, first))):
+            fail(f"{name}: two backward launches on the same inputs "
+                 "differ")
+        plain = group_norm_silu_backward_reference(dy, x, wd, bd, mean,
+                                                   rstd)
+        train_err["backward"] = max(train_err["backward"],
+                                    max_abs(got[0], plain[0]))
+        exact = group_norm_silu_backward_reference(
+            dy.double(), x.double(), wd.double(), bd.double(),
+            mean.double(), rstd.double())
+        for nm, k_, p_, e_ in zip(("dx", "dgamma", "dbeta"), got, plain,
+                                  exact):
+            err_k = float((k_.double() - e_).abs().max())
+            err_p = float((p_.double() - e_).abs().max())
+            yard[nm][0] = max(yard[nm][0], err_k)
+            yard[nm][1] = max(yard[nm][1], err_p)
+            if err_k > 2.0 * err_p + 1e-6:
+                fail(f"{name} {nm}: max |err| against float64 "
+                     f"{err_k:.3g} exceeds twice the float32 plain "
+                     f"backward's {err_p:.3g}")
+
     for B in (B_TRAIN, B_TRAIN - 1):
         for (C, H) in sorted(train_sites):
-            name = f"training GN B={B} C={C} {H}x{H} f32 channels_last"
-            x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
-                memory_format=torch.channels_last)
-            w = (torch.rand(C, generator=gen, device=dev) + 0.5
-                 ).requires_grad_(True)
-            b = (rnd(C) * 0.1).requires_grad_(True)
-            dy = rnd(B, C, H, H).contiguous(memory_format=torch.channels_last)
-            xs = x.clone().requires_grad_(True)
-            y = group_norm_silu(xs, w, b, 8)
-            train_fwd_err = max(train_fwd_err, check_close(
-                f"{name} forward", y.detach(),
-                group_norm_silu_reference(x, w.detach(), b.detach(), 8),
-                **TOL_GN_F32))
-            saved = y.grad_fn.saved_tensors
-            mean, rstd = gn_stats_reference(x, 8)
-            check_saved_stats(name, saved, mean, rstd)
-            got = torch.autograd.grad(y, (xs, w, b), dy)
-            wd, bd = w.detach(), b.detach()
-            first = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
-            flush()
-            again = group_norm_silu_backward(dy, x, wd, bd, mean, rstd)
-            torch.cuda.synchronize()
-            if not (all(torch.equal(u, v) for u, v in zip(first, again))
-                    and all(torch.equal(u, v) for u, v in zip(got, first))):
-                fail(f"{name}: two backward launches on the same inputs "
-                     "differ")
-            plain = group_norm_silu_backward_reference(dy, x, wd, bd, mean,
-                                                       rstd)
-            train_bwd_err = max(train_bwd_err, max_abs(got[0], plain[0]))
-            exact = group_norm_silu_backward_reference(
-                dy.double(), x.double(), wd.double(), bd.double(),
-                mean.double(), rstd.double())
-            for nm, k_, p_, e_ in zip(("dx", "dgamma", "dbeta"), got, plain,
-                                      exact):
-                err_k = float((k_.double() - e_).abs().max())
-                err_p = float((p_.double() - e_).abs().max())
-                train_yard[nm][0] = max(train_yard[nm][0], err_k)
-                train_yard[nm][1] = max(train_yard[nm][1], err_p)
-                if err_k > 2.0 * err_p + 1e-6:
-                    fail(f"{name} {nm}: max |err| against float64 "
-                         f"{err_k:.3g} exceeds twice the float32 plain "
-                         f"backward's {err_p:.3g}")
+            check_train_site(B, C, H, train_yard)
+    train_fwd_err, train_bwd_err = train_err["forward"], train_err["backward"]
     print(f"training GN sites ({len(train_sites)} (C,H) of the SVHN, "
           f"MNIST-32 and 28-px U-Nets and the experiment-1 ratio net's "
           f"{sum(ratio_sites.values())} sites {sorted(ratio_sites)}, "
@@ -1737,6 +2104,84 @@ def main(argv=None) -> int:
             backward=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
         for B in (B_TRAIN, B_TRAIN - 1) for (C, H) in sorted(ratio_sites)}
     details["gn_saved_stats_entries_checked"] = stats_checked[0]
+
+    # slice 9: kernel B at the new paths' sampler shapes (the
+    # encoder-decoder at B=N_MC and B=B_MAIN; the 64-px U-Nets at B=N64 and
+    # B64 and the 64-px ratio net on the MC set; every merged-pair site of
+    # the 28-px and 64-px U-Net pairs: 2C channels in 2G groups) in bf16
+    # and float32, channels_last and NCHW, two launches bit for bit; then
+    # both kernels as a train step runs them at the encoder-decoder's 7
+    # sites (B_TRAIN and B_TRAIN-1) and FlowMatchingUNet64's 45 (B64_TRAIN
+    # and B64_TRAIN-1)
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingModel,
+        FlowMatchingUNet64,
+    )
+
+    o_models = build_original_models(torch.bfloat16, dev)
+    o_shapes, _ = layer_shapes(o_models, dev, E1_SHAPE, E1_SHAPE)
+    m64 = build_64_models(torch.bfloat16, dev)
+    s64_shapes, _ = layer_shapes(m64, dev, S64, S64, (N64, B64))
+    sites64 = unet_gn_sites(FlowMatchingUNet64(), 3, 64)
+    sites_e1 = unet_gn_sites(FlowMatchingUNet(), 1, 28)
+    sites_o = model_gn_sites(FlowMatchingModel(), torch.zeros(1, 1, 28, 28),
+                             torch.zeros(1))
+    merged_gn = {}
+    for sites_of, batches in ((sites_e1, (N_MC, B_MAIN)),
+                              (sites64, (N64, B64))):
+        for B in batches:
+            for (C, H), n in sites_of.items():
+                merged_gn[(B, 2 * C, H, 16)] = n
+    s9_check = sorted({(B, C, H, 8) for (B, C, H) in set(o_shapes)
+                       | set(s64_shapes)} | set(merged_gn))
+    s9_err = {"bf16": 0.0, "f32": 0.0}
+    for (B, C, H, G) in s9_check:
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                x = (rnd(B, C, H, H) * 2.0 + 0.5).to(dt).contiguous(
+                    memory_format=fmt)
+                w = torch.rand(C, generator=gen, device=dev) + 0.5
+                b = rnd(C) * 0.1
+                got = group_norm_silu(x, w, b, G)
+                again = group_norm_silu(x, w, b, G)
+                torch.cuda.synchronize()
+                if got.stride() != x.stride() or not torch.equal(got, again):
+                    fail(f"group_norm_silu B={B} C={C} H={H} G={G}: output "
+                         "strides differ from the input's, or two launches "
+                         "differ")
+                s9_err[tag] = max(s9_err[tag], check_close(
+                    f"group_norm_silu {tag} B={B} C={C} H={H} G={G} {fmt}",
+                    got, group_norm_silu_reference(x, w, b, G),
+                    **tol_gn[tag]))
+                del x, got, again
+    gn_err = {k: max(gn_err[k], s9_err[k]) for k in gn_err}
+    s9_yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
+    for sites_of, batch in ((sites_o, B_TRAIN), (sites64, B64_TRAIN)):
+        for B in (batch, batch - 1):
+            for (C, H) in sorted(sites_of):
+                check_train_site(B, C, H, s9_yard)
+    train_bwd_err = train_err["backward"]
+    torch.cuda.empty_cache()
+    print(f"slice-9 GN shapes: group_norm_silu == plain at {len(s9_check)} "
+          f"(B,C,H,G) shapes (the encoder-decoder's, the 64-px U-Nets' and "
+          f"ratio net's at B={N64} and {B64}, {len(merged_gn)} merged-pair "
+          f"sites at 2C channels in 16 groups), both layouts, reruns "
+          f"bit-identical; max |err| bf16 {s9_err['bf16']:.3g}, f32 "
+          f"{s9_err['f32']:.3g}; training sites of the encoder-decoder "
+          f"({sum(sites_o.values())} sites, B={B_TRAIN} and {B_TRAIN - 1}) "
+          f"and FlowMatchingUNet64 ({sum(sites64.values())} sites, "
+          f"{len(sites64)} (C,H), B={B64_TRAIN} and {B64_TRAIN - 1}): dx, "
+          f"dγ, dβ max |err| against float64 (kernel / float32 plain): "
+          + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                      for k, v in s9_yard.items()))
+    details["slice9_gn"] = dict(
+        shapes=[f"B{B}_C{C}_H{H}_G{G}" for (B, C, H, G) in s9_check],
+        max_abs_err=s9_err, training_float64_yardstick=s9_yard,
+        original_sites={f"C{C}_H{H}": n for (C, H), n in sites_o.items()},
+        unet64_sites={f"C{C}_H{H}": n for (C, H), n in sites64.items()})
+    if sum(sites_o.values()) != 7 or sum(sites64.values()) != 45:
+        fail(f"GN sites: encoder-decoder {sum(sites_o.values())} (7 "
+             f"expected), FlowMatchingUNet64 {sum(sites64.values())} (45)")
 
     # kernel C at every ResBlock norm1 -> conv1 shape of the U-Nets
     conv_err = {"f32": 0.0, "bf16_vs_f32": 0.0, "bf16": 0.0}
@@ -1809,6 +2254,12 @@ def main(argv=None) -> int:
         card_vs_cpu("sampler", build_models, X_SHAPE, Y_SHAPE, method)
         card_vs_cpu("experiment-1 sampler", build_exp1_models, E1_SHAPE,
                     E1_SHAPE, method)
+    # slice 9: --model original (as above), merged against two nets on the
+    # card (4m), the 64-px sampler against a float64-guidance yardstick (4x)
+    card_vs_cpu("experiment-1 sampler, --model original",
+                build_original_models, E1_SHAPE, E1_SHAPE)
+    details["merged_card_max_abs_diff"] = merged_card_vs_two_net(dev)
+    details["s64_card_vs_cpu"] = sampler64_card_vs_cpu(dev)
     mark("4 samplers card against CPU")
 
     # 4s. SMC on the card against SMC on the CPU, both experiments
@@ -1821,7 +2272,32 @@ def main(argv=None) -> int:
     mark("4s SMC card against CPU")
 
     # 5. the main path, counted; 5b. where its time goes (a profiled
-    #    5-step call, outside the counted run)
+    #    5-step call, outside the counted run). Every full-width sampler
+    #    path prints its convolution and dense FLOP rate (core/flops.py:
+    #    the velocity nets and the guidance products; the ratio nets are
+    #    not counted) beside the bf16 dense peak, its nets' compute type
+    from ratio_guided_multimodal_fm_tpu_torch.core.flops import (
+        flow_matching_model_flops,
+        mnist_unet_flops,
+        pair_sampler_flops,
+        svhn_unet_flops,
+        unet64_flops,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.models.merged import (
+        merged_pair_apply,
+    )
+
+    bf16_peak = ("bf16 dense", peak_bf16)
+
+    def sampler_flops(fx, fy, d, method="mc_feng", batch=None, n_mc=None):
+        mc = "mc_feng" in method
+        return pair_sampler_flops(fx, fy, batch or B_MAIN, n_mc or N_MC,
+                                  args.steps,
+                                  d if mc else 0, with_phase_a=mc)
+
+    def mnist28(b):
+        return mnist_unet_flops(b, 28)
+
     sampler = make_sampler(dict(num_steps=args.steps, mc_batch_size=N_MC))
     warm = make_sampler(dict(num_steps=2, mc_batch_size=N_MC))
     warm(models, torch.Generator(dev).manual_seed(1), B_MAIN)
@@ -1831,7 +2307,9 @@ def main(argv=None) -> int:
                 "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
     details["main_path"] = run_main_path(
         "main path", sampler, models, expected, 2, X_SHAPE, Y_SHAPE,
-        args.steps, smi)
+        args.steps, smi, flops=sampler_flops(mnist_unet_flops,
+                                             svhn_unet_flops, 4096),
+        peak=bf16_peak)
     details["main_path"]["gn_sites"] = sites
     counts = details["main_path"]["launches"]
     prof_sampler = make_sampler(dict(num_steps=5, mc_batch_size=N_MC))
@@ -1854,7 +2332,8 @@ def main(argv=None) -> int:
                    "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
     details["exp1_path"] = run_main_path(
         "experiment-1 path", e1_sampler, e1_models, e1_expected, 2, E1_SHAPE,
-        E1_SHAPE, args.steps, smi)
+        E1_SHAPE, args.steps, smi,
+        flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["exp1_path"]["gn_sites"] = e1_sites
     e1_prof = make_sampler(dict(num_steps=5, mc_batch_size=N_MC), E1_SHAPE,
                            E1_SHAPE)
@@ -1863,6 +2342,71 @@ def main(argv=None) -> int:
                         B_MAIN), 5)
 
     mark("5e experiment-1 path")
+
+    # 5o. --model original, experiment 1, full width: two FlowMatchingModel
+    #     in bf16 + RatioEstimatorMNIST (float32), B=512, N_mc=256, --steps
+    #     steps, mc_feng at γ=0.5, counted and profiled as 5e
+    o_sites = [gn_sites(net) for net in o_models]
+    make_sampler(dict(num_steps=2, mc_batch_size=N_MC), E1_SHAPE, E1_SHAPE)(
+        o_models, torch.Generator(dev).manual_seed(1), B_MAIN)
+    details["original_path"] = run_main_path(
+        "experiment-1 path, --model original",
+        make_sampler(dict(num_steps=args.steps, mc_batch_size=N_MC), E1_SHAPE,
+                     E1_SHAPE), o_models,
+        {"flash_guidance": args.steps,
+         "group_norm_silu": 2 * args.steps * sum(o_sites[:2]) + o_sites[2],
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+        2, E1_SHAPE, E1_SHAPE, args.steps, smi,
+        flops=sampler_flops(flow_matching_model_flops,
+                            flow_matching_model_flops, 1568),
+        peak=bf16_peak)
+    details["original_path"]["gn_sites"] = o_sites
+    details["original_profile"] = profile_call(
+        lambda: make_sampler(dict(num_steps=5, mc_batch_size=N_MC), E1_SHAPE,
+                             E1_SHAPE)(o_models,
+                                       torch.Generator(dev).manual_seed(4),
+                                       B_MAIN), 5)
+    mark("5o --model original path")
+
+    # 5m. --merged_unet on 5e's path (its nets and sizes): both U-Nets as
+    #     one merged network, one GN launch per site pair; counted and
+    #     profiled, then two-net and merged calls in turns (two-net,
+    #     merged, merged, two-net) for the call-time comparison
+    merged_e1 = merged_pair_apply(e1_models[0])
+    m_sampler = make_sampler(dict(num_steps=args.steps, mc_batch_size=N_MC),
+                             E1_SHAPE, E1_SHAPE, merged_e1)
+    make_sampler(dict(num_steps=2, mc_batch_size=N_MC), E1_SHAPE, E1_SHAPE,
+                 merged_e1)(e1_models, torch.Generator(dev).manual_seed(1),
+                            B_MAIN)
+    details["merged_exp1_path"] = run_main_path(
+        "experiment-1 path, --merged_unet", m_sampler, e1_models,
+        {"flash_guidance": args.steps,
+         "group_norm_silu": args.steps * sum(e1_sites[:2]) + e1_sites[2],
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+        2, E1_SHAPE, E1_SHAPE, args.steps, smi,
+        flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
+    details["merged_exp1_profile"] = profile_call(
+        lambda: make_sampler(dict(num_steps=5, mc_batch_size=N_MC), E1_SHAPE,
+                             E1_SHAPE, merged_e1)(
+            e1_models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
+    turns = []
+    for tag, smp in (("two-net", e1_sampler), ("merged", m_sampler),
+                     ("merged", m_sampler), ("two-net", e1_sampler)):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        ev0.record()
+        smp(e1_models, torch.Generator(dev).manual_seed(2), B_MAIN)
+        ev1.record()
+        torch.cuda.synchronize()
+        turns.append((tag, ev0.elapsed_time(ev1) / 1e3))
+    details["merged_vs_two_net_turns_s"] = turns
+    e1p, mp = details["exp1_profile"], details["merged_exp1_profile"]
+    print(f"experiment-1 call, two nets against --merged_unet in turns: "
+          + ", ".join(f"{t} {sec:.3f} s" for t, sec in turns)
+          + f"; kernels per 5 profiled steps {e1p['device_busy_ms']:.1f} / "
+          f"{mp['device_busy_ms']:.1f} ms (busy {100 * e1p['device_busy_ms'] / e1p['wall_ms']:.0f}% / "
+          f"{100 * mp['device_busy_ms'] / mp['wall_ms']:.0f}%)  [{smi}]")
+    mark("5m --merged_unet path")
 
     # 5g. gradient guidance at full width. Experiment 1, mc_feng+grad: phase
     #     A and B as above, plus every step the ratio net's forward (its 8
@@ -1885,7 +2429,8 @@ def main(argv=None) -> int:
                                         + args.steps * e1_sites[2]),
                     "group_norm_silu_backward": args.steps * e1_sites[2],
                     "fused_gn_silu_conv": 0},
-        2, E1_SHAPE, E1_SHAPE, args.steps, smi, method="mc_feng+grad")
+        2, E1_SHAPE, E1_SHAPE, args.steps, smi, method="mc_feng+grad",
+        flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["exp1_grad_profile"] = profile_call(
         lambda: make_sampler(dict(e1g_kw, num_steps=5), E1_SHAPE, E1_SHAPE)(
             e1_models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
@@ -1894,7 +2439,9 @@ def main(argv=None) -> int:
         make_sampler(dict(e2g_kw, num_steps=args.steps)), models,
         {"flash_guidance": 0, "group_norm_silu": args.steps * sum(sites),
          "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
-        2, X_SHAPE, Y_SHAPE, args.steps, smi, method="grad")
+        2, X_SHAPE, Y_SHAPE, args.steps, smi, method="grad",
+        flops=sampler_flops(mnist_unet_flops, svhn_unet_flops, 4096, "grad"),
+        peak=bf16_peak)
     details["main_grad_profile"] = profile_call(
         lambda: make_sampler(dict(e2g_kw, num_steps=5))(
             models, torch.Generator(dev).manual_seed(4), B_MAIN), 5)
@@ -1923,7 +2470,10 @@ def main(argv=None) -> int:
                          "group_norm_silu": args.steps * sum(smc_sites),
                          "group_norm_silu_backward": 0,
                          "fused_gn_silu_conv": 0},
-            2, xs, ys, args.steps, smi, method="smc", gamma=SMC_GAMMA)
+            2, xs, ys, args.steps, smi, method="smc", gamma=SMC_GAMMA,
+            flops=sampler_flops(*((mnist_unet_flops, svhn_unet_flops)
+                                  if tag == "exp2" else (mnist28, mnist28)),
+                                0, "smc"), peak=bf16_peak)
         rec.update(gn_sites=smc_sites, group=grp, tau=tau)
         rec["sync_debug"] = sync_debug_smc(
             f"SMC path ({tag})", make_smc(dict(kw, num_steps=10)),
@@ -1984,6 +2534,50 @@ def main(argv=None) -> int:
         details["reflow"][name] = rec
     mark("5f reflow")
 
+    # 5x. the 64-px config at full width: FlowMatchingUNet64 x2 (ch 96) and
+    #     FlexibleRatioEstimator(3, 3), bf16, one mc_feng chunk at the
+    #     demo's sizes (B=B64, N_mc=N64, --steps steps, γ=0.5), two-net
+    #     and --merged_unet, counted and profiled; then one
+    #     FlowMatchingUNet64's CFM training (float32, B=B64_TRAIN, Adam lr
+    #     1e-4, EMA 0.999): one step card against CPU and TRAIN64_STEPS
+    #     counted steps
+    s64_sites = [gn_sites(net) for net in m64]
+    details["s64_paths"] = {}
+    for tag, pair in (("two-net", None), ("merged",
+                                          merged_pair_apply(m64[0]))):
+        kw = dict(mc_batch_size=N64)
+        make_sampler(dict(kw, num_steps=2), S64, S64, pair)(
+            m64, torch.Generator(dev).manual_seed(1), B64)
+        per = 2 if pair is None else 1
+        rec = run_main_path(
+            f"64-px path ({tag})",
+            make_sampler(dict(kw, num_steps=args.steps), S64, S64, pair),
+            m64, {"flash_guidance": args.steps,
+                  "group_norm_silu": (per * args.steps * sum(s64_sites[:2])
+                                      + s64_sites[2]),
+                  "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+            2, S64, S64, args.steps, smi, batch=B64, n_mc=N64,
+            flops=sampler_flops(unet64_flops, unet64_flops, 2 * 64 * 64 * 3,
+                                batch=B64, n_mc=N64), peak=bf16_peak)
+        rec["gn_sites"] = s64_sites
+        rec["profile"] = profile_call(
+            lambda: make_sampler(dict(kw, num_steps=5), S64, S64, pair)(
+                m64, torch.Generator(dev).manual_seed(4), B64), 5)
+        details["s64_paths"][tag] = rec
+    del m64
+    torch.cuda.empty_cache()
+    rec = train_step_card_vs_cpu("64-px U-Net",
+                                 lambda: FlowMatchingUNet64(in_channels=3),
+                                 S64, dev)
+    rec.update(run_training("64-px U-Net",
+                            lambda: FlowMatchingUNet64(in_channels=3), S64,
+                            TRAIN64_STEPS, dev, smi, batch=B64_TRAIN))
+    details["training"]["64-px U-Net"] = rec
+    if rec["gn_sites"] != 45:
+        fail(f"FlowMatchingUNet64 holds {rec['gn_sites']} GN sites, not 45")
+    torch.cuda.empty_cache()
+    mark("5x 64-px config")
+
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
@@ -1998,9 +2592,10 @@ def main(argv=None) -> int:
         [X1 | Y1], attn_mask = log r - t²|k|²/(2σ²) and scale t/σ².
         Returns (the call, max |err| of its g against the kernel's)."""
         xt_, yt_, X1_, Y1_, lr_ = inputs
-        q = torch.cat([xt_.reshape(B_MAIN, -1), yt_.reshape(B_MAIN, -1)],
+        B, N = xt_.shape[0], X1_.shape[0]
+        q = torch.cat([xt_.reshape(B, -1), yt_.reshape(B, -1)],
                       1)[None, None]
-        kv = torch.cat([X1_.reshape(N_MC, -1), Y1_.reshape(N_MC, -1)],
+        kv = torch.cat([X1_.reshape(N, -1), Y1_.reshape(N, -1)],
                        1)[None, None]
         mask = (lr_ - float(t32 * t32 * inv_2s2)
                 * (kv[0, 0] * kv[0, 0]).sum(1))[None, None, None, :]
@@ -2012,19 +2607,21 @@ def main(argv=None) -> int:
 
         gx, gy, _, _ = flash_guidance(*inputs, t_mid)
         err = max_abs((sdpa()[0, 0] - q[0, 0]) * float(inv_sigma),
-                      torch.cat([gx.reshape(B_MAIN, -1),
-                                 gy.reshape(B_MAIN, -1)], 1))
+                      torch.cat([gx.reshape(B, -1), gy.reshape(B, -1)], 1))
         return sdpa, err
 
-    # flash_guidance at both widths: the four times of core/card.py:
-    # call_times, the plain version, the library call and the bound
+    # flash_guidance at the three widths (the 64-px path's at its B and N):
+    # the four times of core/card.py:call_times, the plain version, the
+    # library call and the bound
     capacity = card_capacity(dev.index or 0)
     fg_times = {}
-    for tag, inputs in (("D4096", main_in), ("D1568", e1_in)):
+    for tag, inputs in (("D4096", main_in), ("D1568", e1_in),
+                        ("D24576", s64_in)):
+        B, N = inputs[0].shape[0], inputs[2].shape[0]
         Dx, Dy = inputs[0][0].numel(), inputs[1][0].numel()
         D = Dx + Dy
-        fl = 2.0 * 2 * B_MAIN * N_MC * D             # two GEMMs, 2 flop/FMA
-        by = 4.0 * (2 * B_MAIN * D + N_MC * D + N_MC + 2 * B_MAIN)
+        fl = 2.0 * 2 * B * N * D             # two GEMMs, 2 flop/FMA
+        by = 4.0 * (2 * B * D + N * D + N + 2 * B)
         row = call_times(lambda: flash_guidance(*inputs, t_mid), dev,
                          ("scores_kernel", "weighted_sum_kernel"),
                          strict=False)
@@ -2035,9 +2632,9 @@ def main(argv=None) -> int:
             library_ms=time_ms(sdpa, dev), library_max_abs_err_g=sdpa_err,
             bound_ms=max(fl / peak_f32, by / peak_bw) * 1e3,
             bound_by="operations" if fl / peak_f32 > by / peak_bw else "bytes",
-            plan=vars(guidance_plan(B_MAIN, N_MC, Dx, Dy, True, capacity)))
+            plan=vars(guidance_plan(B, N, Dx, Dy, True, capacity)))
         fg_times[tag] = row
-        print(f"  flash_guidance B={B_MAIN} N={N_MC} D={D} f32: device "
+        print(f"  flash_guidance B={B} N={N} D={D} f32: device "
               f"{ms_str(row['device_ms'])} ms (profiler, both kernels; L2 cold "
               f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
               f"events, "
@@ -2104,7 +2701,10 @@ def main(argv=None) -> int:
         launches=counts["flash_guidance"], max_abs_err=fg_err,
         ms=fg_ms, plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=sdpa_ms, ms_is=fg_ms_is))
+        library_ms=sdpa_ms, ms_is=fg_ms_is,
+        d24576={k: fg_times["D24576"][k] for k in (
+            "device_ms", "device_cold_ms", "event_ms", "host_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")}))
     D = fg_times["D4096"]["D"]
 
     per_shape = {}
@@ -2154,6 +2754,32 @@ def main(argv=None) -> int:
         ms_is="CUDA events around 20 back-to-back calls",
         exp1_ratio_train_launches=details["ratio_training"][
             "experiment-1 ratio"]["launches"]["group_norm_silu"]))
+    # the 64-px U-Net's largest site: 64 x 288 x 64 x 64 bf16 channels_last
+    x = rnd(B64, 288, 64, 64).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    w, b = torch.rand(288, generator=gen, device=dev) + 0.5, rnd(288) * 0.1
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    try:
+        site_dev, _ = device_ms(lambda: group_norm_silu(x, w, b, 8),
+                                "gn_silu_kernel")
+    except ProfilerSilent as e:
+        print(f"  not measured: {e}")
+        site_dev = None
+    site = dict(
+        shape=f"{B64}x288x64x64 bf16 channels_last",
+        event_ms=time_ms(lambda: group_norm_silu(x, w, b, 8), dev),
+        device_ms=site_dev,
+        plain_ms=time_ms(lambda: group_norm_silu_reference(x, w, b, 8), dev),
+        library_ms=time_ms(lambda: F.silu(F.group_norm(x, 8, wb, bb, 1e-6)),
+                           dev),
+        bound_ms=(2.0 * x.numel() * 2 + 2 * 288 * 4) / peak_bw * 1e3)
+    kernels[-1]["unet64_largest_site"] = site
+    print(f"  group_norm_silu at the 64-px U-Net's largest site "
+          f"{site['shape']}: {ms_str(site['device_ms'])} ms on the device "
+          f"(profiler), {site['event_ms']:.4f} by events; plain "
+          f"{site['plain_ms']:.4f}, library {site['library_ms']:.4f}, bound "
+          f"{site['bound_ms']:.4f} by bytes  [{smi}]")
+    del x
     details["gn_per_shape_bf16"] = per_shape
     details["gn_kernel_ms_per_sampler_call"] = gn_call_ms
     details["gn_device_ms_per_sampler_call"] = gn_call_dev_ms
@@ -2614,6 +3240,8 @@ def main(argv=None) -> int:
             mark("7 reflow and smc CLIs")
             details["serve"] = serve_phase(smi)
             mark("7v serve")
+            details["slice9_cli"] = slice9_clis(smi)
+            mark("7 slice-9 CLIs")
         finally:
             os.chdir(cwd)
             if synth_n is None:
@@ -2634,6 +3262,16 @@ def main(argv=None) -> int:
         n: r["step"]["launches"] for n, r in details["reflow"].items()}
     for nm in ("flash_guidance", "group_norm_silu"):
         by_name[nm]["serve_launches"] = details["serve"]["launches"][nm]
+    # slice 9: --model original (5o), --merged_unet (5m), the 64-px paths
+    # and training (5x)
+    new_paths = {"original": details["original_path"],
+                 "merged_exp1": details["merged_exp1_path"],
+                 "s64_two_net": details["s64_paths"]["two-net"],
+                 "s64_merged": details["s64_paths"]["merged"],
+                 "s64_training": details["training"]["64-px U-Net"]}
+    for k in kernels:
+        for tag, rec in new_paths.items():
+            k[f"{tag}_launches"] = rec["launches"][k["name"]]
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start
     print(f"total {details['total_s']:.1f} s")

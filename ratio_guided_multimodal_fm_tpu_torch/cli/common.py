@@ -2,7 +2,8 @@
 evaluation, train, reflow and serve CLIs need): flag groups (--smc_*
 included), the train CLIs' runtime set-up
 and refusals, the ratio train CLIs' body, model factory, checkpoint names
-and loading, NHWC closures over the NCHW models, diagnostics."""
+and loading, NHWC closures over the NCHW models (merged-pair evaluation
+included), diagnostics."""
 from __future__ import annotations
 
 import argparse
@@ -16,7 +17,10 @@ from ratio_guided_multimodal_fm_tpu_torch.core.device import resolve_device
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import dtype_from_name
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import make_time_grid
-from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNet
+from ratio_guided_multimodal_fm_tpu_torch.models import (
+    FlowMatchingModel,
+    FlowMatchingUNet,
+)
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (  # noqa: F401
     checkpoint_path,   # the CLIs take it from here
     ema_checkpoint_path,
@@ -58,6 +62,12 @@ def add_common_flags(p: argparse.ArgumentParser):
                    choices=["f32", "bf16"],
                    help="Model activation dtype (params stay f32; guidance "
                         "weight math is always f32)")
+    p.add_argument("--merged_unet", action="store_true",
+                   help="evaluate the two velocity nets as one merged "
+                        "grouped-conv network (models/merged.py; same math) "
+                        "where their topologies match. Off by default, as "
+                        "in the JAX package (PERF.md has the card's "
+                        "timing)")
 
 
 def add_solver_flag(p: argparse.ArgumentParser):
@@ -225,16 +235,14 @@ def add_fast_rng_flag(p: argparse.ArgumentParser):
 def add_train_runtime_flags(p: argparse.ArgumentParser):
     """The JAX train CLIs' other common flags: --data_root is ported; the
     prefetch switch has nothing to switch (the dataset lives on the device
-    and batches are gathered there); the multi-process and merged-U-Net
-    flags are refused by init_runtime until those are ported."""
+    and batches are gathered there); the multi-process flags are refused
+    by init_runtime until parallel/ is ported."""
     p.add_argument("--data_root", type=str, default="./data",
                    help="Dataset root (IDX/.mat files; synthetic fallback)")
     p.add_argument("--no_prefetch", action="store_true",
                    help="accepted for the JAX CLIs' sake: the port keeps "
                         "the dataset on the device and has no prefetch "
                         "thread to turn off")
-    p.add_argument("--merged_unet", action="store_true",
-                   help="not yet ported (refused)")
     p.add_argument("--coordinator_address", type=str, default=None,
                    help="multi-process training: not yet ported (refused)")
     p.add_argument("--num_processes", type=int, default=None,
@@ -321,10 +329,8 @@ def arm_preemption():
 
 
 def refuse_unported_runtime(args) -> None:
-    """Refuse add_train_runtime_flags' --merged_unet and multi-process
-    flags until models/merged.py and parallel/ are ported."""
-    if getattr(args, "merged_unet", False):
-        not_yet_ported("--merged_unet (models/merged.py)")
+    """Refuse add_train_runtime_flags' multi-process flags until parallel/
+    is ported."""
     if any(getattr(args, f, None) is not None for f in
            ("coordinator_address", "num_processes", "process_id")):
         not_yet_ported("multi-process runs (parallel/)")
@@ -339,9 +345,6 @@ def init_runtime(args) -> torch.device:
                          "Philox on the card (drop the flag)")
     if getattr(args, "fused_steps", 1) > 1:
         not_yet_ported("--fused_steps > 1 (the fused K-step trainer)")
-    for flag in ("metrics_dir", "profile_dir"):
-        if getattr(args, flag, None):
-            not_yet_ported(f"--{flag} (core/observability.py)")
     refuse_unported_runtime(args)
     if getattr(args, "dtype", "f32") != "f32":
         print("--dtype is ignored by training, which runs in float32 as "
@@ -358,11 +361,17 @@ def dtype_of(args) -> torch.dtype:
 
 
 def fm_model(kind: str, dtype: torch.dtype = torch.float32):
-    """'--model' factory: 'unet' is the MNIST-28 FlowMatchingUNet (the
-    encoder-decoder 'original' is not ported yet)."""
-    if kind != "unet":
-        not_yet_ported(f"--model {kind}")
-    return FlowMatchingUNet(dtype=dtype)
+    """'--model unet|original' factory (ref sample.py:132-134): the MNIST-28
+    FlowMatchingUNet or the encoder-decoder FlowMatchingModel."""
+    if kind == "unet":
+        return FlowMatchingUNet(dtype=dtype)
+    return FlowMatchingModel(dtype=dtype)
+
+
+def fm_bridge(kind: str) -> str:
+    """The weight-bridge name of a '--model' kind (the JAX exporter's
+    --model), for the missing-checkpoint hint."""
+    return "unet_mnist" if kind == "unet" else "fm_original"
 
 
 def load_state_dict(model: torch.nn.Module, path: str, model_kind: str):
@@ -394,6 +403,23 @@ def velocity_fn(model):
     def fn(x, t):
         return model(x.permute(0, 3, 1, 2), t).permute(0, 2, 3, 1).contiguous()
     return fn
+
+
+def maybe_merged_pair_fn(model_x, model_y, args=None):
+    """(x, y, t) -> (v_x, v_y) NHWC evaluating both nets as one merged
+    network (models/merged.py) when the user passed --merged_unet and the
+    topologies match; None otherwise. The weights are merged once, here.
+    Same math either way; the default stays off, as in the JAX package."""
+    if args is None or not getattr(args, "merged_unet", False):
+        return None
+    from ratio_guided_multimodal_fm_tpu_torch.models.merged import (
+        can_merge,
+        merged_pair_apply,
+    )
+
+    if not can_merge(model_x, model_y):
+        return None
+    return merged_pair_apply(model_x)(model_x, model_y)
 
 
 def ratio_log_fn(model):

@@ -38,6 +38,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_solver_flag,
     classifier_fn,
     load_state_dict,
+    maybe_merged_pair_fn,
     ratio_log_fn,
     report_guidance_diagnostics,
     smc_config_from_args,
@@ -130,9 +131,11 @@ def sweep_config(args, method: str, strength: float, x_shape, y_shape):
 
 
 def sample_config(args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
-                  device, x_shape, y_shape):
+                  device, x_shape, y_shape, fm_pair=None):
     """One configuration of the sweep in chunks (eval/chunked.py): returns
-    (samples_x, samples_y, merged diagnostics, chunk info)."""
+    (samples_x, samples_y, merged diagnostics, chunk info). `fm_pair`
+    (--merged_unet) evaluates both flows as one network in the MC sets and
+    the guided sampler, not in SMC, as in the JAX CLI."""
     make_mc = None
     if method in MC_METHODS and args.mc_refresh <= 1:
         def make_mc(gen):
@@ -140,7 +143,7 @@ def sample_config(args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
                 fm_x, fm_y, log_ratio, gen, args.mc_batch_size, x_shape,
                 y_shape, args.num_steps, log_ratio_clip=args.ratio_clip,
                 solver=args.solver, time_grid=args.time_grid,
-                grid_power=args.grid_power)
+                grid_power=args.grid_power, fm_pair_fn=fm_pair)
     if method == "smc":
         smc = make_smc_sampler(fm_x, fm_y, smc_config_from_args(
             args, strength, x_shape, y_shape), log_ratio)
@@ -151,7 +154,9 @@ def sample_config(args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
         sampler = make_guided_sampler_p(
             lambda _, x, t: fm_x(x, t), lambda _, y, t: fm_y(y, t),
             sweep_config(args, method, strength, x_shape, y_shape),
-            None if log_ratio is None else (lambda _, x, y: log_ratio(x, y)))
+            None if log_ratio is None else (lambda _, x, y: log_ratio(x, y)),
+            fm_pair_apply=None if fm_pair is None else (
+                lambda _x, _y: fm_pair))
 
         def sample_chunk(gen, n_i, mc_ci):
             return sampler((None, None, None), gen, n_i, mc_ci)
@@ -211,9 +216,7 @@ def main(argv=None):
     parser.add_argument("--transform_type", type=str, default="rotate90")
     add_sweep_flags(parser)
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet"],
-                        help="the MNIST-28 U-Net (the encoder-decoder "
-                             "'original' is not ported yet)")
+                        choices=["unet", "original"])
     parser.add_argument("--save_samples", action="store_true",
                         help="Save generated samples per config as "
                              "outputs/samples_{method}_gamma{g}_{transform}"
@@ -232,6 +235,9 @@ def main(argv=None):
     classify = classifier_fn(clf)
     fm_x_net, fm_y_net = load_exp1_flows(args, device)
     fm_x, fm_y = velocity_fn(fm_x_net), velocity_fn(fm_y_net)
+    fm_pair = maybe_merged_pair_fn(fm_x_net, fm_y_net, args)
+    if fm_pair is not None:
+        print("  Merged-pair evaluation of FM_x and FM_y")
 
     real_images = None
     if args.fid:
@@ -256,7 +262,7 @@ def main(argv=None):
                     continue
             samples_x, samples_y, diags, chunk_info = sample_config(
                 args, method, strength, fm_x, fm_y, log_ratio, mc_cache,
-                device, SHAPE, SHAPE)
+                device, SHAPE, SHAPE, fm_pair)
             metrics = evaluate_coherence(samples_x, samples_y, classify,
                                          args.transform_type)
             result = base_result(args, method, strength, metrics, chunk_info,

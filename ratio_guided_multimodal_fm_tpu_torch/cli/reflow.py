@@ -35,6 +35,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_train_runtime_flags,
     checkpoint_path,
     count_params,
+    fm_bridge,
     fm_model,
     init_runtime,
     load_state_dict,
@@ -69,13 +70,12 @@ def _resolve(args):
                 checkpoint_path("flow", "svhn", "best"),
                 checkpoint_path("flow", "svhn", "reflow", "best"),
                 "unet_svhn")
-    fm_model(args.model)      # refuses what is not ported
     transform = args.transform_type if args.modality == "y" else None
     return (lambda: fm_model(args.model), (28, 28, 1),
             checkpoint_path("flow", args.modality, transform, "best"),
             checkpoint_path("flow", args.modality, transform, "reflow",
                             "best"),
-            "unet_mnist")
+            fm_bridge(args.model))
 
 
 def _copy(model: torch.nn.Module) -> dict:
@@ -158,8 +158,7 @@ def main(argv=None):
                         help="experiment-1 flow to distill")
     parser.add_argument("--transform_type", type=str, default="rotate90")
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet", "original"],
-                        help="'original' is not yet ported")
+                        choices=["unet", "original"])
     parser.add_argument("--flow", type=str, default="mnist32",
                         choices=["mnist32", "svhn"],
                         help="experiment-2 flow to distill")

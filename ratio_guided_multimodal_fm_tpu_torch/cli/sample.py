@@ -5,12 +5,15 @@ transformed MNIST (port of cli/sample.py: methods 'none', 'mc_feng',
 Loads reference-layout state dicts from ./checkpoints — the .pth files the
 JAX package's `rgmf-export-torch --out ...` writes:
 
-    checkpoints/flow_x_best.pth                     (--model unet_mnist)
-    checkpoints/flow_y_{transform}_best.pth         (--model unet_mnist)
+    checkpoints/flow_x_best.pth                     (--model unet_mnist,
+    checkpoints/flow_y_{transform}_best.pth          or fm_original with
+                                                     --model original)
     checkpoints/ratio_{loss}_{transform}_best.pth   (--model ratio)
 
 with `_reflow` (--reflow) and `_ema` (--ema, --ratio_ema) name parts as
 the JAX CLI reads them. The ratio net runs in float32 whatever --dtype is.
+--merged_unet evaluates both flows as one network (models/merged.py)
+where their topologies match: the U-Nets, not the encoder-decoder.
 Writes outputs/diagnostics_{method}_gamma{γ}_{transform}.json and, where
 matplotlib is installed, outputs/samples_{method}_gamma{γ}_{transform}.png.
 
@@ -33,8 +36,10 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_solver_flag,
     checkpoint_path,
     dtype_of,
+    fm_bridge,
     fm_model,
     load_state_dict,
+    maybe_merged_pair_fn,
     ratio_log_fn,
     report_guidance_diagnostics,
     sample_smc_from_args,
@@ -53,7 +58,8 @@ SHAPE = (28, 28, 1)
 
 
 def load_exp1_flows(args, device: torch.device):
-    """FM_x and FM_y from ./checkpoints, on `device`."""
+    """FM_x and FM_y (--model unet|original) from ./checkpoints, on
+    `device`."""
     rf = "reflow" if args.reflow else None
     em = "ema" if args.ema else None
     nets = []
@@ -61,7 +67,8 @@ def load_exp1_flows(args, device: torch.device):
                  checkpoint_path("flow", "y", args.transform_type, rf, em,
                                  "best")):
         nets.append(place_model(load_state_dict(
-            fm_model(args.model, dtype_of(args)), path, "unet_mnist"),
+            fm_model(args.model, dtype_of(args)), path,
+            fm_bridge(args.model)),
             device))
         print(f"  Loaded {path}")
     return nets[0], nets[1]
@@ -111,9 +118,7 @@ def main(argv=None):
                         help="Adaptive guidance: per-trajectory gamma_eff = "
                              "gamma*min(1, ESS/ess_floor)")
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet"],
-                        help="the MNIST-28 U-Net (the encoder-decoder "
-                             "'original' is not ported yet)")
+                        choices=["unet", "original"])
     add_common_flags(parser)
     args = parser.parse_args(argv)
 
@@ -136,6 +141,7 @@ def main(argv=None):
     else:
         samples_x, samples_y, diags = sample_bimodal_guided(
             velocity_fn(fm_x), velocity_fn(fm_y),
+            fm_pair_fn=maybe_merged_pair_fn(fm_x, fm_y, args),
             log_ratio_fn=None if ratio is None else ratio_log_fn(ratio),
             guidance_method=args.guidance_method,
             guidance_strength=args.guidance_strength,

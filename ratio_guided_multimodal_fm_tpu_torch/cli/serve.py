@@ -45,6 +45,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_solver_flag,
     add_train_runtime_flags,
     dtype_of,
+    maybe_merged_pair_fn,
     ratio_log_fn,
     refuse_unported_runtime,
     velocity_fn,
@@ -90,7 +91,9 @@ class SamplerService:
     """Owns the samplers, the warm MC set and the coalescing dispatcher.
 
     fm_*_fn(x NHWC, t [B]) -> v and log_ratio_fn(x, y) -> [B] are closures
-    on `device` (default cuda). A dispatcher thread drains the request
+    on `device` (default cuda); `fm_pair_fn` (x, y, t) -> (v_x, v_y), where
+    given, evaluates both flows as one merged network in the MC set and
+    the guided samplers (not in SMC). A dispatcher thread drains the request
     queue, merges same-(method, strength) requests arriving within
     `linger_ms` into one batch and slices the results back per request.
     One lock serialises every use of the device (warm-up on request
@@ -98,7 +101,8 @@ class SamplerService:
 
     def __init__(self, fm_x_fn, fm_y_fn, log_ratio_fn, x_shape, y_shape,
                  batch_size=64, num_steps=100, mc_batch_size=256, seed=0,
-                 linger_ms: float = 10.0, solver: str = "euler",
+                 linger_ms: float = 10.0, fm_pair_fn=None,
+                 solver: str = "euler",
                  time_grid: str = "uniform", grid_power: float = 2.0,
                  smc_churn: float = 1.0, smc_churn_iters: int = 1,
                  smc_resample_tau: float = 0.5, smc_t_min: float = 0.2,
@@ -118,13 +122,15 @@ class SamplerService:
         self._samplers = {}
         self._fm_x, self._fm_y, self._log_ratio = (fm_x_fn, fm_y_fn,
                                                    log_ratio_fn)
+        self._fm_pair = fm_pair_fn
         self._mc_set = None
         if log_ratio_fn is not None:
             self._mc_set = generate_mc_set(
                 fm_x_fn, fm_y_fn, log_ratio_fn,
                 torch.Generator(self.device).manual_seed(seed),
                 mc_batch_size, self.x_shape, self.y_shape, num_steps,
-                solver=solver, time_grid=time_grid, grid_power=grid_power)
+                solver=solver, time_grid=time_grid, grid_power=grid_power,
+                fm_pair_fn=fm_pair_fn)
         self.mc_batch_size = mc_batch_size
         self.stats = {"dispatches": 0, "requests": 0, "coalesced_max": 1}
         self._linger = max(0.0, linger_ms) / 1000.0
@@ -198,7 +204,9 @@ class SamplerService:
                     y_shape=self.y_shape, solver=self.solver,
                     time_grid=self.time_grid, grid_power=self.grid_power),
                 None if self._log_ratio is None
-                else (lambda _, x, y: self._log_ratio(x, y)))
+                else (lambda _, x, y: self._log_ratio(x, y)),
+                fm_pair_apply=None if self._fm_pair is None
+                else (lambda _x, _y: self._fm_pair))
 
             def sampler(gen, n, mc, noise, _s=guided):
                 return _s((None, None, None), gen, n, mc, noise)
@@ -370,9 +378,9 @@ def make_handler(service: SamplerService):
 
 
 def make_parser() -> argparse.ArgumentParser:
-    """The JAX CLI's flags (--merged_unet and the multi-process flags are
-    refused until they are ported; --data_root and --no_prefetch are
-    accepted with nothing to read)."""
+    """The JAX CLI's flags (the multi-process flags are refused until they
+    are ported; --data_root and --no_prefetch are accepted with nothing to
+    read; --merged_unet merges the experiment-1 flows, as in JAX)."""
     parser = argparse.ArgumentParser(description="Serve guided pair sampling")
     parser.add_argument("--experiment", type=str, default="mnist_svhn",
                         choices=["mnist_svhn", "mnist_transform"])
@@ -404,6 +412,7 @@ def build_service(args) -> SamplerService:
                   smc_resample_tau=args.smc_resample_tau,
                   smc_t_min=args.smc_t_min, smc_t_max=args.smc_t_max,
                   smc_group=args.smc_group)
+    fm_pair = None
     if args.experiment == "mnist_svhn":
         fm_x, fm_y, ratio = load_mnist_svhn_models(
             args.loss_type, True, device, dtype_of(args), args.reflow,
@@ -413,10 +422,11 @@ def build_service(args) -> SamplerService:
         fm_x, fm_y = load_exp1_flows(args, device)
         ratio = load_exp1_ratio(args, device)
         shapes = ((28, 28, 1), (28, 28, 1))
+        fm_pair = maybe_merged_pair_fn(fm_x, fm_y, args)
     return SamplerService(
         velocity_fn(fm_x), velocity_fn(fm_y), ratio_log_fn(ratio), *shapes,
         args.batch_size, args.num_steps, args.mc_batch_size, args.seed,
-        solver=args.solver, time_grid=args.time_grid,
+        fm_pair_fn=fm_pair, solver=args.solver, time_grid=args.time_grid,
         grid_power=args.grid_power, device=device, **smc_kw)
 
 

@@ -6,7 +6,10 @@ Flag-parity with the JAX CLI (ref src/train_flow.py:26-49). Writes bare
 state dicts checkpoints/flow_{modality}[_{transform}]_{best|epochN}.pth
 and, with --ema_decay, flow_{modality}[_{transform}]_ema_best.pth: the
 files the experiment-1 sample and evaluate CLIs read. float32, on the card
-unless --device cpu.
+unless --device cpu. --model original trains the encoder-decoder
+FlowMatchingModel; --metrics_dir appends each epoch's metrics to
+<dir>/flow_{modality}.jsonl and --profile_dir writes a torch.profiler
+Chrome trace of the run there (core/observability.py).
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow \\
         --modality y --transform_type rotate90 --epochs 50
@@ -24,6 +27,10 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     count_params,
     fm_model,
     init_runtime,
+)
+from ratio_guided_multimodal_fm_tpu_torch.core.observability import (
+    MetricsLogger,
+    profile_trace,
 )
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG, set_seed
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
@@ -59,8 +66,7 @@ def main(argv=None):
     parser.add_argument("--patience", type=int, default=10,
                         help="Early stopping patience")
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet", "original"],
-                        help="'original' is not yet ported")
+                        choices=["unet", "original"])
     parser.add_argument("--ema_decay", type=float, default=None,
                         help="Polyak-average the weights with this decay "
                              "(e.g. 0.999); best saves also write "
@@ -69,10 +75,10 @@ def main(argv=None):
     add_fused_flag(parser)
     add_fast_rng_flag(parser)
     parser.add_argument("--metrics_dir", type=str, default=None,
-                        help="JSONL epoch metrics: not yet ported (refused)")
+                        help="Write JSONL epoch metrics here (observability)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="profiler trace of epoch 0: not yet ported "
-                             "(refused)")
+                        help="Write a torch.profiler Chrome trace of the "
+                             "training run here")
     parser.add_argument("--preempt_path", type=str, default=None,
                         help="Preemption-safe training: on SIGTERM, save a "
                              "step-granular resumable checkpoint here and "
@@ -109,15 +115,24 @@ def main(argv=None):
               f"(best {resume['start_best']:.4f})")
 
     modality = args.modality
-    state, best, history = train_flow_matching_epochs(
-        state, make_fm_train_step(args.ema_decay),
-        epoch_data_iter(loader, lambda b: b[modality]), args.epochs,
-        RNG(args.seed + 1, device),
-        best_path=checkpoint_path("flow", modality, transform, "best"),
-        periodic_path_fn=lambda e: checkpoint_path(
-            "flow", modality, transform, f"epoch{e}"),
-        save_every=args.save_every, patience=args.patience,
-        preempt_path=args.preempt_path, **resume)
+    metrics_logger = (MetricsLogger(args.metrics_dir, f"flow_{modality}")
+                      if args.metrics_dir else None)
+    try:
+        with profile_trace(args.profile_dir):
+            state, best, history = train_flow_matching_epochs(
+                state, make_fm_train_step(args.ema_decay),
+                epoch_data_iter(loader, lambda b: b[modality]), args.epochs,
+                RNG(args.seed + 1, device),
+                best_path=checkpoint_path("flow", modality, transform,
+                                          "best"),
+                periodic_path_fn=lambda e: checkpoint_path(
+                    "flow", modality, transform, f"epoch{e}"),
+                save_every=args.save_every, patience=args.patience,
+                metrics_logger=metrics_logger,
+                preempt_path=args.preempt_path, **resume)
+    finally:
+        if metrics_logger is not None:
+            metrics_logger.close()
     if not finish_preemptible(history, args.preempt_path):
         print("\nTraining complete!")
     return state, best, history

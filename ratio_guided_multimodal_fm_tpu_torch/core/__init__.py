@@ -1,1 +1,2 @@
-"""Device selection, precision policy and NaN guards."""
+"""Device selection, precision policy, NaN guards, FLOP counts and
+observability (profiler traces, step timers, JSONL metrics)."""

@@ -10,6 +10,10 @@ from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
     get_mnist_svhn_ratio_dataloader,
     get_svhn_flow_dataloader,
 )
+from ratio_guided_multimodal_fm_tpu_torch.data.natural import (
+    generate_natural,
+    load_natural,
+)
 from ratio_guided_multimodal_fm_tpu_torch.data.sources import (
     load_mnist,
     load_svhn,
@@ -20,8 +24,9 @@ from ratio_guided_multimodal_fm_tpu_torch.data.transforms import (
     inverse_transform,
 )
 
-__all__ = ["TRANSFORM_NAMES", "apply_transform", "get_classifier_dataloader",
+__all__ = ["TRANSFORM_NAMES", "apply_transform", "generate_natural",
+           "get_classifier_dataloader",
            "get_mnist32_flow_dataloader", "get_mnist_svhn_dataloader",
            "get_mnist_svhn_ratio_dataloader", "get_ratio_dataloader",
            "get_svhn_flow_dataloader", "inverse_transform", "load_mnist",
-           "load_svhn"]
+           "load_natural", "load_svhn"]

@@ -111,6 +111,39 @@ def ode_scan(velocity_fn: Callable, x0: torch.Tensor, num_steps: int = 100,
     return x
 
 
+def ode_scan_pair(pair_fn: Callable, x0: torch.Tensor, y0: torch.Tensor,
+                  num_steps: int = 100, solver: str = "euler",
+                  grid: str = "uniform", grid_power: float = 2.0):
+    """Integrate both modalities' flows together: pair_fn(x, y, t [B]) ->
+    (v_x, v_y), as a merged velocity function (models/merged.py) evaluates
+    both nets in one call. Same grid, solvers and float32 arithmetic as
+    `ode_scan`. Returns (x1, y1)."""
+    if solver not in SOLVERS:
+        raise ValueError(f"solver must be one of {SOLVERS}, got {solver!r}")
+    ts, dts = make_time_grid(num_steps, grid, grid_power)
+    B = x0.shape[0]
+
+    def vel(xx, yy, tt):
+        tb = torch.full((B,), float(tt), dtype=torch.float32,
+                        device=x0.device)
+        v_x, v_y = pair_fn(xx, yy, tb)
+        return v_x.to(torch.float32), v_y.to(torch.float32)
+
+    x, y = x0.to(torch.float32), y0.to(torch.float32)
+    for t, dt in zip(ts, dts):
+        v_x, v_y = vel(x, y, t)
+        half = np.float32(0.5) * dt
+        if solver == "midpoint":
+            v_x, v_y = vel(x + float(half) * v_x, y + float(half) * v_y,
+                           t + half)
+        elif solver == "heun":
+            v_x2, v_y2 = vel(x + float(dt) * v_x, y + float(dt) * v_y,
+                             t + dt)
+            v_x, v_y = 0.5 * (v_x + v_x2), 0.5 * (v_y + v_y2)
+        x, y = x + v_x * float(dt), y + v_y * float(dt)
+    return x, y
+
+
 def euler_sample(velocity_fn: Callable, generator: torch.Generator,
                  shape: tuple, num_steps: int = 100, solver: str = "euler",
                  grid: str = "uniform", grid_power: float = 2.0):

@@ -5,9 +5,12 @@ The port's own copy of the layout rules of the JAX package's exporter
 into the port with `load_state_dict(strict=True)`:
 
   Conv2d      kernel (kh,kw,I,O) -> weight (O,I,kh,kw)
+  ConvTranspose2d  kernel (kh,kw,I,O) -> weight (I,O,kh,kw), spatially
+              flipped (flax's ConvTranspose does not flip its kernel)
   Linear      kernel (I,O)       -> weight (O,I); after a conv map (the
-              classifiers' fc1) its inputs go from flax's (H,W,C) flatten
-              order to torch's (C,H,W)
+              classifiers' and the encoder-decoder's fc) its inputs go from
+              flax's (H,W,C) flatten order to torch's (C,H,W); before one
+              (the encoder-decoder's decoder.fc1) its outputs and bias do
   Group/LayerNorm, BatchNorm  scale/bias -> weight/bias
   BatchNorm   batch_stats mean/var -> running_mean/running_var, and
               num_batches_tracked = 0 (inference never reads it)
@@ -43,6 +46,24 @@ def _dense(out: StateDict, name: str, p: Mapping[str, Any],
             w.shape[0], -1)
     out[f"{name}.weight"] = _t(w)
     out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _deconv(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
+    k = np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+    out[f"{name}.weight"] = _t(k)
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _dense_spatial_out(out: StateDict, name: str, p: Mapping[str, Any],
+                       out_shape) -> None:
+    """Linear whose output is reshaped to a (C, H, W) map: flax's rows are
+    in (H, W, C) order."""
+    c, h, ww = out_shape
+    w = np.asarray(p["kernel"]).T                 # (H*W*C, I)
+    w = w.reshape(h, ww, c, -1).transpose(2, 0, 1, 3).reshape(c * h * ww, -1)
+    b = np.asarray(p["bias"]).reshape(h, ww, c).transpose(2, 0, 1)
+    out[f"{name}.weight"] = _t(w)
+    out[f"{name}.bias"] = _t(b.reshape(-1))
 
 
 def _norm(out: StateDict, name: str, p: Mapping[str, Any]) -> None:
@@ -88,6 +109,26 @@ def unet_state_dict(variables: Mapping[str, Any], channel_mult=(1, 2),
         _resblock(out, f"decoder_blocks.{i}", p[f"dec_{i}"])
     _norm(out, "out_norm", p["GroupNorm_0"])
     _conv(out, "out_conv", p["out_conv"])
+    return out
+
+
+def flow_matching_state_dict(variables: Mapping[str, Any]) -> StateDict:
+    """FlowMatchingModel params -> models.flow_matching.FlowMatchingModel
+    state dict (`--model original`)."""
+    p = variables["params"]
+    out: StateDict = {}
+    enc, dec = p["encoder"], p["decoder"]
+    for i in range(1, 5):
+        _conv(out, f"encoder.conv{i}", enc[f"conv{i}"])
+        _norm(out, f"encoder.gn{i}", enc[f"gn{i}"])
+    _dense(out, "encoder.fc", enc["fc"], (256, 7, 7))
+    _dense_spatial_out(out, "decoder.fc1", dec["fc1"], (256, 7, 7))
+    _deconv(out, "decoder.deconv1", dec["deconv1"])
+    _deconv(out, "decoder.deconv2", dec["deconv2"])
+    _conv(out, "decoder.conv3", dec["conv3"])
+    _conv(out, "decoder.conv_out", dec["conv_out"])
+    for i in range(1, 4):
+        _norm(out, f"decoder.gn{i}", dec[f"gn{i}"])
     return out
 
 
@@ -150,20 +191,24 @@ def classifier_state_dict(variables: Mapping[str, Any], n_convs: int,
 BRIDGES = {
     "unet_mnist": lambda v: unet_state_dict(v, channel_mult=(1, 2)),
     "unet_svhn": lambda v: unet_state_dict(v, channel_mult=(1, 2, 2)),
+    "unet_64": lambda v: unet_state_dict(v, channel_mult=(1, 2, 2, 4)),
+    "fm_original": flow_matching_state_dict,
     "ratio_mnist": ratio_gn_state_dict,
     "ratio_mnist_svhn": ratio_mnist_svhn_state_dict,
     "classifier_mnist": lambda v: classifier_state_dict(v, 2, (64, 7, 7)),
     "classifier_mnist32": lambda v: classifier_state_dict(v, 3, (64, 8, 8)),
     "classifier_svhn": lambda v: classifier_state_dict(v, 4, (128, 8, 8),
                                                        batch_norm=True),
+    "classifier_64": lambda v: classifier_state_dict(v, 3, (64, 8, 8)),
 }
 BATCH_NORM_MODELS = ("ratio_mnist_svhn", "classifier_svhn")
 
 
 def state_dict_from_jax(variables: Mapping[str, Any], model: str) -> StateDict:
     """Convert flax variables of `model` (a key of BRIDGES: 'unet_mnist',
-    'unet_svhn', 'ratio_mnist', 'ratio_mnist_svhn', 'classifier_mnist',
-    'classifier_mnist32', 'classifier_svhn') into the port's state dict."""
+    'unet_svhn', 'unet_64', 'fm_original', 'ratio_mnist',
+    'ratio_mnist_svhn', 'classifier_mnist', 'classifier_mnist32',
+    'classifier_svhn', 'classifier_64') into the port's state dict."""
     if model not in BRIDGES:
         raise ValueError(f"unknown model kind {model!r}; one of "
                          f"{sorted(BRIDGES)}")

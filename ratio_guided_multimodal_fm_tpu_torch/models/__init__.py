@@ -1,7 +1,11 @@
 from ratio_guided_multimodal_fm_tpu_torch.models.classifiers import (
+    Classifier64,
     MNISTClassifier,
     MNISTClassifier32,
     SVHNClassifier,
+)
+from ratio_guided_multimodal_fm_tpu_torch.models.flow_matching import (
+    FlowMatchingModel,
 )
 from ratio_guided_multimodal_fm_tpu_torch.models.ratio import (
     FlexibleRatioEstimator,
@@ -19,7 +23,8 @@ from ratio_guided_multimodal_fm_tpu_torch.models.unet import (
 )
 
 __all__ = [
-    "FlexibleRatioEstimator", "FlexibleUNet", "FlowMatchingUNet",
+    "Classifier64", "FlexibleRatioEstimator", "FlexibleUNet",
+    "FlowMatchingModel", "FlowMatchingUNet",
     "FlowMatchingUNet64", "FlowMatchingUNetMNIST", "FlowMatchingUNetSVHN",
     "MNISTClassifier", "MNISTClassifier32", "SVHNClassifier",
     "RatioEstimator", "RatioEstimatorMNIST", "RatioEstimatorMNISTSVHN",

@@ -5,6 +5,8 @@ metric P(label(x) == label(y)) and the classifier-feature FID.
 * `MNISTClassifier32` — 3-conv CNN for 1x32x32 (581,450 params)
 * `SVHNClassifier`    — 4-conv BatchNorm CNN for 3x32x32 (2,341,514 params;
   BatchNorm with flax's semantics, eps 1e-5: models/ratio.py:BatchNorm2d)
+* `Classifier64`      — 3-conv CNN for RGB 64x64, the evaluation classifier
+  of the 64-px stretch config (cli/config5_demo.py)
 
 The layers are the reference torch modules (state-dict keys of the JAX
 exporter's `export_*_classifier`); the activations flatten in NCHW order
@@ -76,3 +78,10 @@ def SVHNClassifier() -> _ConvClassifier:
     return _ConvClassifier([(3, 32, True), (32, 64, True), (64, 128, False),
                             (128, 128, False)], 128 * 8 * 8, 256,
                            batch_norm=True, dropout=0.3)
+
+
+def Classifier64() -> _ConvClassifier:
+    """3-conv CNN for RGB 64x64, three max-pools 64 -> 8 (JAX
+    classifiers.py:73-91; no reference equivalent)."""
+    return _ConvClassifier([(3, 32, True), (32, 64, True), (64, 64, True)],
+                           64 * 8 * 8, 128, batch_norm=False, dropout=0.25)

@@ -23,7 +23,14 @@ and return NHWC tensors; random draws come from an explicit
 `mc_set=` inject the random inputs (random streams cannot cross
 frameworks, so the parity tests inject both).
 
-Not ported yet: merged-pair evaluation and a sharded MC axis.
+Merged-pair evaluation (models/merged.py): `fm_pair_apply` binds the two
+models into one pair function (x, y, t) -> (v_x, v_y) once per sampler
+call, which evaluates both velocity nets in one network in phase B and
+integrates both modalities in one loop in phase A (flow/cfm.py:
+ode_scan_pair). The random draws keep the two-net order, so both paths
+give the same samples up to float32 rounding.
+
+Not ported yet: a sharded MC axis.
 """
 from __future__ import annotations
 
@@ -43,6 +50,7 @@ from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import (
     TIME_GRIDS,
     euler_sample,
     make_time_grid,
+    ode_scan_pair,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
     EPS_T,   # guidance gate and sigma floor, ref flow_utils.py:224,279
@@ -185,10 +193,13 @@ def _grad_log_ratio(log_ratio_fn: Callable, x_t, y_t):
 
 def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
                       cfg: GuidedSamplerConfig, mc_set,
-                      log_ratio_fn: Optional[Callable] = None) -> Callable:
+                      log_ratio_fn: Optional[Callable] = None,
+                      fm_pair_fn: Optional[Callable] = None) -> Callable:
     """Build step(x_t, y_t, t, dt) -> (x_t, y_t, diag) for phase B. `t`,
     `dt` are float32 scalars; `mc_set` is None unless the method mixes in
-    mc_feng guidance, `log_ratio_fn` None unless it adds the grad term."""
+    mc_feng guidance, `log_ratio_fn` None unless it adds the grad term;
+    `fm_pair_fn` (x, y, t) -> (v_x, v_y), where given, evaluates both
+    velocity nets in place of fm_x_fn and fm_y_fn."""
     grad_gamma = np.float32(cfg.grad_strength if cfg.grad_strength
                             is not None else cfg.guidance_strength)
     if mc_set is not None:
@@ -213,8 +224,12 @@ def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
     def mixed_velocity(x_t, y_t, t):
         tb = torch.full((x_t.shape[0],), float(t), dtype=torch.float32,
                         device=x_t.device)
-        v_x = fm_x_fn(x_t, tb).to(torch.float32)
-        v_y = fm_y_fn(y_t, tb).to(torch.float32)
+        if fm_pair_fn is not None:
+            v_x, v_y = fm_pair_fn(x_t, y_t, tb)
+            v_x, v_y = v_x.to(torch.float32), v_y.to(torch.float32)
+        else:
+            v_x = fm_x_fn(x_t, tb).to(torch.float32)
+            v_y = fm_y_fn(y_t, tb).to(torch.float32)
         diag = {}
         if mc_set is not None:
             g_x, g_y, ess, l = flash_guidance(x_t, y_t, mc_x1, mc_y1,
@@ -273,7 +288,8 @@ def _stack_diags(diags: list) -> dict:
 
 def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                           cfg: GuidedSamplerConfig,
-                          log_ratio_apply: Optional[Callable] = None):
+                          log_ratio_apply: Optional[Callable] = None,
+                          fm_pair_apply: Optional[Callable] = None):
     """Build the guided sampler with the models as call arguments:
 
         sampler(params, generator, num_samples, mc_set=None,
@@ -286,9 +302,19 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
     mc_feng guidance, else {}. Random draws, in order: the initial noise,
     then per MC set (one, or one per segment with mc_refresh > 1) the x
     and the y candidates' noise.
+
+    fm_pair_apply(model_x, model_y) -> (x, y, t [B]) -> (v_x, v_y) opts
+    into merged-pair evaluation (models/merged.py:merged_pair_apply); it
+    is bound once per call. Mergeable nets share a topology, so it needs
+    x_shape == y_shape.
     """
     guided = cfg.guidance_method != "none" and log_ratio_apply is not None
     _validate(cfg, guided)
+    if fm_pair_apply is not None and tuple(cfg.x_shape) != tuple(cfg.y_shape):
+        raise ValueError(
+            "fm_pair_apply (merged-pair evaluation) requires x_shape == "
+            f"y_shape, got {cfg.x_shape} vs {cfg.y_shape}: mergeable nets "
+            "share a topology (models/merged.py:can_merge)")
     use_mc = guided and cfg.guidance_method in MC_METHODS
     use_grad = guided and cfg.guidance_method in GRAD_METHODS
 
@@ -307,6 +333,8 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
         def log_ratio_fn(x, y):
             return log_ratio_apply(ratio_model, x, y)
 
+        fm_pair_fn = (None if fm_pair_apply is None
+                      else fm_pair_apply(model_x, model_y))
         f32 = torch.float32
         if init_noise is not None:
             x_t, y_t = (a.to(device=device, dtype=f32) for a in init_noise)
@@ -322,7 +350,8 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                                    cfg.mc_batch_size, cfg.x_shape,
                                    cfg.y_shape, cfg.num_steps,
                                    cfg.log_ratio_clip, cfg.solver,
-                                   cfg.time_grid, cfg.grid_power)
+                                   cfg.time_grid, cfg.grid_power,
+                                   fm_pair_fn=fm_pair_fn)
 
         K = cfg.mc_refresh if use_mc else 1
         if K > 1 and mc_set is not None:
@@ -339,7 +368,8 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                 mc_set = gen_mc()
             step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
                                      mc_set if use_mc else None,
-                                     log_ratio_fn if use_grad else None)
+                                     log_ratio_fn if use_grad else None,
+                                     fm_pair_fn)
             for t, dt in zip(ts[k * seg:(k + 1) * seg],
                              dts[k * seg:(k + 1) * seg]):
                 x_t, y_t, diag = step(x_t, y_t, t, dt)
@@ -356,15 +386,27 @@ def generate_mc_set(fm_x_fn: Callable, fm_y_fn: Callable,
                     num_steps: int = 100,
                     log_ratio_clip: Optional[float] = None,
                     solver: str = "euler", time_grid: str = "uniform",
-                    grid_power: float = 2.0):
+                    grid_power: float = 2.0,
+                    fm_pair_fn: Optional[Callable] = None):
     """Phase A alone: (mc_x1, mc_y1, mc_ratios), so one MC set can serve
-    several guidance strengths (the set is independent of γ)."""
-    mc_x1 = euler_sample(fm_x_fn, generator,
-                         (mc_batch_size,) + tuple(x_shape), num_steps,
-                         solver, time_grid, grid_power)
-    mc_y1 = euler_sample(fm_y_fn, generator,
-                         (mc_batch_size,) + tuple(y_shape), num_steps,
-                         solver, time_grid, grid_power)
+    several guidance strengths (the set is independent of γ).
+    `fm_pair_fn` (merged-pair evaluation) integrates both modalities in one
+    loop when their shapes match; the x then the y noise is drawn either
+    way."""
+    if fm_pair_fn is not None and tuple(x_shape) == tuple(y_shape):
+        x0, y0 = (torch.randn((mc_batch_size,) + tuple(shp),
+                              generator=generator, dtype=torch.float32,
+                              device=generator.device)
+                  for shp in (x_shape, y_shape))
+        mc_x1, mc_y1 = ode_scan_pair(fm_pair_fn, x0, y0, num_steps, solver,
+                                     time_grid, grid_power)
+    else:
+        mc_x1 = euler_sample(fm_x_fn, generator,
+                             (mc_batch_size,) + tuple(x_shape), num_steps,
+                             solver, time_grid, grid_power)
+        mc_y1 = euler_sample(fm_y_fn, generator,
+                             (mc_batch_size,) + tuple(y_shape), num_steps,
+                             solver, time_grid, grid_power)
     log_r = log_ratio_fn(mc_x1, mc_y1).to(torch.float32)
     if log_ratio_clip is not None:
         log_r = torch.clamp(log_r, -log_ratio_clip, log_ratio_clip)
@@ -395,12 +437,14 @@ def sample_bimodal_guided(
     grad_strength: Optional[float] = None,
     grad_scale: str = "const",
     grad_t_max: float = 1.0,
+    fm_pair_fn: Optional[Callable] = None,
 ):
     """The reference's argument surface (flow_utils.py:178-213) with closures
     fm_*_fn(x NHWC, t [B]) and log_ratio_fn(x, y), plus the JAX package's
-    grad_* and mc_refresh knobs. Returns (x1, y1) NHWC (plus diagnostics).
-    Runs on `device` (default cuda) with a generator seeded 42 unless
-    `generator` is given."""
+    grad_* and mc_refresh knobs. `fm_pair_fn` (x, y, t) -> (v_x, v_y) opts
+    into merged-pair evaluation (models/merged.py). Returns (x1, y1) NHWC
+    (plus diagnostics). Runs on `device` (default cuda) with a generator
+    seeded 42 unless `generator` is given."""
     if generator is None:
         generator = torch.Generator(resolve_device(device)).manual_seed(42)
     cfg = GuidedSamplerConfig(
@@ -414,7 +458,9 @@ def sample_bimodal_guided(
         grad_t_max=grad_t_max)
     sampler = make_guided_sampler_p(
         lambda _, x, t: fm_x_fn(x, t), lambda _, y, t: fm_y_fn(y, t), cfg,
-        None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)))
+        None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)),
+        fm_pair_apply=None if fm_pair_fn is None else (
+            lambda _x, _y: fm_pair_fn))
     x1, y1, diags = sampler((None, None, None), generator, num_samples,
                             mc_set)
     if return_diagnostics:

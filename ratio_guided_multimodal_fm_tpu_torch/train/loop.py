@@ -4,8 +4,9 @@ early stopping, preemption-safe resume.
 Patience semantics mirror ref train_flow.py:84-117 (best-loss tracking,
 save_every periodic saves, stop after `patience` non-improving epochs).
 `train_epochs` is the generic driver; `train_flow_matching_epochs` the
-flow wrapper that experiment 1's train CLI uses. The JAX driver's
-`metrics_logger` waits for core/observability.py (not ported yet).
+flow wrapper that experiment 1's train CLI uses. A `metrics_logger`
+(core/observability.py:MetricsLogger) gets each epoch's means and steps/s,
+as in the JAX driver.
 
 Step outputs (a scalar loss, or a metrics dict of scalars for the ratio
 steps) stay on the device until the epoch ends (or a preemption saves),
@@ -156,6 +157,7 @@ def train_epochs(
     save_every: int = 10,
     patience: int = 10,
     log_fn: Callable[[str], None] = print,
+    metrics_logger=None,
     preempt_path: Optional[str] = None,
     start_epoch: int = 0,
     start_step: int = 0,
@@ -250,6 +252,9 @@ def train_epochs(
                     + f" ({steps_per_sec:.1f} steps/s)")
             history.append({"epoch": epoch + 1, **avg,
                             "steps_per_sec": steps_per_sec})
+            if metrics_logger is not None:
+                metrics_logger.log(epoch + 1, {**avg,
+                                               "steps_per_sec": steps_per_sec})
             if stopper.update(avg_loss) and save_best_fn:
                 save_best_fn(state, epoch + 1, stopper.best)
             if save_periodic_fn and (epoch + 1) % save_every == 0:
@@ -272,6 +277,7 @@ def train_flow_matching_epochs(
     save_every: int = 10,
     patience: int = 10,
     log_fn: Callable[[str], None] = print,
+    metrics_logger=None,
     preempt_path: Optional[str] = None,
     **resume,
 ):
@@ -298,4 +304,4 @@ def train_flow_matching_epochs(
         state, train_step, data_iter_fn, epochs, rng,
         save_best_fn=save_best, save_periodic_fn=save_periodic,
         save_every=save_every, patience=patience, log_fn=log_fn,
-        preempt_path=preempt_path, **resume)
+        metrics_logger=metrics_logger, preempt_path=preempt_path, **resume)

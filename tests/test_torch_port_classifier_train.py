@@ -346,7 +346,8 @@ def test_trained_checkpoints_feed_the_evaluate_cli(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--merged_unet"], NotImplementedError, "not yet ported"),
+    (["--coordinator_address", "h:1"], NotImplementedError,
+     "not yet ported"),
     (["--num_processes", "2"], NotImplementedError, "not yet ported"),
     (["--process_id", "0"], NotImplementedError, "not yet ported"),
 ])

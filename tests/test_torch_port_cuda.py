@@ -19,7 +19,8 @@ the forward's saved statistics equal to the plain version's bit for bit
 fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
 against the float32 plain version (tests/test_resblock_pallas.py), and
 rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
-the same points.
+the same points; merged-pair sampling against the two nets on the card
+5e-5 (the JAX package's tests/test_merged_unet.py bound).
 """
 import pytest
 import torch
@@ -432,3 +433,96 @@ def test_grad_sampler_card_matches_cpu(card, exp, method, solver):
         8 * evals if exp == "exp1" else 0)
     for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-3, atol=1e-3)
+
+
+# slice 9's new GroupNorm shapes (C, H, groups): FlowMatchingUNet64's
+# largest and deepest sites, the 64-px ratio net's first, the
+# encoder-decoder's 7 px and 28 px sites, and merged-pair sites (2C
+# channels, 2G groups) of the experiment-1 and 64-px U-Nets
+SLICE9_GN = [(288, 64, 8), (96, 64, 8), (768, 8, 8), (576, 16, 8),
+             (32, 64, 8), (256, 7, 8), (32, 28, 8), (64, 28, 16),
+             (128, 7, 16), (576, 64, 16), (1536, 8, 16)]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, dict(rtol=1e-4,
+                                                              atol=1e-4)),
+                                       (torch.bfloat16, TOL_GN_BF16)])
+@pytest.mark.parametrize("B", [64, 128])
+@pytest.mark.parametrize("C,H,G", SLICE9_GN)
+def test_group_norm_silu_at_the_slice9_shapes(card, dtype, tol, B, C, H, G):
+    """The forward at the 64-px, encoder-decoder and merged-pair sites,
+    channels_last (the samplers' layout), B = 64 (the 64-px chunk) and 128
+    (its N_mc)."""
+    g = torch.Generator(card).manual_seed(C + H)
+    x = (torch.randn(B, C, H, H, generator=g, device=card) * 2.0 + 0.5).to(
+        dtype).contiguous(memory_format=torch.channels_last)
+    w = torch.rand(C, generator=g, device=card) + 0.5
+    b = torch.randn(C, generator=g, device=card) * 0.1
+    got = group_norm_silu(x, w, b, G)
+    again = group_norm_silu(x, w, b, G)
+    torch.cuda.synchronize()
+    assert got.stride() == x.stride() and torch.equal(got, again)
+    torch.testing.assert_close(got.float(), group_norm_silu_reference(
+        x, w, b, G).float(), **tol)
+
+
+@pytest.mark.parametrize("C,H", [(96, 64), (288, 64), (192, 32), (768, 8),
+                                 (32, 28), (256, 7)])
+def test_group_norm_silu_backward_at_the_slice9_training_shapes(card, C, H):
+    """What a 64-px (B = 64) or encoder-decoder train step runs at its GN
+    sites: the saved statistics bit for bit, dx, dγ and dβ through autograd
+    within twice the float32 plain backward's max |err| against float64."""
+    x, _, _, dy = _gn_backward_inputs(card, 64, C, H, torch.float32, True, H)
+    w = (torch.rand(C, device=card) + 0.5).requires_grad_(True)
+    b = (torch.randn(C, device=card) * 0.1).requires_grad_(True)
+    xs = x.clone().requires_grad_(True)
+    y = group_norm_silu(xs, w, b, 8)
+    mean, rstd = gn_stats_reference(x, 8)
+    saved = y.grad_fn.saved_tensors
+    assert torch.equal(saved[3], mean) and torch.equal(saved[4], rstd)
+    got = torch.autograd.grad(y, (xs, w, b), dy)
+    torch.cuda.synchronize()
+    errs = gn_backward_errors(x, w.detach(), b.detach(), dy, mean, rstd, got)
+    for nm, (err_k, err_p) in errs.items():
+        assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
+
+
+@pytest.mark.parametrize("img,cin,mult", [(16, 1, (1, 2)),
+                                          (32, 3, (1, 2, 2, 4))])
+def test_merged_sampler_matches_two_nets_on_the_card(card, img, cin, mult):
+    """Merged-pair evaluation on the card against the two nets on the card,
+    float32, through both phases (phase A drawn inside from the same
+    generator): samples within 5e-5, the bound of the JAX package's
+    tests/test_merged_unet.py."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import velocity_fn
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
+    from ratio_guided_multimodal_fm_tpu_torch.models import FlexibleUNet
+    from ratio_guided_multimodal_fm_tpu_torch.models.merged import (
+        merged_pair_apply,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
+        sample_bimodal_guided,
+    )
+
+    nets = []
+    for seed in (0, 1):
+        torch.manual_seed(seed)
+        net = FlexibleUNet(in_channels=cin, img_size=img, model_channels=16,
+                           channel_mult=mult)
+        torch.nn.init.normal_(net.out_conv.weight, std=0.05)
+        nets.append(place_model(net, card))
+    shape = (img, img, cin)
+    kw = dict(log_ratio_fn=lambda a, b: (a * b).mean(dim=(1, 2, 3)) * 4.0,
+              guidance_method="mc_feng", guidance_strength=0.7,
+              num_samples=8, num_steps=6, mc_batch_size=16, x_shape=shape,
+              y_shape=shape, device=card, return_diagnostics=True)
+    fx, fy = velocity_fn(nets[0]), velocity_fn(nets[1])
+    with torch.no_grad():
+        two = sample_bimodal_guided(fx, fy, **kw)
+        merged = sample_bimodal_guided(
+            fx, fy, fm_pair_fn=merged_pair_apply(nets[0])(*nets), **kw)
+    for a, c in zip(merged[:2], two[:2]):
+        assert float(c.abs().max()) > 0.1
+        torch.testing.assert_close(a, c, rtol=0, atol=5e-5)
+    torch.testing.assert_close(merged[2]["ess"], two[2]["ess"], rtol=1e-4,
+                               atol=1e-4)

@@ -13,7 +13,7 @@ against the JAX package, on the CPU.
   computes: states to 1e-4, ESS to 1e-3 (the tolerances of
   tests/test_torch_port_sampler.py);
 * the experiment-1 CLI on the CPU from the .pth files the JAX exporter
-  writes, its checkpoint names, and what it does not port yet.
+  writes, its checkpoint names, and --merged_unet against the two nets.
 Random streams cannot cross frameworks: inputs are made with numpy.
 """
 import json
@@ -242,18 +242,18 @@ def exported_dir(tmp_path_factory):
     return root
 
 
-@pytest.mark.parametrize("argv", [["--merged_unet"],
-                                  ["--model", "original"]])
-def test_exp1_cli_rejects_what_is_not_ported(argv, exported_dir, capsys,
-                                             monkeypatch):
-    """--merged_unet and --model original are not flags of the port yet:
-    argparse refuses them."""
+@pytest.mark.parametrize("method", ["none", "mc_feng"])
+def test_exp1_cli_merged_unet(method, exported_dir, monkeypatch):
+    """--merged_unet evaluates both exported U-Nets as one merged network:
+    the same seed gives the two-net run's samples (f32, atol 5e-5, the
+    bound of the JAX package's tests/test_merged_unet.py)."""
     monkeypatch.chdir(exported_dir)
-    with pytest.raises(SystemExit) as e:
-        sample.main(["--device", "cpu"] + argv)
-    err = capsys.readouterr().err
-    assert e.value.code == 2
-    assert "invalid choice" in err or "unrecognized arguments" in err
+    argv = ["--device", "cpu", "--num_samples", "2", "--num_steps", "2",
+            "--mc_batch_size", "3", "--guidance_method", method]
+    two = sample.main(argv)
+    merged = sample.main(argv + ["--merged_unet"])
+    for a, b in zip(two[:2], merged[:2]):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=5e-5)
 
 
 @pytest.mark.parametrize("argv", [

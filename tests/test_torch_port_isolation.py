@@ -6,8 +6,11 @@
   JAX package's, so module names are matched exactly or by the prefix
   'ratio_guided_multimodal_fm_tpu.'.
 * Entry points default to CUDA and fail clearly without it.
-* The sampler, evaluation, bench, train, reflow and serve CLIs refuse to
-  run without one unless asked for the CPU.
+* The sampler, evaluation, bench, train, reflow, serve and 64-px demo
+  CLIs refuse to run without one unless asked for the CPU.
+* Each module of slice 9 (the encoder-decoder, merged-pair evaluation,
+  FLOP counts, observability, natural-image data, the 64-px demo) imports
+  without JAX on its own.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
 """
@@ -50,10 +53,32 @@ def test_importing_the_port_loads_no_jax():
         "'ratio_guided_multimodal_fm_tpu') or m.startswith(('jax.', "
         "'ratio_guided_multimodal_fm_tpu.'))]\n"
         "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 19 else 0)\n")
+        "sys.exit(1 if bad or len(mods) < 25 else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+SLICE9_MODULES = ("models.flow_matching", "models.merged", "core.flops",
+                  "core.observability", "data.natural", "cli.config5_demo")
+
+
+@pytest.mark.parametrize("module", SLICE9_MODULES)
+def test_slice9_module_imports_no_jax(module):
+    """Each module of the encoder-decoder, merged-pair, support and 64-px
+    slice imports in a fresh interpreter without jax or the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('ratio_guided_multimodal_fm_tpu_torch."
+        f"{module}')\n"
+        "bad = [m for m in sys.modules if m in ('jax', "
+        "'ratio_guided_multimodal_fm_tpu') or m.startswith(('jax.', "
+        "'ratio_guided_multimodal_fm_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert (PORT / (module.replace(".", "/") + ".py")).exists()
 
 
 def test_no_source_imports_jax():
@@ -87,6 +112,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
         train_ratio,
         train_ratio_mnist_svhn,
     )
+    from ratio_guided_multimodal_fm_tpu_torch.cli import config5_demo
     from ratio_guided_multimodal_fm_tpu_torch.core.device import (
         resolve_device,
     )
@@ -113,6 +139,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: train_classifiers_mnist_svhn.main([]),
                  lambda: reflow.main([]),
                  lambda: serve.main(["--port", "0"]),
+                 lambda: config5_demo.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y),
                  lambda: sample_bimodal_smc(lambda x, t: x, lambda y, t: y,

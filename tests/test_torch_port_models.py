@@ -141,7 +141,7 @@ def test_bf16_compute_keeps_f32_params():
 def test_bridge_rejects_unknown_and_missing_stats():
     _, variables = _jax_variables("unet_mnist")
     with pytest.raises(ValueError, match="unknown model kind"):
-        state_dict_from_jax(variables, "fm_original")
+        state_dict_from_jax(variables, "fm_unknown")
     for kind in ("ratio_mnist_svhn", "classifier_svhn"):
         with pytest.raises(ValueError, match="batch_stats"):
             state_dict_from_jax({"params": {}}, kind)

@@ -619,7 +619,7 @@ def test_ratio_cli_periodic_save_every_ten_epochs(tmp_path, monkeypatch):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--fused_steps", "2"], NotImplementedError, "not yet ported"),
     (["--fast_rng"], SystemExit, "no meaning in torch"),
-    (["--merged_unet"], NotImplementedError, "not yet ported"),
+    (["--process_id", "0"], NotImplementedError, "not yet ported"),
     (["--coordinator_address", "h:1"], NotImplementedError,
      "not yet ported"),
 ])

@@ -259,8 +259,9 @@ def test_reflow_cli_exp2_rounds(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--model", "original"], NotImplementedError, "not yet ported"),
-    (["--merged_unet"], NotImplementedError, "not yet ported"),
+    (["--coordinator_address", "h:1"], NotImplementedError,
+     "not yet ported"),
+    (["--process_id", "0"], NotImplementedError, "not yet ported"),
     (["--num_processes", "2"], NotImplementedError, "not yet ported"),
     (["--experiment", "cifar"], SystemExit, None),
 ])

@@ -220,17 +220,15 @@ def test_serve_cli_refusals_and_service_on_checkpoints(tmp_path,
                                                       monkeypatch):
     """build_service on experiment-2 reference-layout .pth files
     (full-width random-init nets; 1 step, a batch of 2) with the global SMC
-    defaults (G 16, tau 0.5, as in JAX); --merged_unet and the
-    multi-process flags refused; a missing checkpoint an error."""
+    defaults (G 16, tau 0.5, as in JAX); --merged_unet accepted, and a
+    no-op there (the experiment-2 nets cannot merge); the multi-process
+    flags refused; a missing checkpoint an error."""
     from ratio_guided_multimodal_fm_tpu_torch import models as pm
 
     monkeypatch.chdir(tmp_path)
     parser = serve.make_parser()
     with pytest.raises(SystemExit, match="checkpoint not found"):
         serve.build_service(parser.parse_args(["--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="merged"):
-        serve.build_service(parser.parse_args(["--device", "cpu",
-                                               "--merged_unet"]))
     with pytest.raises(NotImplementedError, match="multi-process"):
         serve.build_service(parser.parse_args(["--device", "cpu",
                                                "--num_processes", "2"]))
@@ -244,7 +242,8 @@ def test_serve_cli_refusals_and_service_on_checkpoints(tmp_path,
         torch.save(net.state_dict(), tmp_path / "checkpoints" / fname)
     svc = serve.build_service(parser.parse_args([
         "--device", "cpu", "--batch_size", "2", "--num_steps", "1",
-        "--mc_batch_size", "2"]))
+        "--mc_batch_size", "2", "--merged_unet"]))
+    assert svc._fm_pair is None
     assert svc.smc["group"] == 16 and svc.smc["resample_tau"] == 0.5
     x, y, _ = svc.sample(3, "smc", 1.0, seed=4)
     assert x.shape == (3, 32, 32, 1) and y.shape == (3, 32, 32, 3)

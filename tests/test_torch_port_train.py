@@ -581,10 +581,9 @@ def test_train_clis_run_on_cpu(tmp_path, monkeypatch, cli, argv, files):
 @pytest.mark.parametrize("argv,exc,match", [
     (["--fused_steps", "2"], NotImplementedError, "not yet ported"),
     (["--fast_rng"], SystemExit, "no meaning in torch"),
-    (["--model", "original"], NotImplementedError, "not yet ported"),
-    (["--metrics_dir", "m"], NotImplementedError, "not yet ported"),
-    (["--profile_dir", "p"], NotImplementedError, "not yet ported"),
-    (["--merged_unet"], NotImplementedError, "not yet ported"),
+    (["--coordinator_address", "h:1"], NotImplementedError,
+     "not yet ported"),
+    (["--process_id", "0"], NotImplementedError, "not yet ported"),
     (["--num_processes", "2"], NotImplementedError, "not yet ported"),
 ])
 def test_train_cli_refusals(tmp_path, monkeypatch, argv, exc, match):
