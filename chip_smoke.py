@@ -114,6 +114,28 @@ which fails the script (non-zero exit) on error:
    GN launches a step, one step card against CPU). Every full-width
    sampler path prints its convolution and dense FLOP rate
    (core/flops.py) and its share of the bf16 dense peak;
+5k. the fused K-step trainer (--fused_steps) at full width: the MNIST-32
+   and SVHN U-Nets and both ratio nets (float32, B=128, Adam lr 1e-4, EMA
+   0.999, dropout on); two macro steps of K=8 of the CUDA graph against
+   the eager K-step loop on the same draws, both with cuDNN's
+   deterministic algorithms (bit for bit, else within 1e-4·max|ref|,
+   printed); then the single step, the graph at K=1 and at K=8 in turns,
+   twice, 48 steps each: steps/s, launches per macro step held to the
+   derived counts (a replay counts the launches it recorded), replays,
+   peak memory and a profiled run's busy share;
+5d. data-parallel training, two worker processes of this script on the
+   card (gloo, ranks sharing it) against one process on the same global
+   batches: the MNIST-32 U-Net and the experiment-2 ratio net (BatchNorm,
+   disc), dropout off, 10 steps at B=128, SGD (see dp_training_phase):
+   parameters within 1e-5·max|p|, running statistics within
+   1e-4·max|ref| + 1e-6; steps/s of both;
+5p. the MC-sharded guided sampler (parallel/sharded_guidance.py), two
+   worker processes, meshes (data 2, mc 1) and (data 1, mc 2): a float32
+   check on a small input against this process's single-process sampler
+   (1e-3), then experiment 2 at full width (bf16, B=512, N_mc=256, --steps
+   steps): finite samples on both ranks, 1 <= ESS <= N_mc, launches as
+   derived (flash_guidance once a step on (2, 1), never on (1, 2)), the
+   call time and the host time in collectives;
 6. times each kernel, its plain version and the library call where one
    exists (scaled_dot_product_attention for flash_guidance's weighted sum),
    beside the kernel's bound at the card's published peak rates;
@@ -161,6 +183,15 @@ which fails the script (non-zero exit) on error:
    --model original on what it wrote; cli/config5_demo.py at --n 512
    --epochs 1 --ratio_epochs 1 --num_samples 64 --eval_chunks 2
    --num_steps 20, two-net and --merged_unet.
+7 (slice 10). train_flow_mnist32 and train_ratio with --fused_steps 8 for
+   one epoch, both sample CLIs on what they wrote; train_flow_mnist32 as
+   two processes through its multi-process flags (equal losses, the gloo
+   backend); cli/stretch64_demo.py at --n 256 --epochs 1 --ratio_epochs 1
+   --num_steps 20 (flash_guidance at Dx = 12,288, Dy = 4,096 in its
+   mc_feng steps: 40 launches). Phase 3 also holds flash_guidance at that
+   shape against its float64 plain version, group_norm_silu at the sharded
+   sampler's batches and both GN kernels at the data-parallel ranks' B/2
+   training sites; phase 6 times flash_guidance there.
 
 Every phase prints its wall time (`phase ...: N s wall`).
 
@@ -1647,6 +1678,767 @@ def slice9_clis(smi):
     return rec
 
 
+# ---- slice 10: the fused K-step trainer, data-parallel training and the
+#      MC-sharded sampler on torch.distributed, the stretch demo ---------
+
+K_FUSED = 8          # --fused_steps of phase 5k and phase 7
+FUSED_STEPS = 48     # optimizer steps of each timed phase-5k run
+FUSED_DATA = 4096    # images of phase 5k's datasets on the card
+DP_STEPS = 10        # phase 5d's steps, two processes against one
+DP_LR = 1e-3         # phase 5d's SGD update: per element about the size of
+                     # the CLIs' Adam update at lr 1e-4 (dp_training_phase)
+SHARD_SMALL = (16, 32, 10)   # phase 5p's float32 check: B, N_mc, steps
+MESHES = ((2, 1), (1, 2))    # phase 5p: (data, mc)
+STRETCH64_ARGV = ["--n", "256", "--epochs", "1", "--ratio_epochs", "1",
+                  "--num_steps", "20"]
+
+
+def reset_launches():
+    """Every wrapper's launch counters to 0."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        add_launches,
+        launch_counts,
+    )
+
+    add_launches({k: -v for k, v in launch_counts().items()})
+
+
+def short_counts(counts):
+    return {k.replace(".launches", "").replace(".weight_grad_launches",
+                                               " (dγ/dβ)"): v
+            for k, v in counts.items()}
+
+
+def _fused_models():
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingUNetMNIST,
+        FlowMatchingUNetSVHN,
+        RatioEstimatorMNIST,
+        RatioEstimatorMNISTSVHN,
+    )
+
+    return (("MNIST-32 U-Net", lambda: FlowMatchingUNetMNIST(img_size=32),
+             "fm", (32, 32, 1), None),
+            ("SVHN U-Net", FlowMatchingUNetSVHN, "fm", (32, 32, 3), None),
+            ("experiment-1 ratio", RatioEstimatorMNIST, "ratio", E1_SHAPE,
+             E1_SHAPE),
+            ("experiment-2 ratio", RatioEstimatorMNISTSVHN, "ratio",
+             X_SHAPE, Y_SHAPE))
+
+
+def _fresh_state(make_net, kind, dev, seed=40, dropout=True):
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    if kind == "fm":
+        return S.create_fm_state(_train_net(make_net, seed, dropout), dev,
+                                 lr=LR, ema_decay=EMA_DECAY)
+    return S.create_ratio_state(_ratio_net(make_net, seed, dropout), dev,
+                                lr=LR, ema_decay=EMA_DECAY)
+
+
+def _state_arrays(state):
+    out = {"p:" + k: v.detach() for k, v in state.model.state_dict().items()
+           if v.is_floating_point()}
+    out.update({"e:" + k: v.detach() for k, v in (state.ema or {}).items()})
+    return out
+
+
+def before_batchnorm(model) -> set:
+    """The state keys of the conv biases that a BatchNorm follows (the
+    experiment-2 ratio net's encoders: convN -> bnN): their gradient is
+    zero in exact arithmetic, so Adam moves them by float32 noise, about
+    ±lr a step, whichever the order of the sums."""
+    from ratio_guided_multimodal_fm_tpu_torch.models.ratio import (
+        BatchNorm2d,
+    )
+
+    bns = {n for n, m in model.named_modules() if isinstance(m, BatchNorm2d)}
+    out = set()
+    for n, _ in model.named_parameters():
+        head, _, leaf = n.rpartition(".")
+        prefix, _, conv = head.rpartition(".")
+        bn = (prefix + "." if prefix else "") + conv.replace("conv", "bn", 1)
+        if leaf == "bias" and conv.startswith("conv") and bn in bns:
+            out |= {"p:" + n, "e:" + n}
+    return out
+
+
+def _state_diff(a, b):
+    """(max |a-b| over every float tensor of two states but the conv
+    biases before a BatchNorm, max |b| over the same, max |a-b| over those
+    biases)."""
+    ta, tb = _state_arrays(a), _state_arrays(b)
+    free = before_batchnorm(b.model)
+    held = [k for k in tb if k not in free]
+    return (max(float((ta[k] - tb[k]).abs().max()) for k in held),
+            max(float(tb[k].abs().max()) for k in held),
+            max([float((ta[k] - tb[k]).abs().max()) for k in tb
+                 if k in free] or [0.0]))
+
+
+def fused_training_phase(dev, smi, steps=None, batch=None, k_fused=None):
+    """5k: the fused K-step trainer at full width (float32, TF32 off, Adam
+    lr 1e-4, EMA 0.999, dropout on). Per net: two macro steps of the CUDA
+    graph against the eager K-step loop on the same draws, both with
+    cuDNN's deterministic algorithms (its default wgrad kernels add with
+    atomics, so two eager runs differ, and a conv bias before a BatchNorm
+    then drifts by ±lr a step and its running mean with it): bit for bit
+    expected; else within 1e-4·max|ref|, the largest difference printed,
+    then the plain single step (--fused_steps 1), the graph at K=1 and at
+    K=8 in turns, twice, `steps` optimizer steps each: steps/s, launches
+    per macro step held to the counts derived from the code, graph
+    replays, peak memory, and a profile of each for the busy share."""
+    import numpy as np
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    steps, batch = steps or FUSED_STEPS, batch or B_TRAIN
+    k_fused = k_fused or K_FUSED
+    out = {}
+    for name, make_net, kind, xs, ys in _fused_models():
+        g = torch.Generator(dev).manual_seed(7)
+        xa = torch.rand((FUSED_DATA,) + xs, generator=g, device=dev) * 2 - 1
+        ya = (torch.rand((FUSED_DATA,) + ys, generator=g, device=dev) * 2 - 1
+              if ys else None)
+        sites = gn_sites(make_net())
+        host = np.random.RandomState(3)
+
+        def chunk(k):
+            idx = host.randint(0, FUSED_DATA, (k, batch)).astype(np.int32)
+            if kind == "fm":
+                return (idx,)
+            return (idx, host.randint(0, FUSED_DATA, (k, batch)).astype(
+                np.int32), (host.rand(k, batch) < 0.5).astype(np.float32))
+
+        def trainer(graph=None):
+            if kind == "fm":
+                f = S.make_fm_train_multistep(EMA_DECAY, graph=graph)
+                return f, lambda s, c, gen: f(s, xa, c[0], gen)
+            f = S.make_ratio_train_multistep("disc", EMA_DECAY, graph=graph)
+            return f, lambda s, c, gen: f(s, xa, ya, *c, gen)["loss"]
+
+        # the graph against the eager K-step loop, two macro steps, with
+        # cuDNN's deterministic algorithms
+        sg, se = (_fresh_state(make_net, kind, dev) for _ in range(2))
+        (_, run_g), (_, run_e) = trainer(), trainer(graph=False)
+        torch.backends.cudnn.deterministic = True
+        try:
+            for m in range(2):
+                c = chunk(k_fused)
+                lg = run_g(sg, c, torch.Generator(dev).manual_seed(100 + m))
+                le = run_e(se, c, torch.Generator(dev).manual_seed(100 + m))
+                if not bool(torch.isfinite(lg)):
+                    fail(f"fused {name}: non-finite loss")
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = False
+        diff, scale, free = _state_diff(sg, se)
+        loss_rel = abs(float(lg) - float(le)) / max(abs(float(le)), 1e-30)
+        bitwise = diff == 0.0 and free == 0.0 and float(lg) == float(le)
+        if not bitwise and (diff > 1e-4 * scale or loss_rel > 1e-4):
+            fail(f"fused {name}: the graph's state after 2 macro steps "
+                 f"differs from the eager loop's by {diff:.3g} (bound "
+                 f"{1e-4 * scale:.3g}), loss rel {loss_rel:.3g}")
+        print(f"fused {name}: 2 macro steps of K={k_fused}, B={batch}, "
+              f"cuDNN deterministic: CUDA graph == eager K-step loop "
+              + ("bit for bit (parameters, EMA, buffers, losses)"
+                 if bitwise else
+                 f"within 1e-4·max|ref|: max |Δ| {diff:.3g} (bound "
+                 f"{1e-4 * scale:.3g}), loss rel {loss_rel:.3g}"
+                 + (f"; the conv biases before a BatchNorm (zero gradient "
+                    f"in exact arithmetic, not held) {free:.3g}"
+                    if free else "")
+                 + " (not bit for bit)"))
+        rec = dict(gn_sites=sites, graph_vs_eager=dict(
+            bitwise=bitwise, max_abs_diff=diff, bound=1e-4 * scale,
+            loss_rel=loss_rel, before_batchnorm_max_abs_diff=free))
+        del sg, se
+        torch.cuda.empty_cache()
+
+        # the timed runs: the single step, the graph at K=1 and at K=8
+        single = (S.make_fm_train_step(EMA_DECAY) if kind == "fm" else
+                  S.make_ratio_train_step("disc", EMA_DECAY))
+
+        def run_single(s, c, gen):
+            outs = []
+            for j in range(len(c[0])):
+                rows = torch.from_numpy(c[0][j]).to(dev)
+                gj = torch.Generator(dev).manual_seed(gen.initial_seed() + j)
+                if kind == "fm":
+                    outs.append(single(s, xa.index_select(0, rows), gj))
+                else:
+                    outs.append(single(
+                        s, xa.index_select(0, rows), ya.index_select(
+                            0, torch.from_numpy(c[1][j]).to(dev)),
+                        c[2][j], gj)["loss"])
+            return outs[-1]
+
+        variants = {}
+        for tag, k in (("single step", 1), ("graph K=1", 1),
+                       (f"graph K={k_fused}", k_fused)):
+            s = _fresh_state(make_net, kind, dev)
+            f, run = ((None, run_single) if tag == "single step"
+                      else trainer())
+            variants[tag] = (s, f, run, k)
+            for w in range(2):                # warm-up (capture, replay)
+                run(s, chunk(k), torch.Generator(dev).manual_seed(w))
+        torch.cuda.synchronize()
+        rows = {}
+        for rnd_i in range(2):
+            for tag, (s, f, run, k) in variants.items():
+                macro = steps // k
+                chunks = [chunk(k) for _ in range(macro)]
+                replays0 = sum(gr.replays for gr in (f.graphs.values()
+                                                     if f else ()))
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                h0 = time.perf_counter()
+                for i, c in enumerate(chunks):
+                    last = run(s, c, torch.Generator(dev).manual_seed(
+                        1000 + i))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - h0
+                counts = launch_counts()
+                replays = sum(gr.replays for gr in (f.graphs.values()
+                                                    if f else ())) - replays0
+                per = {kk: v / macro for kk, v in counts.items()}
+                want = {"group_norm_silu.launches": k * sites,
+                        "group_norm_silu_backward.launches": k * sites,
+                        "group_norm_silu_backward.weight_grad_launches":
+                            k * sites,
+                        "flash_guidance.launches": 0,
+                        "fused_gn_silu_conv.launches": 0}
+                if per != want:
+                    fail(f"fused {name} {tag}: launches per macro step "
+                         f"{per} != derived {want}")
+                if f is not None and dev.type == "cuda" and replays != macro:
+                    fail(f"fused {name} {tag}: {replays} graph replays for "
+                         f"{macro} macro steps")
+                if not bool(torch.isfinite(last)):
+                    fail(f"fused {name} {tag}: non-finite loss")
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                rows.setdefault(tag, []).append(dict(
+                    steps=macro * k, seconds=wall,
+                    steps_per_s=macro * k / wall, replays=replays,
+                    launches_per_macro_step=short_counts(per),
+                    peak_mem_gib=peak))
+        for tag, (s, f, run, k) in variants.items():
+            r = rows[tag]
+            prof = profile_call(lambda: [run(s, chunk(k), torch.Generator(
+                dev).manual_seed(2000 + i)) for i in range(max(1, 8 // k))],
+                max(1, 8 // k) * k)
+            busy = prof["device_busy_ms"] / max(prof["wall_ms"], 1e-9)
+            print(f"fused {name} {tag}: "
+                  + ", ".join(f"{x['steps_per_s']:.2f}" for x in r)
+                  + f" steps/s ({r[0]['steps']} steps a run, in turns), "
+                  f"busy {100 * busy:.0f}% (profiled run), replays "
+                  f"{r[0]['replays']}, launches per macro step "
+                  f"{r[0]['launches_per_macro_step']}, peak mem "
+                  f"{r[0]['peak_mem_gib']:.2f} GiB  [{smi}]")
+            rec[tag] = dict(runs=r, busy_share=busy, profile=prof)
+        out[name] = rec
+        del variants
+        torch.cuda.empty_cache()
+    return out
+
+
+def spawn_workers(kind, n, out_dir, extra=(), timeout=600):
+    """Run this script as `n` --worker processes of `kind` joined on a
+    free local port (gloo: the ranks share the card); return their
+    stdout. Fails on a non-zero exit; kills every worker it started."""
+    import socket
+    import subprocess
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ,
+               PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", kind,
+         "--rank", str(r), "--world", str(n), "--port", str(port),
+         "--out", out_dir, *extra], env=env, cwd=here,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            fail(f"{kind} worker {r} exited {p.returncode}:\n{o[-6000:]}")
+    return outs
+
+
+def _dp_cases():
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingUNetMNIST,
+        RatioEstimatorMNISTSVHN,
+    )
+
+    return (("train_flow_mnist32 (MNIST-32 U-Net)",
+             lambda: FlowMatchingUNetMNIST(img_size=32), "fm", (32, 32, 1),
+             None),
+            ("train_ratio_mnist_svhn (experiment-2 ratio, BatchNorm, disc)",
+             RatioEstimatorMNISTSVHN, "ratio", X_SHAPE, Y_SHAPE))
+
+
+def dp_run(dev, adapt, steps, batch):
+    """Each phase-5d case trained `steps` steps on seeded global batches
+    of `batch` (dropout off, SGD lr DP_LR, cuDNN's deterministic
+    algorithms: its default weight-gradient kernels add with atomics)
+    through `adapt` (the one-process identity or cli/common.py:
+    multihost_adapt). Returns {name: (state, seconds, last loss)}."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    out = {}
+    torch.backends.cudnn.deterministic = True
+    for name, make_net, kind, xs, ys in _dp_cases():
+        state = _fresh_state(make_net, kind, dev, seed=50, dropout=False)
+        state.optimizer = torch.optim.SGD(state.model.parameters(),
+                                          lr=DP_LR)
+        if kind == "fm":
+            step = S.make_fm_train_step()
+            state, step, extract = adapt(state, step, lambda b: b["x"])
+        else:
+            rstep = S.make_ratio_train_step("disc")
+            state, step, extract = adapt(
+                state, lambda s, b, g: rstep(s, b["x"], b["y"],
+                                             b["is_real"], g), lambda b: b)
+        g = torch.Generator(dev).manual_seed(60)
+        batches = []
+        for _ in range(steps + 1):
+            b = {"x": torch.rand((batch,) + xs, generator=g, device=dev)
+                 * 2 - 1}
+            if ys:
+                b["y"] = torch.rand((batch,) + ys, generator=g,
+                                    device=dev) * 2 - 1
+                b["is_real"] = (torch.rand(batch, generator=g, device=dev)
+                                < 0.5).float()
+            batches.append(b)
+        rng = RNG(61, dev)
+        step(state, extract(batches[0]), rng.generator(9, 9))   # warm-up
+        torch.cuda.synchronize()
+        h0 = time.perf_counter()
+        for i, b in enumerate(batches[1:]):
+            last = step(state, extract(b), rng.generator(0, i))
+        torch.cuda.synchronize()
+        loss = last if kind == "fm" else last["loss"]
+        out[name] = (state, time.perf_counter() - h0, float(loss))
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def dp_training_phase(dev, smi, out_dir, steps=None, batch=None):
+    """5d: data-parallel training, two processes on the one card (gloo on
+    CUDA tensors), against one process on the same global batches: the
+    MNIST-32 U-Net's CFM step and the experiment-2 ratio net (BatchNorm on
+    the global batch's statistics, disc), dropout off, `steps` steps at
+    B=`batch`, each rank on its B/2 rows. The update is SGD: Adam divides
+    each gradient element by its size, so an element whose gradient is at
+    float32 rounding level (a conv bias before a BatchNorm: zero in exact
+    arithmetic) moves by ±lr whatever the sum order; the parity of the
+    data-parallel step itself (loss shares, the gradient sum, the global
+    statistics) is held with an update linear in the gradient, at lr
+    DP_LR: its steps are about the size of the CLIs' Adam steps at lr 1e-4
+    (at lr 1e-2 the experiment-2 net's first SVHN conv differed by
+    1.13e-5 against a 1.0e-5 bound: the difference scales with the step).
+    Parameters and EMA within 1e-5·max|p|; BatchNorm running statistics
+    (averages of activations, which sum a layer's fan-in of parameter
+    differences) within 1e-4·max|ref| + 1e-6, phase 5r's bound for them;
+    the largest difference is also printed as a share of the largest
+    update (|p_end − p_start|); steps/s of both."""
+    import numpy as np
+
+    steps, batch = steps or DP_STEPS, batch or B_TRAIN
+    ref = dp_run(dev, lambda s, st, ex: (s, st, ex), steps, batch)
+    spawn_workers("dp", 2, out_dir, ["--steps", str(steps), "--batch",
+                                     str(batch)])
+    rec = {}
+    metas = [json.load(open(os.path.join(out_dir, f"dp{r}.json")))
+             for r in (0, 1)]
+    for i, (name, make_net, kind, _, _) in enumerate(_dp_cases()):
+        state, secs, loss = ref[name]
+        ranks = [dict(np.load(os.path.join(out_dir, f"dp{r}_{i}.npz")))
+                 for r in (0, 1)]
+        meta = [m["cases"][name] for m in metas]
+        want = {k: v.cpu().numpy() for k, v in _state_arrays(state).items()}
+        start = {k: v.cpu().numpy() for k, v in _state_arrays(_fresh_state(
+            make_net, kind, dev, seed=50, dropout=False)).items()}
+        stats = [k for k in want if k.endswith(("running_mean",
+                                                "running_var"))]
+        worst, bound = {}, {}
+        for group, keys, rel, floor in (
+                ("params", [k for k in want if k not in stats], 1e-5, 0.0),
+                ("running statistics", stats, 1e-4, 1e-6)):
+            if not keys:
+                continue
+            scale = max(float(np.abs(want[k]).max()) for k in keys)
+            bound[group] = rel * scale + floor
+            worst[group] = max((float(np.abs(rk[k] - want[k]).max()), k)
+                               for rk in ranks for k in keys)
+            moved = max(float(np.abs(want[k] - start[k]).max())
+                        for k in keys)
+            worst[group] += (worst[group][0] / max(moved, 1e-30),)
+            if worst[group][0] > bound[group]:
+                fail(f"data-parallel {name}: {group} differ from one "
+                     f"process by {worst[group][0]:.3g} ({worst[group][1]})"
+                     f" > {bound[group]:.3g}")
+        if meta[0]["loss"] != meta[1]["loss"]:
+            fail(f"data-parallel {name}: the ranks report different losses")
+        dp_rate = steps / max(m["seconds"] for m in meta)
+        print(f"data-parallel {name}: 2 processes (gloo, one card), {steps} "
+              f"steps at B={batch} ({batch // 2} rows a rank), SGD: max |Δ| "
+              f"against one process: " + "; ".join(
+                  f"{g} {worst[g][0]:.3g} (bound {bound[g]:.3g}; "
+                  f"{worst[g][2]:.3g} of the largest update)"
+                  for g in worst)
+              + f"; {dp_rate:.2f} steps/s against {steps / secs:.2f} in one "
+              f"process; loss {meta[0]['loss']:.5f} / {loss:.5f}  [{smi}]")
+        rec[name] = dict(max_abs_diff={g: w[0] for g, w in worst.items()},
+                         share_of_update={g: w[2] for g, w in worst.items()},
+                         bound=bound, steps_per_s_dp=dp_rate,
+                         steps_per_s_one_process=steps / secs)
+    rec["launches_rank0"] = metas[0]["launches"]
+    print(f"data-parallel launches on rank 0 (both cases, warm-up "
+          f"included): {metas[0]['launches']}")
+    return rec
+
+
+def dp_worker(args, dev):
+    import numpy as np
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
+        multihost_adapt,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+
+    reset_launches()
+    res = dp_run(dev, multihost_adapt, args.steps, args.batch)
+    meta = {"cases": {}, "launches": short_counts(launch_counts())}
+    for i, (name, (state, secs, loss)) in enumerate(res.items()):
+        np.savez(os.path.join(args.out, f"dp{args.rank}_{i}.npz"),
+                 **{k: v.cpu().numpy()
+                    for k, v in _state_arrays(state).items()})
+        meta["cases"][name] = dict(seconds=secs, loss=loss)
+    with open(os.path.join(args.out, f"dp{args.rank}.json"), "w") as f:
+        json.dump(meta, f)
+
+
+def sharded_worker(args, dev):
+    """One rank of phase 5p: for each mesh, the float32 small check and the
+    full-width bf16 call of the distributed sampler."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
+        ratio_log_fn,
+        velocity_fn,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+    from ratio_guided_multimodal_fm_tpu_torch.parallel import (
+        make_distributed_guided_sampler_p,
+        make_mesh,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
+        GuidedSamplerConfig,
+    )
+
+    coll = {"s": 0.0, "n": 0}
+    raw = dist.all_reduce
+
+    def timed(*a, **k):
+        h0 = time.perf_counter()
+        try:
+            return raw(*a, **k)
+        finally:
+            coll["s"] += time.perf_counter() - h0
+            coll["n"] += 1
+
+    dist.all_reduce = timed
+    res = {}
+    small_b, small_n, small_steps = map(int, args.small.split(","))
+    f32 = build_models(torch.float32, dev)
+    bf16 = build_models(torch.bfloat16, dev)
+    for sizes in MESHES:
+        mesh = make_mesh(axis_names=("data", "mc"), axis_sizes=sizes)
+        tag = f"{sizes[0]}x{sizes[1]}"
+
+        def sampler(n_mc, steps):
+            cfg = GuidedSamplerConfig(
+                guidance_method="mc_feng", guidance_strength=GAMMA,
+                num_steps=steps, mc_batch_size=n_mc, x_shape=X_SHAPE,
+                y_shape=Y_SHAPE)
+            return make_distributed_guided_sampler_p(
+                lambda m, x, t: velocity_fn(m)(x, t),
+                lambda m, y, t: velocity_fn(m)(y, t), cfg,
+                lambda r, x, y: ratio_log_fn(r)(x, y), mesh)
+
+        x1, y1 = sampler(small_n, small_steps)(
+            f32, torch.Generator(dev).manual_seed(5), small_b)
+        np.savez(os.path.join(args.out, f"small{args.rank}_{tag}.npz"),
+                 x=x1.cpu().numpy(), y=y1.cpu().numpy())
+        sampler(args.n_mc, 2)(bf16, torch.Generator(dev).manual_seed(1),
+                              args.batch)                         # warm-up
+        full = sampler(args.n_mc, args.steps)
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launches()
+        coll.update(s=0.0, n=0)
+        h0 = time.perf_counter()
+        x1, y1, diags = full(bf16, torch.Generator(dev).manual_seed(2),
+                             args.batch, return_diagnostics=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - h0
+        counts = short_counts(launch_counts())
+        ess = diags["ess"]
+        res[tag] = dict(
+            seconds=secs, collective_host_s=coll["s"],
+            collectives=coll["n"], launches=counts,
+            finite=bool(torch.isfinite(x1).all() and torch.isfinite(y1).all()),
+            shape=[list(x1.shape), list(y1.shape)],
+            ess_min=float(ess.min()), ess_max=float(ess.max()),
+            ess_mean=float(ess.mean()))
+    with open(os.path.join(args.out, f"sharded{args.rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def sharded_sampler_phase(dev, smi, out_dir, steps):
+    """5p: the distributed sampler (parallel/sharded_guidance.py) at full
+    width: experiment-2 nets in bf16, B=B_MAIN, N_mc=N_MC, `steps` steps,
+    mc_feng, two processes on the card on meshes (data 2, mc 1) and (data
+    1, mc 2). First, in float32 nets on a small input (SHARD_SMALL), the
+    gathered samples against this process's single-process sampler on the
+    same generator (1e-3, the card-against-CPU bound). At full width:
+    finite samples assembled on both ranks, 1 <= ESS <= N_mc, the launch
+    counts as derived (kernel A once a step on (2, 1), never on (1, 2),
+    where the guidance runs in tensor ops with its reductions over the mc
+    group; kernel B at each U-Net site, in phase A on the rank's MC shard
+    and in phase B on its rows), the call time and the host time in
+    collectives."""
+    import numpy as np
+    import torch
+
+    small_b, small_n, small_steps = SHARD_SMALL
+    f32 = build_models(torch.float32, dev)
+    ref = make_sampler(dict(mc_batch_size=small_n, num_steps=small_steps))(
+        f32, torch.Generator(dev).manual_seed(5), small_b)
+    del f32
+    torch.cuda.empty_cache()
+    spawn_workers("sharded", 2, out_dir, [
+        "--steps", str(steps), "--batch", str(B_MAIN), "--n_mc", str(N_MC),
+        "--small", ",".join(map(str, SHARD_SMALL))])
+    meta = [json.load(open(os.path.join(out_dir, f"sharded{r}.json")))
+            for r in (0, 1)]
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingUNetMNIST,
+        FlowMatchingUNetSVHN,
+    )
+
+    sites = (gn_sites(FlowMatchingUNetMNIST(img_size=32))
+             + gn_sites(FlowMatchingUNetSVHN()))
+    rec = {}
+    for sizes in MESHES:
+        tag = f"{sizes[0]}x{sizes[1]}"
+        errs = []
+        for r in (0, 1):
+            got = np.load(os.path.join(out_dir, f"small{r}_{tag}.npz"))
+            errs.append(max(float(np.abs(got["x"] - ref[0].cpu().numpy()
+                                         ).max()),
+                            float(np.abs(got["y"] - ref[1].cpu().numpy()
+                                         ).max())))
+        if max(errs) > 1e-3:
+            fail(f"sharded sampler {tag}: gathered samples differ from the "
+                 f"single-process sampler by {max(errs):.3g} > 1e-3")
+        want = {"flash_guidance": steps if sizes[1] == 1 else 0,
+                "group_norm_silu": 2 * steps * sites,
+                "group_norm_silu_backward": 0,
+                "group_norm_silu_backward (dγ/dβ)": 0,
+                "fused_gn_silu_conv": 0}
+        for r, m in enumerate(meta):
+            x = m[tag]
+            if x["launches"] != want:
+                fail(f"sharded sampler {tag} rank {r}: launches "
+                     f"{x['launches']} != derived {want}")
+            if not (x["finite"] and 1.0 - 1e-3 <= x["ess_min"]
+                    and x["ess_max"] <= N_MC + 1e-3):
+                fail(f"sharded sampler {tag} rank {r}: non-finite samples "
+                     f"or ESS outside [1, {N_MC}]: {x}")
+            if x["shape"] != [[B_MAIN, *X_SHAPE], [B_MAIN, *Y_SHAPE]]:
+                fail(f"sharded sampler {tag}: assembled shapes {x['shape']}")
+        m0 = meta[0][tag]
+        print(f"sharded sampler mesh (data {sizes[0]}, mc {sizes[1]}), 2 "
+              f"processes (gloo, one card): small f32 check max |err| "
+              f"{max(errs):.3g} (bound 1e-3); full width B={B_MAIN} "
+              f"N_mc={N_MC} {steps} steps bf16: "
+              + " / ".join(f"{m[tag]['seconds']:.3f}" for m in meta)
+              + f" s a call (ranks 0 / 1), {m0['collectives']} collectives "
+              f"taking {m0['collective_host_s']:.3f} s of host time on rank "
+              f"0, ESS [{m0['ess_min']:.2f}, {m0['ess_max']:.2f}] mean "
+              f"{m0['ess_mean']:.2f}, launches a rank {m0['launches']}  "
+              f"[{smi}]")
+        rec[tag] = dict(small_max_abs_err=max(errs), ranks=[m[tag]
+                                                            for m in meta])
+    return rec
+
+
+def run_worker(args) -> int:
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import (
+        resolve_device,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+        maybe_init_distributed,
+        process_device,
+    )
+
+    if not torch.cuda.is_available():
+        fail("worker: no CUDA device")
+    dev = resolve_device("cuda")
+    maybe_init_distributed(f"127.0.0.1:{args.port}", args.world, args.rank,
+                           device=dev)
+    dev = process_device(dev)
+    if args.worker == "dp":
+        dp_worker(args, dev)
+    else:
+        sharded_worker(args, dev)
+    import torch.distributed as dist
+
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def slice10_clis(smi):
+    """Phase 7 (slice 10), in phase 7's directory of synthetic digits and
+    checkpoints: train_flow_mnist32 and train_ratio with --fused_steps 8
+    for one epoch, then both sample CLIs on what they wrote;
+    train_flow_mnist32 as two processes through its multi-process flags;
+    cli/stretch64_demo.py at STRETCH64_ARGV (kernel A at Dx = 12,288,
+    Dy = 4,096 in its mc_feng steps)."""
+    import re
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        sample,
+        sample_mnist_svhn,
+        stretch64_demo,
+        train_flow_mnist32,
+        train_ratio,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+
+    rec = {}
+    for name, cli, flags in (("train_flow_mnist32", train_flow_mnist32, []),
+                             ("train_ratio", train_ratio,
+                              ["--ema_decay", "0.999"])):
+        reset_launches()
+        h0 = time.perf_counter()
+        _, best, hist = cli.main(["--epochs", "1", "--fused_steps",
+                                  str(K_FUSED)] + flags)
+        secs = time.perf_counter() - h0
+        if not (np.isfinite(best) and hist and hist[-1]["epoch"] == 1):
+            fail(f"CLI {name} --fused_steps {K_FUSED}: {hist}")
+        counts = short_counts(launch_counts())
+        print(f"CLI {name} --fused_steps {K_FUSED}, 1 epoch: {secs:.1f} s "
+              f"wall, {hist[-1]['steps_per_sec']:.2f} macro steps/s, best "
+              f"{best:.4f}, launches {counts}  [{smi}]")
+        rec[name] = dict(seconds=secs, history=hist, launches=counts)
+    for name, cli in (("sample_mnist_svhn", sample_mnist_svhn),
+                      ("sample", sample)):
+        x1, y1, diags = cli.main(["--guidance_method", "mc_feng",
+                                  "--num_samples", "64", "--num_steps", "20",
+                                  "--mc_batch_size", str(N_MC)])
+        if not (bool(torch.isfinite(x1).all())
+                and bool(torch.isfinite(y1).all())):
+            fail(f"CLI {name} on the fused trainers' checkpoints: "
+                 "non-finite samples")
+        print(f"CLI {name} on the checkpoints the fused train CLIs wrote: "
+              "finite samples")
+    # train_flow_mnist32 as two processes (gloo on the one card)
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    h0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m",
+         "ratio_guided_multimodal_fm_tpu_torch.cli.train_flow_mnist32",
+         "--epochs", "1", "--coordinator_address", f"127.0.0.1:{port}",
+         "--num_processes", "2", "--process_id", str(r)], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - h0
+    losses = []
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        m = re.search(r"Epoch 1/1 - Loss: ([0-9.]+) \(([0-9.]+) steps/s\)",
+                      o)
+        if p.returncode != 0 or m is None:
+            fail(f"two-process train_flow_mnist32 rank {r} exited "
+                 f"{p.returncode}:\n{o[-4000:]}")
+        losses.append(m.groups())
+    if losses[0][0] != losses[1][0] or "backend gloo" not in outs[0]:
+        fail(f"two-process train_flow_mnist32: ranks disagree {losses} or "
+             "the backend is not gloo")
+    print(f"CLI train_flow_mnist32 as 2 processes (gloo, one card), 1 "
+          f"epoch: {secs:.1f} s wall with start-up, loss {losses[0][0]}, "
+          f"{losses[0][1]} / {losses[1][1]} steps/s (ranks 0 / 1)  [{smi}]")
+    rec["train_flow_mnist32_2proc"] = dict(seconds=secs, losses=losses)
+    # the stretch demo
+    reset_launches()
+    h0 = time.perf_counter()
+    res = stretch64_demo.main(STRETCH64_ARGV)
+    secs = time.perf_counter() - h0
+    counts = short_counts(launch_counts())
+    steps = int(STRETCH64_ARGV[STRETCH64_ARGV.index("--num_steps") + 1])
+    keys = {"loss_curve", "none_gamma0.0", "mc_feng_gamma0.5",
+            "mc_feng_gamma1.0"}
+    if (set(res) != keys or not all(res[k]["finite"] for k in keys
+                                    if k != "loss_curve")
+            or counts["flash_guidance"] != 2 * steps):
+        fail(f"stretch64_demo: {res} launches {counts}")
+    print(f"CLI stretch64_demo {' '.join(STRETCH64_ARGV)}: {secs:.1f} s wall; "
+          + ", ".join(f"{k} {v['wall_sec']} s coherence "
+                      f"{v['centroid_coherence']}" for k, v in res.items()
+                      if k != "loss_curve")
+          + f"; launches {counts}  [{smi}]")
+    rec["stretch64_demo"] = dict(seconds=secs, results=res, launches=counts)
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=100,
@@ -1654,7 +2446,21 @@ def main(argv=None) -> int:
     ap.add_argument("--train_steps", type=int, default=TRAIN_STEPS,
                     help="optimizer steps of each counted training run "
                          f"(default {TRAIN_STEPS})")
+    # the multi-process phases (5d, 5p) run this script as their workers
+    ap.add_argument("--worker", choices=["dp", "sharded"], default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=2, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=str, default="", help=argparse.SUPPRESS)
+    ap.add_argument("--batch", type=int, default=B_TRAIN,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--n_mc", type=int, default=N_MC, help=argparse.SUPPRESS)
+    ap.add_argument("--small", type=str, default="16,32,10",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.worker:
+        return run_worker(args)
 
     import torch
 
@@ -2183,6 +2989,76 @@ def main(argv=None) -> int:
         fail(f"GN sites: encoder-decoder {sum(sites_o.values())} (7 "
              f"expected), FlowMatchingUNet64 {sum(sites64.values())} (45)")
 
+    # slice 10: kernel A at the stretch demo's unequal halves (B=B64,
+    # N=N64, Dx = 12,288, Dy = 4,096) against its float64 plain version as
+    # at D = 24,576, reruns bit for bit; kernel B at the sharded sampler's
+    # row and shard batches (B_MAIN/2 and N_MC/2) of the experiment-2
+    # U-Nets, both layouts, bf16 and float32; both GN kernels at the
+    # MNIST-32 U-Net's training sites at the data-parallel ranks' B/2 rows
+    yard10 = {}
+    s10_in = None
+    for tag, images in (("quarter_ints", quarter_ints), ("normal", rnd)):
+        inputs = (images(B64, 64, 64, 3), images(B64, 64, 64, 1),
+                  images(N64, 64, 64, 3), images(N64, 64, 64, 1), rnd(N64))
+        s10_in = s10_in or inputs
+        for t in (0.05, 0.5, 0.95):
+            got = flash_guidance(*inputs, t)
+            flush()
+            again = flash_guidance(*inputs, t)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f"flash_guidance Dx=12288 Dy=4096 {tag} t={t}: two "
+                     "launches on the same inputs differ")
+            plain = flash_guidance_reference(*inputs, t)
+            exact = flash_guidance_reference(*inputs, t, torch.float64)
+            err_k, err_p = (max(float((r[i].double() - exact[i]).abs().max())
+                                for i in (0, 1)) for r in (got, plain))
+            yard10[f"{tag}_t{t}"] = dict(kernel=err_k, plain_f32=err_p)
+            for i, nm in ((2, "ess"), (3, "l")):
+                check_close(f"flash_guidance {nm} Dx=12288 Dy=4096 {tag} "
+                            f"t={t} against float64", got[i].double(),
+                            exact[i], rtol=2e-2, atol=1e-4)
+            if err_k > 2.0 * err_p + 1e-6:
+                fail(f"flash_guidance Dx=12288 Dy=4096 {tag} t={t}: max "
+                     f"|err| in g against float64 {err_k:.3g} exceeds twice "
+                     f"the float32 plain version's {err_p:.3g}")
+    print(f"flash_guidance at the stretch demo's B={B64} N={N64} Dx=12288 "
+          f"Dy=4096 against the float64 plain version, max |err| in g "
+          f"(kernel / float32 plain): " + ", ".join(
+              f"{k} {v['kernel']:.3g} / {v['plain_f32']:.3g}"
+              for k, v in yard10.items()) + "; reruns bit-identical")
+    details["flash_guidance_d16384_yardstick"] = yard10
+    sh_shapes, _ = layer_shapes(models, dev, X_SHAPE, Y_SHAPE,
+                                (N_MC // 2, B_MAIN // 2))
+    s10_err = {"bf16": 0.0, "f32": 0.0}
+    for (B, C, H) in sorted(sh_shapes):
+        for tag, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for fmt in (torch.channels_last, torch.contiguous_format):
+                x = (rnd(B, C, H, H) * 2.0 + 0.5).to(dt).contiguous(
+                    memory_format=fmt)
+                w = torch.rand(C, generator=gen, device=dev) + 0.5
+                b = rnd(C) * 0.1
+                s10_err[tag] = max(s10_err[tag], check_close(
+                    f"group_norm_silu {tag} B={B} C={C} H={H} {fmt}",
+                    group_norm_silu(x, w, b, 8),
+                    group_norm_silu_reference(x, w, b, 8), **tol_gn[tag]))
+    gn_err = {k: max(gn_err[k], s10_err[k]) for k in gn_err}
+    dp_yard = {"dx": [0.0, 0.0], "dgamma": [0.0, 0.0], "dbeta": [0.0, 0.0]}
+    for (C, H) in sorted(unet_gn_sites(FlowMatchingUNetMNIST(img_size=32), 1,
+                                       32)):
+        check_train_site(B_TRAIN // 2, C, H, dp_yard)
+    train_bwd_err = train_err["backward"]
+    print(f"slice-10 GN shapes: group_norm_silu == plain at "
+          f"{len(sh_shapes)} (B,C,H) sharded-sampler shapes (B={N_MC // 2} "
+          f"and {B_MAIN // 2}), max |err| bf16 {s10_err['bf16']:.3g}, f32 "
+          f"{s10_err['f32']:.3g}; the MNIST-32 U-Net's training sites at "
+          f"B={B_TRAIN // 2}: dx, dγ, dβ max |err| against float64 (kernel "
+          f"/ float32 plain): " + ", ".join(f"{k} {v[0]:.3g} / {v[1]:.3g}"
+                                            for k, v in dp_yard.items()))
+    details["slice10_gn"] = dict(
+        sharded_shapes=[f"B{B}_C{C}_H{H}" for (B, C, H) in sorted(sh_shapes)],
+        max_abs_err=s10_err, dp_training_float64_yardstick=dp_yard)
+
     # kernel C at every ResBlock norm1 -> conv1 shape of the U-Nets
     conv_err = {"f32": 0.0, "bf16_vs_f32": 0.0, "bf16": 0.0}
     conv_check = sorted(set(rb_shapes) | set(e1_rb_shapes))
@@ -2578,6 +3454,26 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     mark("5x 64-px config")
 
+    # 5k. the fused K-step trainer (--fused_steps): the CUDA graph against
+    #     the eager K-step loop, then the single step, K=1 and K=8 in turns
+    details["fused_training"] = fused_training_phase(dev, smi)
+    torch.cuda.empty_cache()
+    mark("5k fused training")
+
+    # 5d / 5p. two processes on the card (gloo): data-parallel training
+    #     against one process; the MC-sharded sampler at full width
+    import shutil
+
+    mp_dir = tempfile.mkdtemp(prefix="rgmf_mp_")
+    try:
+        details["dp_training"] = dp_training_phase(dev, smi, mp_dir)
+        mark("5d data-parallel training")
+        details["sharded_sampler"] = sharded_sampler_phase(dev, smi, mp_dir,
+                                                           args.steps)
+        mark("5p sharded sampler")
+    finally:
+        shutil.rmtree(mp_dir, ignore_errors=True)
+
     # 6. kernel times beside their bounds
     import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
@@ -2616,7 +3512,7 @@ def main(argv=None) -> int:
     capacity = card_capacity(dev.index or 0)
     fg_times = {}
     for tag, inputs in (("D4096", main_in), ("D1568", e1_in),
-                        ("D24576", s64_in)):
+                        ("D24576", s64_in), ("D16384", s10_in)):
         B, N = inputs[0].shape[0], inputs[2].shape[0]
         Dx, Dy = inputs[0][0].numel(), inputs[1][0].numel()
         D = Dx + Dy
@@ -2703,6 +3599,9 @@ def main(argv=None) -> int:
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         library_ms=sdpa_ms, ms_is=fg_ms_is,
         d24576={k: fg_times["D24576"][k] for k in (
+            "device_ms", "device_cold_ms", "event_ms", "host_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by")},
+        dx12288_dy4096={k: fg_times["D16384"][k] for k in (
             "device_ms", "device_cold_ms", "event_ms", "host_ms", "plain_ms",
             "library_ms", "bound_ms", "bound_by")}))
     D = fg_times["D4096"]["D"]
@@ -3242,6 +4141,8 @@ def main(argv=None) -> int:
             mark("7v serve")
             details["slice9_cli"] = slice9_clis(smi)
             mark("7 slice-9 CLIs")
+            details["slice10_cli"] = slice10_clis(smi)
+            mark("7 slice-10 CLIs")
         finally:
             os.chdir(cwd)
             if synth_n is None:
@@ -3272,6 +4173,18 @@ def main(argv=None) -> int:
     for k in kernels:
         for tag, rec in new_paths.items():
             k[f"{tag}_launches"] = rec["launches"][k["name"]]
+    # slice 10: the fused trainer's graph at K=8 per macro step (5k), one
+    # rank's sharded-sampler call on each mesh (5p), the stretch demo (7)
+    for k in kernels:
+        k["fused_k8_launches_per_macro_step"] = {
+            n: r[f"graph K={K_FUSED}"]["runs"][0][
+                "launches_per_macro_step"][k["name"]]
+            for n, r in details["fused_training"].items()}
+        for tag, r in details["sharded_sampler"].items():
+            k[f"sharded_{tag}_launches_per_rank"] = \
+                r["ranks"][0]["launches"][k["name"]]
+        k["stretch64_demo_launches"] = details["slice10_cli"][
+            "stretch64_demo"]["launches"][k["name"]]
     details["kernels"] = kernels
     details["total_s"] = time.perf_counter() - t_start
     print(f"total {details['total_s']:.1f} s")

@@ -1,8 +1,9 @@
 """Shared CLI plumbing (port of the parts of cli/common.py the sampler,
 evaluation, train, reflow and serve CLIs need): flag groups (--smc_*
-included), the train CLIs' runtime set-up
-and refusals, the ratio train CLIs' body, model factory, checkpoint names
-and loading, NHWC closures over the NCHW models (merged-pair evaluation
+included), the runtime set-up (device, multi-process join, refusals), the
+data-parallel adaptation of a train step (`multihost_adapt`), the ratio
+train CLIs' body (plain or fused), model factory, checkpoint names and
+loading, NHWC closures over the NCHW models (merged-pair evaluation
 included), diagnostics."""
 from __future__ import annotations
 
@@ -21,6 +22,15 @@ from ratio_guided_multimodal_fm_tpu_torch.models import (
     FlowMatchingModel,
     FlowMatchingUNet,
 )
+from ratio_guided_multimodal_fm_tpu_torch.models.ratio import BatchNorm2d
+from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+    DataParallel,
+    globalize_batch,
+    maybe_init_distributed,
+    multi_process_requested,
+    process_device,
+    process_info,
+)
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (  # noqa: F401
     checkpoint_path,   # the CLIs take it from here
     ema_checkpoint_path,
@@ -36,6 +46,7 @@ from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
     create_ratio_state,
+    make_ratio_train_multistep,
     make_ratio_train_step,
 )
 _EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
@@ -45,11 +56,6 @@ _EXPORT_HINT = ("Export it from a JAX checkpoint: python -m "
 
 # every sampling method of the sample, evaluate and serve CLIs
 METHODS = ("none", "mc_feng", "grad", "mc_feng+grad", "smc")
-
-
-def not_yet_ported(what: str):
-    raise NotImplementedError(f"{what} is not yet ported to PyTorch (use the "
-                              "JAX package)")
 
 
 def add_common_flags(p: argparse.ArgumentParser):
@@ -68,6 +74,15 @@ def add_common_flags(p: argparse.ArgumentParser):
                         "where their topologies match. Off by default, as "
                         "in the JAX package (PERF.md has the card's "
                         "timing)")
+    # multi-process runs (parallel/multihost.py); single-process unless a
+    # coordinator and more than one process are given (the variables
+    # RGMF_COORDINATOR / RGMF_NUM_PROCESSES / RGMF_PROCESS_ID work too)
+    p.add_argument("--coordinator_address", type=str, default=None,
+                   help="host:port of rank 0 (multi-process runs)")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="total number of processes")
+    p.add_argument("--process_id", type=int, default=None,
+                   help="this process's rank in [0, num_processes)")
 
 
 def add_solver_flag(p: argparse.ArgumentParser):
@@ -217,12 +232,18 @@ def add_ema_flag(p: argparse.ArgumentParser):
 
 
 def add_fused_flag(p: argparse.ArgumentParser):
-    """--fused_steps of the train CLIs: 1 only until the fused K-step
-    trainer is ported (init_runtime refuses more)."""
+    """--fused_steps of the train CLIs (train/steps.py:
+    make_fm_train_multistep / make_ratio_train_multistep)."""
     p.add_argument("--fused_steps", type=int, default=1,
-                   help="K optimizer steps per dispatch (JAX: one lax.scan "
-                        "program). Not yet ported: only 1 (the reference "
-                        "protocol) is accepted")
+                   help="Run K optimizer steps per dispatch over the "
+                        "dataset held on the device: on the card one CUDA "
+                        "graph replay per K steps (the JAX package's "
+                        "lax.scan program). Single-process only. The "
+                        "random stream differs from a K=1 run of the same "
+                        "seed (per-sub-step seeds), trailing batches that "
+                        "do not fill a K-chunk are dropped, and preemption "
+                        "granularity becomes K steps. 1 = reference "
+                        "protocol.")
 
 
 def add_fast_rng_flag(p: argparse.ArgumentParser):
@@ -235,20 +256,13 @@ def add_fast_rng_flag(p: argparse.ArgumentParser):
 def add_train_runtime_flags(p: argparse.ArgumentParser):
     """The JAX train CLIs' other common flags: --data_root is ported; the
     prefetch switch has nothing to switch (the dataset lives on the device
-    and batches are gathered there); the multi-process flags are refused
-    by init_runtime until parallel/ is ported."""
+    and batches are gathered there)."""
     p.add_argument("--data_root", type=str, default="./data",
                    help="Dataset root (IDX/.mat files; synthetic fallback)")
     p.add_argument("--no_prefetch", action="store_true",
                    help="accepted for the JAX CLIs' sake: the port keeps "
                         "the dataset on the device and has no prefetch "
                         "thread to turn off")
-    p.add_argument("--coordinator_address", type=str, default=None,
-                   help="multi-process training: not yet ported (refused)")
-    p.add_argument("--num_processes", type=int, default=None,
-                   help="multi-process training: not yet ported (refused)")
-    p.add_argument("--process_id", type=int, default=None,
-                   help="multi-process training: not yet ported (refused)")
 
 
 def add_ratio_train_flags(p: argparse.ArgumentParser):
@@ -276,19 +290,20 @@ def add_ratio_train_flags(p: argparse.ArgumentParser):
 
 
 def run_ratio_training(args, model: torch.nn.Module, loader, device,
-                       ckpt_name, **loss_kwargs):
+                       ckpt_name, index_loader=None, **loss_kwargs):
     """The ratio train CLIs' body: clip(1.0)+Adam(--lr) with the optional
     EMA, a preempted run restored, --epochs through the epoch driver
     (patience 5, a periodic save every 10 epochs, early stopping on the
     mean loss), the best and periodic weights written as bare
     reference-layout state dicts `ckpt_name(part)` (with BatchNorm buffers)
     and, with an EMA, the `_ema` sibling of the best (train/checkpoint.py:
-    ema_state_dict). Returns (state, best, history)."""
+    ema_state_dict). With --fused_steps K > 1, `index_loader()` gives
+    (x_all, y_all, chunk loader) and each driver step is a fused K-step
+    macro step; multi-process runs train data-parallel (multihost_adapt).
+    Returns (state, best, history)."""
     state = create_ratio_state(model, device, lr=args.lr,
                                ema_decay=args.ema_decay)
     print(f"Model parameters: {count_params(state.model):,}")
-    step = make_ratio_train_step(args.loss_type, ema_decay=args.ema_decay,
-                                 **loss_kwargs)
     state, resume = restore_preempt(args.preempt_path, state)
     if resume["start_epoch"] or resume["start_step"]:
         print(f"Resuming preempted run: epoch {resume['start_epoch']}, "
@@ -306,9 +321,29 @@ def run_ratio_training(args, model: torch.nn.Module, loader, device,
     def save_periodic(s, epoch, best):
         save_checkpoint(ckpt_name(f"epoch{epoch}"), s.model.state_dict())
 
+    if args.fused_steps > 1:
+        x_all, y_all, loader = index_loader()
+        fused = make_ratio_train_multistep(args.loss_type,
+                                           ema_decay=args.ema_decay,
+                                           **loss_kwargs)
+
+        def step_fn(s, b, g):
+            return fused(s, x_all, y_all, b["xidx"], b["yidx"],
+                         b["is_real"], g)
+
+        print(f"Fused dispatch: {args.fused_steps} steps/program, "
+              f"{len(loader)} programs/epoch (epoch logs count programs)")
+        data_iter = epoch_data_iter(loader)
+    else:
+        step = make_ratio_train_step(args.loss_type,
+                                     ema_decay=args.ema_decay, **loss_kwargs)
+        state, step_fn, extract = multihost_adapt(
+            state, lambda s, b, g: step(s, b["x"], b["y"], b["is_real"], g),
+            lambda b: b)
+        data_iter = epoch_data_iter(loader, extract)
+
     state, best, history = train_epochs(
-        state, lambda s, b, g: step(s, b["x"], b["y"], b["is_real"], g),
-        epoch_data_iter(loader), args.epochs, RNG(args.seed + 1, device),
+        state, step_fn, data_iter, args.epochs, RNG(args.seed + 1, device),
         loss_key="loss", save_best_fn=save_best,
         save_periodic_fn=save_periodic, save_every=10, patience=5,
         preempt_path=args.preempt_path, **resume)
@@ -328,28 +363,51 @@ def arm_preemption():
     arm()
 
 
-def refuse_unported_runtime(args) -> None:
-    """Refuse add_train_runtime_flags' multi-process flags until parallel/
-    is ported."""
-    if any(getattr(args, f, None) is not None for f in
-           ("coordinator_address", "num_processes", "process_id")):
-        not_yet_ported("multi-process runs (parallel/)")
-
-
-def init_runtime(args) -> torch.device:
-    """The train CLIs' runtime set-up: refuse what is not ported, then
-    resolve the device (`cuda` unless --device cpu; float32 pinned)."""
+def init_runtime(args, training: bool = True) -> torch.device:
+    """Every CLI's runtime set-up (JAX init_runtime): refuse what has no
+    meaning here, join the other processes of a multi-process run
+    (--coordinator_address, --num_processes, --process_id or their
+    RGMF_* variables; a no-op otherwise) and resolve this rank's device
+    (`cuda` unless --device cpu; float32 pinned). --fused_steps > 1 is
+    single-process only, as in JAX. The train CLIs (`training`) say that
+    --dtype does not apply to them."""
     if getattr(args, "fast_rng", False):
         raise SystemExit("--fast_rng selects JAX's RngBitGenerator PRNG; it "
                          "has no meaning in torch, whose generators are "
                          "Philox on the card (drop the flag)")
-    if getattr(args, "fused_steps", 1) > 1:
-        not_yet_ported("--fused_steps > 1 (the fused K-step trainer)")
-    refuse_unported_runtime(args)
-    if getattr(args, "dtype", "f32") != "f32":
+    flags = (getattr(args, "coordinator_address", None),
+             getattr(args, "num_processes", None),
+             getattr(args, "process_id", None))
+    if getattr(args, "fused_steps", 1) > 1 and multi_process_requested(
+            *flags):
+        raise SystemExit("--fused_steps > 1 is single-process only "
+                         "(multi-process DP shards host batches)")
+    if training and getattr(args, "dtype", "f32") != "f32":
         print("--dtype is ignored by training, which runs in float32 as "
               "the JAX package's train CLIs do")
-    return resolve_device(args.device)
+    device = resolve_device(args.device)
+    maybe_init_distributed(*flags, device=device)
+    return process_device(device)
+
+
+def multihost_adapt(state, step_fn, extract):
+    """Adapt a (state, step, batch-extract) triple for multi-process data
+    parallelism (JAX multihost_adapt). Single-process: returned unchanged.
+    Multi-process: checks that every rank starts from the same parameters
+    (identical seeds), gives the state a DataParallel (the steps then
+    draw for the global batch and keep their rows, take their share of the
+    global loss and sum the gradients over the ranks; models/ratio.py's
+    BatchNorm uses the global batch's statistics), and makes each batch
+    this rank's contiguous rows of the identically seeded global batch."""
+    if process_info()[1] == 1:
+        return state, step_fn, extract
+    dp = DataParallel()
+    dp.assert_replicated(list(state.model.state_dict().values()))
+    state.dp = dp
+    for m in state.model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.dp = dp
+    return state, step_fn, lambda b: globalize_batch(extract(b))
 
 
 def count_params(model: torch.nn.Module) -> int:

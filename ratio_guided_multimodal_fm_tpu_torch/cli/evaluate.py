@@ -27,7 +27,6 @@ import os
 import numpy as np
 
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
-    METHODS,
     add_common_flags,
     add_ema_flag,
     add_eval_flags,
@@ -37,8 +36,10 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_smc_flags,
     add_solver_flag,
     classifier_fn,
+    init_runtime,
     load_state_dict,
     maybe_merged_pair_fn,
+    METHODS,
     ratio_log_fn,
     report_guidance_diagnostics,
     smc_config_from_args,
@@ -49,10 +50,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.sample import (
     load_exp1_flows,
     load_exp1_ratio,
 )
-from ratio_guided_multimodal_fm_tpu_torch.core.device import (
-    place_model,
-    resolve_device,
-)
+from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     get_classifier_dataloader,
 )
@@ -225,7 +223,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_methods(args.guidance_methods)
 
-    device = resolve_device(args.device)   # also pins float32 (no TF32)
+    device = init_runtime(args, training=False)   # pins float32 (no TF32)
     print(f"Random seed: {args.seed}")
 
     clf = place_model(load_state_dict(

@@ -25,6 +25,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     classifier_fn,
     dtype_of,
+    init_runtime,
     load_state_dict,
     ratio_log_fn,
     velocity_fn,
@@ -39,10 +40,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.evaluate import (
 from ratio_guided_multimodal_fm_tpu_torch.cli.sample_mnist_svhn import (
     load_mnist_svhn_models,
 )
-from ratio_guided_multimodal_fm_tpu_torch.core.device import (
-    place_model,
-    resolve_device,
-)
+from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
     get_mnist32_flow_dataloader,
 )
@@ -71,7 +69,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
     check_methods(args.guidance_methods)
 
-    device = resolve_device(args.device)   # also pins float32 (no TF32)
+    device = init_runtime(args, training=False)   # pins float32 (no TF32)
     print(f"Random seed: {args.seed}")
 
     clf_m = place_model(load_state_dict(

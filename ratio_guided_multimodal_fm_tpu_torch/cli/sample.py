@@ -38,6 +38,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     dtype_of,
     fm_bridge,
     fm_model,
+    init_runtime,
     load_state_dict,
     maybe_merged_pair_fn,
     ratio_log_fn,
@@ -45,10 +46,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     sample_smc_from_args,
     velocity_fn,
 )
-from ratio_guided_multimodal_fm_tpu_torch.core.device import (
-    place_model,
-    resolve_device,
-)
+from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
 from ratio_guided_multimodal_fm_tpu_torch.models import RatioEstimatorMNIST
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
     sample_bimodal_guided,
@@ -122,7 +120,7 @@ def main(argv=None):
     add_common_flags(parser)
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)   # also pins float32 (no TF32)
+    device = init_runtime(args, training=False)   # pins float32 (no TF32)
     generator = torch.Generator(device).manual_seed(args.seed)
     print(f"Random seed: {args.seed}")
     print(f"Device: {device}"

@@ -33,16 +33,14 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_smc_flags,
     add_solver_flag,
     dtype_of,
+    init_runtime,
     load_state_dict,
     ratio_log_fn,
     report_guidance_diagnostics,
     sample_smc_from_args,
     velocity_fn,
 )
-from ratio_guided_multimodal_fm_tpu_torch.core.device import (
-    place_model,
-    resolve_device,
-)
+from ratio_guided_multimodal_fm_tpu_torch.core.device import place_model
 from ratio_guided_multimodal_fm_tpu_torch.models import (
     FlowMatchingUNetMNIST,
     FlowMatchingUNetSVHN,
@@ -102,7 +100,7 @@ def main(argv=None):
     add_common_flags(parser)
     args = parser.parse_args(argv)
 
-    device = resolve_device(args.device)   # also pins float32 (no TF32)
+    device = init_runtime(args, training=False)   # pins float32 (no TF32)
     generator = torch.Generator(device).manual_seed(args.seed)
     print(f"Random seed: {args.seed}")
     print(f"Device: {device}"

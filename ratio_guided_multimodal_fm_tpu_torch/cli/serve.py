@@ -47,7 +47,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     dtype_of,
     maybe_merged_pair_fn,
     ratio_log_fn,
-    refuse_unported_runtime,
+    init_runtime,
     velocity_fn,
 )
 from ratio_guided_multimodal_fm_tpu_torch.cli.sample import (
@@ -405,8 +405,7 @@ def build_service(args) -> SamplerService:
     """The service of make_parser()'s `args` on the checkpoints under
     ./checkpoints, loaded as the sample CLIs load them (the SMC defaults
     are the global G 16, tau 0.5 for both experiments, as in JAX)."""
-    refuse_unported_runtime(args)
-    device = resolve_device(args.device)
+    device = init_runtime(args, training=False)
     smc_kw = dict(smc_churn=args.smc_churn,
                   smc_churn_iters=args.smc_churn_iters,
                   smc_resample_tau=args.smc_resample_tau,

@@ -9,7 +9,10 @@ files the experiment-1 sample and evaluate CLIs read. float32, on the card
 unless --device cpu. --model original trains the encoder-decoder
 FlowMatchingModel; --metrics_dir appends each epoch's metrics to
 <dir>/flow_{modality}.jsonl and --profile_dir writes a torch.profiler
-Chrome trace of the run there (core/observability.py).
+Chrome trace of the run there (core/observability.py). --fused_steps K
+takes K optimizer steps a dispatch (one CUDA graph replay on the card);
+with --coordinator_address/--num_processes/--process_id each rank trains
+on its rows of the global batch (data-parallel).
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow \\
         --modality y --transform_type rotate90 --epochs 50
@@ -27,6 +30,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     count_params,
     fm_model,
     init_runtime,
+    multihost_adapt,
 )
 from ratio_guided_multimodal_fm_tpu_torch.core.observability import (
     MetricsLogger,
@@ -35,6 +39,11 @@ from ratio_guided_multimodal_fm_tpu_torch.core.observability import (
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG, set_seed
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     get_flow_dataloader,
+    get_flow_dataset,
+    get_index_chunk_loader,
+)
+from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+    is_writer,
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (
     checkpoint_path,
@@ -47,6 +56,7 @@ from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
     create_fm_state,
+    make_fm_train_multistep,
     make_fm_train_step,
 )
 
@@ -94,10 +104,6 @@ def main(argv=None):
     print(f"Random seed: {args.seed}; device: {device}")
 
     transform = args.transform_type if args.modality == "y" else None
-    loader = get_flow_dataloader(transform_type=transform,
-                                 batch_size=args.batch_size, train=True,
-                                 root=args.data_root, seed=args.seed,
-                                 device=device)
     print(f"Training modality: {args.modality}")
     if args.modality == "y":
         print(f"Transform type: {args.transform_type}")
@@ -115,13 +121,34 @@ def main(argv=None):
               f"(best {resume['start_best']:.4f})")
 
     modality = args.modality
+    if args.fused_steps > 1:
+        # K optimizer steps a dispatch over the dataset on the device: the
+        # driver iterates macro steps ([K, B] index chunks)
+        dataset = get_flow_dataset(transform, True, args.data_root, device)
+        loader = get_index_chunk_loader(len(dataset), args.batch_size,
+                                        args.fused_steps, seed=args.seed)
+        fused = make_fm_train_multistep(args.ema_decay)
+
+        def step(s, idx, g):
+            return fused(s, dataset, idx, g)
+
+        print(f"Fused dispatch: {args.fused_steps} steps/program, "
+              f"{len(loader)} programs/epoch (epoch logs count programs)")
+        data_iter = epoch_data_iter(loader)
+    else:
+        loader = get_flow_dataloader(transform_type=transform,
+                                     batch_size=args.batch_size, train=True,
+                                     root=args.data_root, seed=args.seed,
+                                     device=device)
+        state, step, extract = multihost_adapt(
+            state, make_fm_train_step(args.ema_decay), lambda b: b[modality])
+        data_iter = epoch_data_iter(loader, extract)
     metrics_logger = (MetricsLogger(args.metrics_dir, f"flow_{modality}")
-                      if args.metrics_dir else None)
+                      if args.metrics_dir and is_writer() else None)
     try:
         with profile_trace(args.profile_dir):
             state, best, history = train_flow_matching_epochs(
-                state, make_fm_train_step(args.ema_decay),
-                epoch_data_iter(loader, lambda b: b[modality]), args.epochs,
+                state, step, data_iter, args.epochs,
                 RNG(args.seed + 1, device),
                 best_path=checkpoint_path("flow", modality, transform,
                                           "best"),

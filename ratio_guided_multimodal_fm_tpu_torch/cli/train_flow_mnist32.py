@@ -7,6 +7,8 @@ Flag-parity with the JAX CLI (ref src/train_flow_mnist32.py:64-81) incl.
 evaluate CLIs read as they are: checkpoints/flow_mnist32_best.pth and
 flow_mnist32_epoch{N}.pth (resumable full dicts) and, with --ema_decay,
 flow_mnist32_ema_best.pth (a bare state dict, read with --ema).
+--fused_steps K takes K optimizer steps a dispatch (one CUDA graph replay
+on the card); the multi-process flags train data-parallel.
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow_mnist32 \\
         --epochs 50 --ema_decay 0.999
@@ -23,10 +25,15 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     arm_preemption,
     count_params,
     init_runtime,
+    multihost_adapt,
 )
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG, set_seed
+from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
+    get_index_chunk_loader,
+)
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
     get_mnist32_flow_dataloader,
+    mnist32_dataset,
 )
 from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNetMNIST
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (
@@ -43,6 +50,7 @@ from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
     create_fm_state,
+    make_fm_train_multistep,
     make_fm_train_step,
 )
 
@@ -72,11 +80,16 @@ def add_flow_train_flags(parser: argparse.ArgumentParser, name: str):
     add_common_flags(parser)
 
 
-def run_flow_training(model, loader, args, ckpt_prefix: str, device):
+def run_flow_training(model, loader, args, ckpt_prefix: str, device,
+                      dataset_fn=None):
     """Shared driver of the MNIST-32 and SVHN flow CLIs: --resume (the
     full dict, or bare weights), step-granular --preempt_path preemption
     (it takes precedence over --resume), best and periodic resumable
-    saves, the EMA file. Returns (state, best loss, history)."""
+    saves, the EMA file. `loader()` gives the batch loader; with
+    --fused_steps K > 1 `dataset_fn()` gives the whole modality on the
+    device instead and each driver step is a fused K-step macro step.
+    Multi-process runs train data-parallel. Returns (state, best loss,
+    history)."""
     ema_decay = args.ema_decay
     state = create_fm_state(model, device, lr=args.lr, ema_decay=ema_decay)
     print(f"Model parameters: {count_params(state.model):,}")
@@ -119,10 +132,25 @@ def run_flow_training(model, loader, args, ckpt_prefix: str, device):
         save_train_checkpoint(path, s, epoch, best)
         print(f"  -> Saved checkpoint: {path}")
 
+    if args.fused_steps > 1:
+        dataset = dataset_fn()
+        chunks = get_index_chunk_loader(len(dataset), args.batch_size,
+                                        args.fused_steps, seed=args.seed)
+        fused = make_fm_train_multistep(ema_decay)
+
+        def step(s, idx, g):
+            return fused(s, dataset, idx, g)
+
+        print(f"Fused dispatch: {args.fused_steps} steps/program, "
+              f"{len(chunks)} programs/epoch (epoch logs count programs)")
+        data_iter = epoch_data_iter(chunks)
+    else:
+        state, step, extract = multihost_adapt(
+            state, make_fm_train_step(ema_decay), lambda b: b["x"])
+        data_iter = epoch_data_iter(loader(), extract)
+
     state, best, history = train_epochs(
-        state, make_fm_train_step(ema_decay),
-        epoch_data_iter(loader, lambda b: b["x"]), args.epochs,
-        RNG(args.seed + 1, device),
+        state, step, data_iter, args.epochs, RNG(args.seed + 1, device),
         save_best_fn=save_best, save_periodic_fn=save_periodic,
         save_every=args.save_every, patience=args.patience,
         preempt_path=args.preempt_path, **resume)
@@ -141,11 +169,13 @@ def main(argv=None):
     arm_preemption()   # SIGTERM-safe from startup (train CLIs only)
     set_seed(args.seed)
     print(f"Random seed: {args.seed}; device: {device}")
-    loader = get_mnist32_flow_dataloader(args.batch_size, True,
-                                         args.data_root, seed=args.seed,
-                                         device=device)
-    return run_flow_training(FlowMatchingUNetMNIST(img_size=32), loader,
-                             args, "flow_mnist32", device)
+    return run_flow_training(
+        FlowMatchingUNetMNIST(img_size=32),
+        lambda: get_mnist32_flow_dataloader(args.batch_size, True,
+                                            args.data_root, seed=args.seed,
+                                            device=device),
+        args, "flow_mnist32", device,
+        dataset_fn=lambda: mnist32_dataset(True, args.data_root, device))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ cli/train_flow_svhn.py).
 Flag-parity with the JAX CLI (ref src/train_flow_svhn.py:84-101) incl.
 --resume; writes checkpoints/flow_svhn_{best|epochN}.pth (resumable full
 dicts) and, with --ema_decay, flow_svhn_ema_best.pth. float32, on the card
-unless --device cpu.
+unless --device cpu; --fused_steps and the multi-process flags as in
+train_flow_mnist32.
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow_svhn \\
         --epochs 1 --ema_decay 0.999
@@ -24,6 +25,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.train_flow_mnist32 import (
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import set_seed
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_svhn import (
     get_svhn_flow_dataloader,
+    svhn_dataset,
 )
 from ratio_guided_multimodal_fm_tpu_torch.models import FlowMatchingUNetSVHN
 
@@ -37,10 +39,13 @@ def main(argv=None):
     arm_preemption()   # SIGTERM-safe from startup (train CLIs only)
     set_seed(args.seed)
     print(f"Random seed: {args.seed}; device: {device}")
-    loader = get_svhn_flow_dataloader(args.batch_size, True, args.data_root,
-                                      seed=args.seed, device=device)
-    return run_flow_training(FlowMatchingUNetSVHN(), loader, args,
-                             "flow_svhn", device)
+    return run_flow_training(
+        FlowMatchingUNetSVHN(),
+        lambda: get_svhn_flow_dataloader(args.batch_size, True,
+                                         args.data_root, seed=args.seed,
+                                         device=device),
+        args, "flow_svhn", device,
+        dataset_fn=lambda: svhn_dataset(True, args.data_root, device))
 
 
 if __name__ == "__main__":

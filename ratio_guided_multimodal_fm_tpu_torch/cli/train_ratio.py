@@ -8,7 +8,8 @@ Writes bare state dicts checkpoints/ratio_{loss}_{transform}_{best|epochN}
 files the experiment-1 sample and evaluate CLIs read (--ratio_ema for the
 EMA). float32, on the card unless --device cpu; every step runs the
 GroupNorm+SiLU forward kernel and its backward with dγ/dβ at the net's 8
-GN sites.
+GN sites. --fused_steps K takes K optimizer steps a dispatch (one CUDA
+graph replay on the card); the multi-process flags train data-parallel.
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_ratio \\
         --loss_type disc --transform_type rotate90 --epochs 30
@@ -26,6 +27,7 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import set_seed
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     get_ratio_dataloader,
+    get_ratio_index_loader,
 )
 from ratio_guided_multimodal_fm_tpu_torch.models import RatioEstimatorMNIST
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (
@@ -46,7 +48,7 @@ def main(argv=None):
     set_seed(args.seed)
     print(f"Random seed: {args.seed}; device: {device}")
 
-    loader = get_ratio_dataloader(
+    loader = None if args.fused_steps > 1 else get_ratio_dataloader(
         transform_type=args.transform_type, batch_size=args.batch_size,
         real_fake_ratio=args.real_fake_ratio, root=args.data_root,
         seed=args.seed, device=device)
@@ -58,6 +60,11 @@ def main(argv=None):
         args, RatioEstimatorMNIST(loss_type=args.loss_type), loader, device,
         lambda part: checkpoint_path("ratio", args.loss_type,
                                      args.transform_type, part),
+        index_loader=lambda: get_ratio_index_loader(
+            transform_type=args.transform_type, batch_size=args.batch_size,
+            fused_steps=args.fused_steps,
+            real_fake_ratio=args.real_fake_ratio, root=args.data_root,
+            seed=args.seed, device=device),
         alpha=args.rulsif_alpha, lambda_penalty=args.lambda_penalty)
 
 

@@ -1,9 +1,12 @@
 """Experiment-1 data (port of the parts of data/mnist_dataset.py that the
 training, sampling and evaluation CLIs read): the epoch loader, the flow
 batches of MNIST-28 and of its transformed twin, the ratio (real/fake
-pair) batches and the classifier batches. The batch order is numpy's, the same as the JAX package's for the
-same seed; with a `device`, the dataset lives there as one tensor and the
-batches are gathered there (data/pipeline.py)."""
+pair) batches and the classifier batches, and the fused K-step trainer's
+index loaders (int32 [K, B] chunks; the dataset goes to the device once
+and the K batches are gathered there, train/steps.py). The batch order is
+numpy's, the same as the JAX package's for the same seed; with a
+`device`, the dataset lives there as one tensor and the batches are
+gathered there (data/pipeline.py)."""
 from __future__ import annotations
 
 from typing import Optional
@@ -82,6 +85,73 @@ def get_flow_dataset(transform_type: Optional[str] = None,
     `transform_type` says), on `device` when given."""
     _, y, _ = _modalities(transform_type, train, root)
     return to_device(y, device)
+
+
+def get_index_chunk_loader(n: int, batch_size: int, fused_steps: int,
+                           train: bool = True, seed: int = 0) -> _EpochLoader:
+    """Epoch loader of int32 [K, B] index chunks for the fused trainer
+    (train/steps.py:make_fm_train_multistep), equal to the JAX loader's
+    for the same seed: epoch e permutes with RandomState(seed + e), and the
+    trailing batches that do not fill a K-chunk are dropped (with K = 1 the
+    chunks are the plain loader's batches)."""
+    k, b = int(fused_steps), int(batch_size)
+    n_chunks = n // (k * b)
+
+    def make_iter(rng):
+        order = rng.permutation(n) if train else np.arange(n)
+        for c in range(n_chunks):
+            idx = order[c * k * b:(c + 1) * k * b]
+            yield np.ascontiguousarray(idx.reshape(k, b).astype(np.int32))
+
+    return _EpochLoader(make_iter, n_chunks, seed)
+
+
+def ratio_index_chunks(labels: np.ndarray, pairing: Pairing, batch_size: int,
+                       fused_steps: int, real_fake_ratio: float, train: bool,
+                       seed: int) -> _EpochLoader:
+    """Epoch loader of {'xidx', 'yidx': int32 [K, B], 'is_real': float32
+    [K, B]} chunks: per chunk the K·B x rows of the epoch's order, the
+    Bernoulli real/fake draws, then the same-label and the different-label
+    partners (the JAX index loaders' draws, in their order)."""
+    k, b = int(fused_steps), int(batch_size)
+    n = len(labels)
+    n_chunks = n // (k * b)
+
+    def make_iter(rng):
+        order = rng.permutation(n) if train else np.arange(n)
+        for c in range(n_chunks):
+            idx = order[c * k * b:(c + 1) * k * b]
+            lbl = labels[idx]
+            is_real = rng.rand(k * b) < real_fake_ratio
+            y_same = pairing.same_label(lbl, rng)
+            y_diff, _ = pairing.different_label(lbl, rng)
+            y_idx = np.where(is_real, y_same, y_diff)
+            yield {
+                "xidx": np.ascontiguousarray(
+                    idx.reshape(k, b).astype(np.int32)),
+                "yidx": np.ascontiguousarray(
+                    y_idx.reshape(k, b).astype(np.int32)),
+                "is_real": is_real.reshape(k, b).astype(np.float32),
+            }
+
+    return _EpochLoader(make_iter, n_chunks, seed)
+
+
+def get_ratio_index_loader(transform_type: str = "rotate90",
+                           batch_size: int = 128, fused_steps: int = 1,
+                           real_fake_ratio: float = 0.5, train: bool = True,
+                           root: str = "./data", seed: int = 0, device=None):
+    """Fused-trainer twin of `get_ratio_dataloader` (train/steps.py:
+    make_ratio_train_multistep): (x_all, y_all, loader), the two whole
+    modalities (on `device` when given) and the loader of index chunks
+    (`ratio_index_chunks`), equal to the JAX loader's for the same seed."""
+    imgs_u8, labels = load_mnist(root, train)
+    x = to_unit_range(imgs_u8)
+    y_all = to_device(np.ascontiguousarray(apply_transform(transform_type,
+                                                           x)), device)
+    return (to_device(x, device), y_all,
+            ratio_index_chunks(labels, Pairing(labels), batch_size,
+                               fused_steps, real_fake_ratio, train, seed))
 
 
 def get_ratio_dataloader(transform_type: str = "rotate90",

@@ -5,11 +5,14 @@ Bernoulli real/fake and different-label fakes (D2), and the SVHN-only and
 MNIST-32-only flow loaders (D3/D4), in the JAX package's batch order and
 pairings for the same seed; numpy batches, or
 with a `device` batches gathered there from the dataset held there as one
-tensor (data/pipeline.py)."""
+tensor (data/pipeline.py); the fused K-step trainer's index loader of the
+ratio pairs and the whole modalities on the device (`mnist32_dataset`,
+`svhn_dataset`)."""
 from __future__ import annotations
 
 from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     _EpochLoader,
+    ratio_index_chunks,
 )
 from ratio_guided_multimodal_fm_tpu_torch.data.pipeline import (
     Pairing,
@@ -107,3 +110,30 @@ def get_mnist32_flow_dataloader(batch_size: int = 128, train: bool = True,
         return flow_batches(xd, xl, batch_size, rng, shuffle=train)
 
     return _EpochLoader(make_iter, n_batches, seed)
+
+
+def mnist32_dataset(train: bool = True, root: str = "./data", device=None):
+    """The whole MNIST-32 modality [N, 32, 32, 1] (on `device`)."""
+    return to_device(_mnist32(root, train)[0], device)
+
+
+def svhn_dataset(train: bool = True, root: str = "./data", device=None):
+    """The whole SVHN modality [N, 32, 32, 3] (on `device`)."""
+    return to_device(_svhn(root, train)[0], device)
+
+
+def get_mnist_svhn_ratio_index_loader(batch_size: int = 128,
+                                      fused_steps: int = 1,
+                                      real_fake_ratio: float = 0.5,
+                                      train: bool = True,
+                                      root: str = "./data", seed: int = 0,
+                                      device=None):
+    """Fused-trainer twin of `get_mnist_svhn_ratio_dataloader`: (x_all,
+    y_all, loader) with MNIST-32 and SVHN whole (on `device` when given)
+    and the index chunks of their ratio pairs (the partners drawn among
+    the SVHN labels), equal to the JAX loader's for the same seed."""
+    x, xl = _mnist32(root, train)
+    y, yl = _svhn(root, train)
+    return (to_device(x, device), to_device(y, device),
+            ratio_index_chunks(xl, Pairing(yl), batch_size, fused_steps,
+                               real_fake_ratio, train, seed))

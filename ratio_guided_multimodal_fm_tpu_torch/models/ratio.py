@@ -49,7 +49,14 @@ class BatchNorm2d(nn.BatchNorm2d):
     flax computes them (E[x²] − E[x]², clamped at 0), and then, outside
     autograd, running = 0.9·running + 0.1·batch with the biased variance
     (torch's own BatchNorm would feed the unbiased one) and
-    `num_batches_tracked` counts the step."""
+    `num_batches_tracked` counts the step.
+
+    In a data-parallel run (`dp`, set by cli/common.py:multihost_adapt)
+    the batch statistics are the global batch's: Σx and Σx² over every
+    rank's rows through one differentiable all-reduce, as the JAX
+    package's SPMD program computes them."""
+
+    dp = None     # parallel/multihost.py:DataParallel in a DP run
 
     def __init__(self, ch: int, dtype: torch.dtype = torch.float32):
         super().__init__(ch, eps=1e-5)
@@ -57,9 +64,17 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         xf = x.to(torch.float32)
-        if self.training:
+        if self.training and self.dp is not None:
+            C = xf.shape[1]
+            n = xf.numel() // C * self.dp.size
+            sums = self.dp.sum_grad(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                               (xf * xf).sum(dim=(0, 2, 3))]))
+            mean = sums[:C] / n
+            var = (sums[C:] / n - mean * mean).clamp_min(0.0)
+        elif self.training:
             mean = xf.mean(dim=(0, 2, 3))
             var = ((xf * xf).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        if self.training:
             with torch.no_grad():
                 for run, new in ((self.running_mean, mean),
                                  (self.running_var, var)):

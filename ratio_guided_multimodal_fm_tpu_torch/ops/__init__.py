@@ -6,7 +6,9 @@
   (csrc/group_norm_silu_backward.cu), the Function's backward
 * `resblock.fused_gn_silu_conv`    — CUDA C++ (csrc/fused_gn_silu_conv.cu)
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+Each wrapper counts its kernel launches in `<wrapper>.launches`
+(`launch_counts` reads them all; a CUDA graph replay adds the launches it
+recorded, train/graphs.py).
 """
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     group_norm_silu,
@@ -23,7 +25,29 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
     fused_gn_silu_conv_reference,
 )
 
-__all__ = ["flash_guidance", "flash_guidance_reference",
+_COUNTERS = ((group_norm_silu, "launches"),
+             (group_norm_silu_backward, "launches"),
+             (group_norm_silu_backward, "weight_grad_launches"),
+             (flash_guidance, "launches"),
+             (fused_gn_silu_conv, "launches"))
+
+
+def launch_counts() -> dict:
+    """{'<wrapper>.<counter>': count} of every kernel wrapper."""
+    return {f"{fn.__name__}.{attr}": getattr(fn, attr)
+            for fn, attr in _COUNTERS}
+
+
+def add_launches(delta: dict) -> None:
+    """Add `delta` (keys of `launch_counts`) to the wrappers' counters."""
+    for fn, attr in _COUNTERS:
+        n = delta.get(f"{fn.__name__}.{attr}", 0)
+        if n:
+            setattr(fn, attr, getattr(fn, attr) + n)
+
+
+__all__ = ["add_launches", "flash_guidance", "flash_guidance_reference",
            "fused_gn_silu_conv", "fused_gn_silu_conv_reference",
            "group_norm_silu", "group_norm_silu_backward",
-           "group_norm_silu_backward_reference", "group_norm_silu_reference"]
+           "group_norm_silu_backward_reference", "group_norm_silu_reference",
+           "launch_counts"]

@@ -30,7 +30,12 @@ integrates both modalities in one loop in phase A (flow/cfm.py:
 ode_scan_pair). The random draws keep the two-net order, so both paths
 give the same samples up to float32 rounding.
 
-Not ported yet: a sharded MC axis.
+A sharded MC axis (parallel/sharded_guidance.py): with an mc process
+group each rank holds a shard of the MC set, and the guidance runs in
+tensor ops (`mc_feng_guidance`) whose reductions over N_mc become global
+all-reduces over the group (the JAX package's pmax / psum / pmin): kernel
+A reduces over its own shard only, so that path does not launch it, as the
+JAX package drops its Pallas kernel there.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ratio_guided_multimodal_fm_tpu_torch.core.device import (
     device_of,
@@ -78,21 +84,37 @@ def safe_exp_log_r(log_r: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.clamp(log_r, max=LOG_R_F32_MAX))
 
 
-def mc_feng_guidance(x_t, y_t, mc_x1, mc_y1, mc_ratios, t: float):
+def mc_feng_guidance(x_t, y_t, mc_x1, mc_y1, mc_ratios, t: float,
+                     mc_group=None):
     """One step of Feng et al. Alg. 2 guidance in the reference's ratio form
     (three 1e-10 floors, per-row max stabilisation), float32 matmuls.
 
-    Returns (g_x, g_y, diagnostics) like the JAX function. Kept for API
-    parity and the tests; the sampler uses `flash_guidance`, whose softmax
-    form is the same function.
+    Returns (g_x, g_y, diagnostics) like the JAX function. With `mc_group`
+    (a torch.distributed group) mc_x1 / mc_y1 / mc_ratios hold this rank's
+    shard of the MC set (the shards in rank order make the whole set) and
+    every reduction over N runs over the group: the row max and the
+    extrema (MAX / MIN), p̄, Z̄, Σw, Σw·X1, Σw·Y1 and Σw² (SUM), and the
+    argmax with ties toward the largest global index. The sampler uses
+    `flash_guidance` on an unsharded set, whose softmax form is the same
+    function.
     """
     f32 = torch.float32
     xt, yt = _flat(x_t).to(f32), _flat(y_t).to(f32)
     X1, Y1 = _flat(mc_x1).to(f32), _flat(mc_y1).to(f32)
     r = mc_ratios.to(f32)
-    n = X1.shape[0]
+    n_local = X1.shape[0]
+    n_shards, shard = 1, 0
+    if mc_group is not None:
+        n_shards = dist.get_world_size(mc_group)
+        shard = dist.get_rank(mc_group)
+    n = n_local * n_shards
     t32 = np.float32(t)
     sigma = np.float32(1.0) - t32 + np.float32(EPS_T)
+
+    def reduce(v, op=dist.ReduceOp.SUM):
+        if mc_group is not None:
+            dist.all_reduce(v, op=op, group=mc_group)
+        return v
 
     xt2 = (xt * xt).sum(1, keepdim=True)
     yt2 = (yt * yt).sum(1, keepdim=True)
@@ -103,24 +125,48 @@ def mc_feng_guidance(x_t, y_t, mc_x1, mc_y1, mc_ratios, t: float):
           + float(t32 * t32) * (X12 + Y12))
     log_p = -0.5 * sq / float(sigma * sigma)
 
-    m = log_p.max(dim=1, keepdim=True).values
+    m = reduce(log_p.max(dim=1, keepdim=True).values, dist.ReduceOp.MAX)
     p = torch.exp(log_p - m)
-    p_bar = p.sum(1, keepdim=True) / n + 1e-10
-    Z_bar = (r[None, :] * p).sum(1, keepdim=True) / n + 1e-10
+    if mc_group is None:
+        p_bar = p.sum(1, keepdim=True) / n + 1e-10
+        Z_bar = (r[None, :] * p).sum(1, keepdim=True) / n + 1e-10
+    else:
+        sums = reduce(torch.cat([p.sum(1, keepdim=True),
+                                 (r[None, :] * p).sum(1, keepdim=True)], 1))
+        p_bar = sums[:, :1] / n + 1e-10
+        Z_bar = sums[:, 1:] / n + 1e-10
     w = (r[None, :] / Z_bar) * (p / p_bar)
-    w = w / (w.sum(1, keepdim=True) + 1e-10)
+    w = w / (reduce(w.sum(1, keepdim=True)) + 1e-10)
     check_finite(w, "mc_feng importance weights")
 
     w_total = w.sum(1, keepdim=True)
     w_sq = (w * w).sum(1, keepdim=True)
-    g_x = (w @ X1 - w_total * xt) / float(sigma)
-    g_y = (w @ Y1 - w_total * yt) / float(sigma)
+    wx, wy = w @ X1, w @ Y1
+    if mc_group is not None:
+        dx = wx.shape[1]
+        tot = reduce(torch.cat([wx, wy, w_total, w_sq], 1))
+        wx, wy = tot[:, :dx], tot[:, dx:-2]
+        w_total, w_sq = tot[:, -2:-1], tot[:, -1:]
+    g_x = (wx - w_total * xt) / float(sigma)
+    g_y = (wy - w_total * yt) / float(sigma)
     ess = (w_total * w_total) / (w_sq + 1e-10)
+    w_argmax = w.argmax(dim=1)
+    w_min, w_max = w.min(), w.max()
+    if mc_group is not None:
+        loc_val = w.max(dim=1).values
+        hi = reduce(torch.cat([loc_val, w_max[None]]), dist.ReduceOp.MAX)
+        w_max = hi[-1]
+        w_min = reduce(w_min.clone(), dist.ReduceOp.MIN)
+        # ties toward the largest global index, on every rank alike
+        w_argmax = reduce(torch.where(loc_val >= hi[:-1],
+                                      w_argmax + shard * n_local,
+                                      torch.full_like(w_argmax, -1)),
+                          dist.ReduceOp.MAX)
     diag = {
         "ess": ess[:, 0],
-        "w_argmax": w.argmax(dim=1),
-        "w_min": w.min(),
-        "w_max": w.max(),
+        "w_argmax": w_argmax,
+        "w_min": w_min,
+        "w_max": w_max,
         "Z_bar_mean": Z_bar.mean(),
         "g_x_norm": _row_norm_mean(g_x),
         "g_y_norm": _row_norm_mean(g_y),
@@ -194,12 +240,15 @@ def _grad_log_ratio(log_ratio_fn: Callable, x_t, y_t):
 def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
                       cfg: GuidedSamplerConfig, mc_set,
                       log_ratio_fn: Optional[Callable] = None,
-                      fm_pair_fn: Optional[Callable] = None) -> Callable:
+                      fm_pair_fn: Optional[Callable] = None,
+                      mc_group=None) -> Callable:
     """Build step(x_t, y_t, t, dt) -> (x_t, y_t, diag) for phase B. `t`,
     `dt` are float32 scalars; `mc_set` is None unless the method mixes in
     mc_feng guidance, `log_ratio_fn` None unless it adds the grad term;
     `fm_pair_fn` (x, y, t) -> (v_x, v_y), where given, evaluates both
-    velocity nets in place of fm_x_fn and fm_y_fn."""
+    velocity nets in place of fm_x_fn and fm_y_fn. With `mc_group` the MC
+    set is this rank's shard and the guidance is `mc_feng_guidance` over
+    the group (no kernel A); without it, `flash_guidance`."""
     grad_gamma = np.float32(cfg.grad_strength if cfg.grad_strength
                             is not None else cfg.guidance_strength)
     if mc_set is not None:
@@ -231,7 +280,13 @@ def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
             v_x = fm_x_fn(x_t, tb).to(torch.float32)
             v_y = fm_y_fn(y_t, tb).to(torch.float32)
         diag = {}
-        if mc_set is not None:
+        if mc_set is not None and mc_group is not None:
+            g_x, g_y, diag = mc_feng_guidance(x_t, y_t, mc_x1, mc_y1,
+                                              mc_ratios, float(t), mc_group)
+            ess = diag["ess"]
+            diag["v_x_norm"] = _row_norm_mean(v_x)
+            diag["v_y_norm"] = _row_norm_mean(v_y)
+        elif mc_set is not None:
             g_x, g_y, ess, l = flash_guidance(x_t, y_t, mc_x1, mc_y1,
                                               mc_log_r, float(t))
             diag = {
@@ -242,6 +297,7 @@ def _make_guided_step(fm_x_fn: Callable, fm_y_fn: Callable,
                 "v_x_norm": _row_norm_mean(v_x),
                 "v_y_norm": _row_norm_mean(v_y),
             }
+        if mc_set is not None:
             # guidance gate t > ε (ref :273), compared in float32; a float32
             # per-trajectory tensor so 1 - gate rounds as in JAX
             gate = torch.full((x_t.shape[0],) + (1,) * (x_t.dim() - 1),

@@ -14,7 +14,8 @@ reference (path_utils.py:7-32, None parts dropped), with `.pth`:
 checkpoints/flow_svhn_best.pth, flow_svhn_ema_best.pth,
 flow_svhn_epoch10.pth. Every save goes to a temporary name in the same
 directory and is renamed over the target, so a crash never leaves a torn
-file.
+file. In a multi-process run rank 0 alone writes and every rank waits at
+a barrier until it has (every rank makes the same saves).
 """
 from __future__ import annotations
 
@@ -64,13 +65,21 @@ def to_cpu(obj: Any) -> Any:
 
 def save_checkpoint(path: str, obj: Any) -> None:
     """torch.save of `obj` (tensors moved to the host) to a temporary name
-    beside `path`, then an atomic rename over it."""
-    d = os.path.dirname(path)
-    if d:
-        os.makedirs(d, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(to_cpu(obj), tmp)
-    os.replace(tmp, path)
+    beside `path`, then an atomic rename over it; multi-process: by rank 0,
+    the others waiting at a barrier."""
+    from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+        barrier,
+        is_writer,
+    )
+
+    if is_writer():
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        tmp = f"{path}.{os.getpid()}.tmp"
+        torch.save(to_cpu(obj), tmp)
+        os.replace(tmp, path)
+    barrier()
 
 
 def load_checkpoint(path: str) -> Any:

@@ -14,6 +14,13 @@ then are summed per key in float64 on the host: one synchronisation per
 epoch, none per step. float32 values of a few thousand steps sum exactly
 in float64, so a resumed epoch's sums (carried part + the rest) equal the
 uninterrupted one's.
+
+Multi-process runs (parallel/multihost.py): every rank runs the driver
+on identical metrics (the steps return the global batch's), so the save
+and early-stopping decisions agree; rank 0 alone writes the files
+(train/checkpoint.py) and clears the preemption state, and each step the
+ranks agree on preemption (an all-reduce MAX of the local flag, one host
+collective a step), so that all of them stop at the same step.
 """
 from __future__ import annotations
 
@@ -25,6 +32,11 @@ from typing import Callable, Optional
 import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
+from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+    DataParallel,
+    is_writer,
+    process_info,
+)
 from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (
     ema_checkpoint_path,
     load_checkpoint,
@@ -102,7 +114,7 @@ def finish_preemptible(history, preempt_path: Optional[str],
                    "step. No resumable checkpoint (run with "
                    "--preempt_path to enable step-granular resume).")
         return True
-    if preempt_path and os.path.isfile(preempt_path):
+    if preempt_path and os.path.isfile(preempt_path) and is_writer():
         os.remove(preempt_path)       # completed: clear resume state
     return False
 
@@ -207,6 +219,11 @@ def train_epochs(
             log_fn(f"  -> Preempted: resumable checkpoint at "
                    f"{preempt_path} (epoch {epoch}, step {step_i})")
 
+    # multi-process: every rank preempts at the step where any rank has
+    # seen its SIGTERM (one may see it a step before another)
+    agree = (DataParallel().agree if process_info()[1] > 1
+             else lambda local: local)
+
     with PreemptionGuard() as guard:
         for epoch in range(start_epoch, epochs):
             t0 = time.time()
@@ -228,7 +245,7 @@ def train_epochs(
                     continue
                 outs.append(train_step(state, batch,
                                        rng.generator(epoch, step_i)))
-                if guard.preempted:
+                if agree(guard.preempted):
                     _save_preempt(epoch, step_i + 1, _add(_sums(
                         outs, loss_key), carry), len(outs) + carry_n)
                     history.append({"epoch": epoch + 1,

@@ -526,3 +526,122 @@ def test_merged_sampler_matches_two_nets_on_the_card(card, img, cin, mult):
         torch.testing.assert_close(a, c, rtol=0, atol=5e-5)
     torch.testing.assert_close(merged[2]["ess"], two[2]["ess"], rtol=1e-4,
                                atol=1e-4)
+
+
+# ---- slice 10: the fused K-step trainer's CUDA graph ----------------------
+
+def _fm_states(card, n=2):
+    from ratio_guided_multimodal_fm_tpu_torch.models.unet import FlexibleUNet
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    out = []
+    for _ in range(n):
+        torch.manual_seed(0)
+        out.append(S.create_fm_state(FlexibleUNet(
+            in_channels=1, img_size=32, model_channels=32,
+            channel_mult=(1, 2), num_res_blocks=2, dropout=0.1), card,
+            lr=1e-4, ema_decay=0.999))
+    return out
+
+
+@pytest.fixture
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms: its default weight-gradient
+    kernels add with atomics, so two eager runs of a step differ in the
+    last bits; with them the graph equals the eager loop bit for bit."""
+    torch.backends.cudnn.deterministic = True
+    yield
+    torch.backends.cudnn.deterministic = False
+
+
+def _assert_same_state(a, b):
+    for k, t in a.model.state_dict().items():
+        assert torch.equal(t, b.model.state_dict()[k]), k
+    for k in (a.ema or {}):
+        assert torch.equal(a.ema[k], b.ema[k]), k
+
+
+def test_fused_fm_graph_equals_eager_loop(card, deterministic_cudnn):
+    """Two macro steps of K=4 at B=16 (dropout on): the graph replay's
+    losses, parameters and EMA equal the eager K-step loop's bit for bit,
+    and the replay counts the GN launches it recorded."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    graphed, eager = _fm_states(card)
+    data = torch.randn(256, 32, 32, 1, device=card)
+    fg = S.make_fm_train_multistep(0.999)
+    fe = S.make_fm_train_multistep(0.999, graph=False)
+    for m in range(2):
+        idx = torch.randint(0, 256, (4, 16), dtype=torch.int32).numpy()
+        before = launch_counts()
+        lg = fg(graphed, data, idx, torch.Generator(card).manual_seed(m))
+        after = launch_counts()
+        le = fe(eager, data, idx, torch.Generator(card).manual_seed(m))
+        assert torch.equal(lg, le)
+        assert after["group_norm_silu.launches"] - \
+            before["group_norm_silu.launches"] == 4 * 25
+    torch.cuda.synchronize()
+    (g,) = fg.graphs.values()
+    assert g.replays == 1 and g.launches["group_norm_silu.launches"] == 100
+    _assert_same_state(graphed, eager)
+
+
+def test_fused_ratio_graph_equals_eager_loop(card, deterministic_cudnn):
+    """The experiment-1 ratio net (8 GN sites, clip, EMA), K=3, B=16: the
+    metrics and the state equal the eager loop's bit for bit."""
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNIST,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    states = []
+    for _ in range(2):
+        torch.manual_seed(1)
+        states.append(S.create_ratio_state(RatioEstimatorMNIST(), card,
+                                           ema_decay=0.999))
+    xa = torch.randn(128, 28, 28, 1, device=card)
+    ya = torch.randn(128, 28, 28, 1, device=card)
+    fg = S.make_ratio_train_multistep("disc", 0.999)
+    fe = S.make_ratio_train_multistep("disc", 0.999, graph=False)
+    for m in range(2):
+        xi, yi = (torch.randint(0, 128, (3, 16), dtype=torch.int32).numpy()
+                  for _ in range(2))
+        real = (torch.rand(3, 16) < 0.5).float().numpy()
+        mg = fg(states[0], xa, ya, xi, yi, real,
+                torch.Generator(card).manual_seed(m))
+        me = fe(states[1], xa, ya, xi, yi, real,
+                torch.Generator(card).manual_seed(m))
+        for k in mg:
+            assert torch.equal(mg[k], me[k]), k
+    _assert_same_state(*states)
+
+
+def test_capturable_adam_matches_the_current_update(card):
+    """Adam with capturable=True (its step count on the card, bias
+    correction in float32) against the default update on the same
+    gradients, three steps: within 1e-6 relative."""
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        make_capturable,
+    )
+
+    torch.manual_seed(2)
+    p0 = [torch.randn(64, 32, device=card), torch.randn(7, device=card)]
+    pa, pb, pc = ([p.clone().requires_grad_(True) for p in p0]
+                  for _ in range(3))
+    oa, ob, oc = (torch.optim.Adam(ps, lr=1e-3, betas=(0.9, 0.999),
+                                   eps=1e-8) for ps in (pa, pb, pc))
+    make_capturable(ob)
+    for i in range(3):
+        for a, b, c in zip(pa, pb, pc):
+            g = torch.randn_like(a) * (0.1 + i)
+            a.grad, b.grad, c.grad = g.clone(), g.clone(), g.clone()
+        for o in (oa, ob, oc):
+            o.step()
+        if i == 0:    # a count taken before the switch moves to the card
+            make_capturable(oc)
+            assert oc.state[pc[0]]["step"].device.type == "cuda"
+    assert ob.state[pb[0]]["step"].device.type == "cuda"
+    for a, b, c in zip(pa, pb, pc):
+        torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
+        torch.testing.assert_close(c, a, rtol=1e-6, atol=1e-7)

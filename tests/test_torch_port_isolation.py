@@ -9,7 +9,8 @@
 * The sampler, evaluation, bench, train, reflow, serve and 64-px demo
   CLIs refuse to run without one unless asked for the CPU.
 * Each module of slice 9 (the encoder-decoder, merged-pair evaluation,
-  FLOP counts, observability, natural-image data, the 64-px demo) imports
+  FLOP counts, observability, natural-image data, the 64-px demo) and of
+  slice 10 (parallel/, the training CUDA graph, the stretch demo) imports
   without JAX on its own.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
@@ -81,6 +82,31 @@ def test_slice9_module_imports_no_jax(module):
     assert (PORT / (module.replace(".", "/") + ".py")).exists()
 
 
+SLICE10_MODULES = ("parallel", "parallel.mesh", "parallel.multihost",
+                   "parallel.sharded_guidance", "train.graphs",
+                   "cli.stretch64_demo")
+
+
+@pytest.mark.parametrize("module", SLICE10_MODULES)
+def test_slice10_module_imports_no_jax(module):
+    """Each module of the multi-process, fused-training and stretch-demo
+    slice imports in a fresh interpreter without jax or the JAX package
+    (and without importing triton or building a kernel)."""
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('ratio_guided_multimodal_fm_tpu_torch."
+        f"{module}')\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'triton', "
+        "'ratio_guided_multimodal_fm_tpu') or m.startswith(('jax.', "
+        "'ratio_guided_multimodal_fm_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    path = PORT / module.replace(".", "/")
+    assert path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+
+
 def test_no_source_imports_jax():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
@@ -112,7 +138,10 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
         train_ratio,
         train_ratio_mnist_svhn,
     )
-    from ratio_guided_multimodal_fm_tpu_torch.cli import config5_demo
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        config5_demo,
+        stretch64_demo,
+    )
     from ratio_guided_multimodal_fm_tpu_torch.core.device import (
         resolve_device,
     )
@@ -140,6 +169,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: reflow.main([]),
                  lambda: serve.main(["--port", "0"]),
                  lambda: config5_demo.main([]),
+                 lambda: stretch64_demo.main([]),
                  lambda: sample_bimodal_guided(lambda x, t: x,
                                                lambda y, t: y),
                  lambda: sample_bimodal_smc(lambda x, t: x, lambda y, t: y,

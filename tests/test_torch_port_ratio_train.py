@@ -617,16 +617,26 @@ def test_ratio_cli_periodic_save_every_ten_epochs(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--fused_steps", "2"], NotImplementedError, "not yet ported"),
+    (["--fused_steps", "2", "--batch_size", "16"], None, None),
     (["--fast_rng"], SystemExit, "no meaning in torch"),
-    (["--process_id", "0"], NotImplementedError, "not yet ported"),
-    (["--coordinator_address", "h:1"], NotImplementedError,
-     "not yet ported"),
+    # a process id alone, or a coordinator alone, is one process (JAX)
+    (["--process_id", "0", "--batch_size", "16"], None, None),
+    (["--coordinator_address", "h:1", "--batch_size", "16"], None, None),
+    (["--fused_steps", "2", "--coordinator_address", "127.0.0.1:1",
+      "--num_processes", "2", "--process_id", "1"], SystemExit,
+     "single-process only"),
 ])
 @pytest.mark.parametrize("cli", [train_ratio, train_ratio_mnist_svhn],
                          ids=["exp1", "mnist_svhn"])
 def test_ratio_train_cli_refusals(tmp_path, monkeypatch, cli, argv, exc,
                                   match):
+    """What the runtime flags do: the refusals, and the single-process
+    runs (--fused_steps among them)."""
     base = _cli_env(tmp_path, monkeypatch)
-    with pytest.raises(exc, match=match):
-        cli.main(base + ["--epochs", "1", "--batch_size", "4"] + argv)
+    argv = base + ["--epochs", "1", "--batch_size", "4"] + argv
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            cli.main(argv)
+        return
+    _, best, hist = cli.main(argv)
+    assert np.isfinite(best) and hist[-1]["epoch"] == 1

@@ -259,10 +259,11 @@ def test_reflow_cli_exp2_rounds(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--coordinator_address", "h:1"], NotImplementedError,
-     "not yet ported"),
-    (["--process_id", "0"], NotImplementedError, "not yet ported"),
-    (["--num_processes", "2"], NotImplementedError, "not yet ported"),
+    # one process (no coordinator, or no count): the runtime flags pass
+    # and the CLI goes on to look for its teacher flows
+    (["--coordinator_address", "h:1"], SystemExit, "checkpoint not found"),
+    (["--process_id", "0"], SystemExit, "checkpoint not found"),
+    (["--num_processes", "2"], SystemExit, "checkpoint not found"),
     (["--experiment", "cifar"], SystemExit, None),
 ])
 def test_reflow_cli_refusals(tmp_path, monkeypatch, argv, exc, match):

@@ -221,15 +221,16 @@ def test_serve_cli_refusals_and_service_on_checkpoints(tmp_path,
     """build_service on experiment-2 reference-layout .pth files
     (full-width random-init nets; 1 step, a batch of 2) with the global SMC
     defaults (G 16, tau 0.5, as in JAX); --merged_unet accepted, and a
-    no-op there (the experiment-2 nets cannot merge); the multi-process
-    flags refused; a missing checkpoint an error."""
+    no-op there (the experiment-2 nets cannot merge); --num_processes
+    alone is one process (no coordinator), which goes on to load; a
+    missing checkpoint an error."""
     from ratio_guided_multimodal_fm_tpu_torch import models as pm
 
     monkeypatch.chdir(tmp_path)
     parser = serve.make_parser()
     with pytest.raises(SystemExit, match="checkpoint not found"):
         serve.build_service(parser.parse_args(["--device", "cpu"]))
-    with pytest.raises(NotImplementedError, match="multi-process"):
+    with pytest.raises(SystemExit, match="checkpoint not found"):
         serve.build_service(parser.parse_args(["--device", "cpu",
                                                "--num_processes", "2"]))
     (tmp_path / "checkpoints").mkdir()

@@ -11,7 +11,9 @@ the CPU.
   and resampling included);
 * cli/config5_demo.py --device cpu at ch 8 and a tiny --n, two-net and
   --merged_unet (the same checkpoints, reloaded): results.json with the
-  JAX script's keys, finite samples, coherence within one sample.
+  JAX script's keys, finite samples, coherence within one sample;
+* cli/stretch64_demo.py --device cpu at ch 8 and a tiny --n: the JAX
+  script's results.json keys, finite samples.
 """
 import json
 import os
@@ -217,3 +219,26 @@ def test_config5_demo_cli_on_cpu(tmp_path, monkeypatch):
             assert r["finite"]
     for a, b in zip(first["eval"], merged["eval"]):
         assert abs(a["coherence"] - b["coherence"]) <= 1 / 6 + 1e-9
+
+
+def test_stretch64_demo_cli_on_cpu(tmp_path, monkeypatch):
+    """cli/stretch64_demo.py at ch 8 and a tiny --n: the JAX script's
+    results.json keys, finite samples, the flows saved."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli import stretch64_demo
+
+    monkeypatch.chdir(tmp_path)
+    argv = ["--device", "cpu", "--model_channels", "8", "--n", "48",
+            "--batch_size", "16", "--epochs", "1", "--ratio_epochs", "1",
+            "--num_steps", "2"]
+    res = stretch64_demo.main(argv)
+    saved = json.load(open("outputs/stretch64/results.json"))
+    assert set(saved) == {"loss_curve", "none_gamma0.0", "mc_feng_gamma0.5",
+                          "mc_feng_gamma1.0"}
+    assert set(saved["loss_curve"]) == {"flow_x", "flow_y", "ratio"}
+    assert len(saved["loss_curve"]["ratio"]) == 1
+    for k in ("none_gamma0.0", "mc_feng_gamma0.5", "mc_feng_gamma1.0"):
+        assert set(saved[k]) == {"wall_sec", "centroid_coherence", "finite"}
+        assert saved[k]["finite"] and 0 <= saved[k]["centroid_coherence"] <= 1
+    assert sorted(os.listdir("outputs/stretch64/ckpt")) == ["fm_x.pth",
+                                                           "fm_y.pth"]
+    assert res["loss_curve"]["flow_x"] == saved["loss_curve"]["flow_x"]

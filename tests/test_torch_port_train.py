@@ -578,19 +578,32 @@ def test_train_clis_run_on_cpu(tmp_path, monkeypatch, cli, argv, files):
     assert all(p.requires_grad for p in state.model.parameters())
 
 
+MP = ["--coordinator_address", "127.0.0.1:1", "--num_processes", "2",
+      "--process_id", "0"]
+
+
 @pytest.mark.parametrize("argv,exc,match", [
-    (["--fused_steps", "2"], NotImplementedError, "not yet ported"),
+    (["--fused_steps", "2"], None, None),           # runs: 2 steps a macro
     (["--fast_rng"], SystemExit, "no meaning in torch"),
-    (["--coordinator_address", "h:1"], NotImplementedError,
-     "not yet ported"),
-    (["--process_id", "0"], NotImplementedError, "not yet ported"),
-    (["--num_processes", "2"], NotImplementedError, "not yet ported"),
+    # a coordinator alone, or a process count alone, is one process (JAX)
+    (["--coordinator_address", "h:1"], None, None),
+    (["--process_id", "0"], None, None),
+    (["--num_processes", "2"], None, None),
+    (["--fused_steps", "2"] + MP, SystemExit, "single-process only"),
 ])
 def test_train_cli_refusals(tmp_path, monkeypatch, argv, exc, match):
+    """What the runtime flags do: the refusals, and the single-process
+    runs of the flags that do not ask for several processes."""
     base = _cli_env(tmp_path, monkeypatch, n=8)
-    with pytest.raises(exc, match=match):
-        train_flow.main(base + ["--modality", "x", "--epochs", "1",
-                                "--batch_size", "4"] + argv)
+    argv = base + ["--modality", "x", "--epochs", "1", "--batch_size",
+                   "4"] + argv
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            train_flow.main(argv)
+        return
+    _, best, hist = train_flow.main(argv)
+    assert np.isfinite(best) and hist[-1]["epoch"] == 1
+    assert os.path.exists("checkpoints/flow_x_best.pth")
 
 
 def test_derive_seed_is_position_addressed():
