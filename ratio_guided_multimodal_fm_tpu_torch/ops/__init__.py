@@ -6,9 +6,11 @@
   (csrc/group_norm_silu_backward.cu), the Function's backward
 * `resblock.fused_gn_silu_conv`    — CUDA C++ (csrc/fused_gn_silu_conv.cu)
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`
-(`launch_counts` reads them all; a CUDA graph replay adds the launches it
-recorded, train/graphs.py).
+Each wrapper counts the launches of its kernel that run when it is called,
+in `<wrapper>.launches` (`launch_counts` reads them all,
+`reset_launch_counts` sets them to 0). A CUDA graph's capture only records
+the kernels and its replays run them without passing through the wrappers,
+so neither counts: a graph's launches are read from a profiler trace.
 """
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     group_norm_silu,
@@ -38,16 +40,14 @@ def launch_counts() -> dict:
             for fn, attr in _COUNTERS}
 
 
-def add_launches(delta: dict) -> None:
-    """Add `delta` (keys of `launch_counts`) to the wrappers' counters."""
+def reset_launch_counts() -> None:
+    """Every wrapper's counters to 0."""
     for fn, attr in _COUNTERS:
-        n = delta.get(f"{fn.__name__}.{attr}", 0)
-        if n:
-            setattr(fn, attr, getattr(fn, attr) + n)
+        setattr(fn, attr, 0)
 
 
-__all__ = ["add_launches", "flash_guidance", "flash_guidance_reference",
+__all__ = ["flash_guidance", "flash_guidance_reference",
            "fused_gn_silu_conv", "fused_gn_silu_conv_reference",
            "group_norm_silu", "group_norm_silu_backward",
            "group_norm_silu_backward_reference", "group_norm_silu_reference",
-           "launch_counts"]
+           "launch_counts", "reset_launch_counts"]

@@ -288,6 +288,13 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _eager() -> int:
+    """1 when the kernel just launched runs now, 0 when a CUDA graph
+    capture only recorded it (a replay runs it without this wrapper, so a
+    graph's launches are read from a profiler trace of its replays)."""
+    return int(not torch.cuda.is_current_stream_capturing())
+
+
 def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
             stats: bool = False):
     """y (x's strides); with `stats` also (mean, rstd) float32 [B, G]."""
@@ -310,7 +317,7 @@ def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
     if err != 0:
         raise RuntimeError(f"group_norm_silu kernel launch failed: CUDA "
                            f"error {err} ({err_str(err).decode()}), {plan}")
-    group_norm_silu.launches += 1
+    group_norm_silu.launches += _eager()
     return (y, mean, rstd) if stats else y
 
 
@@ -340,8 +347,8 @@ def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
         raise RuntimeError(f"group_norm_silu_backward kernel launch failed: "
                            f"CUDA error {err} ({err_str(err).decode()}), "
                            f"{plan}")
-    group_norm_silu_backward.launches += 1
-    group_norm_silu_backward.weight_grad_launches += int(weight_grads)
+    group_norm_silu_backward.launches += _eager()
+    group_norm_silu_backward.weight_grad_launches += _eager() * weight_grads
     return dx, dgamma, dbeta
 
 

@@ -9,10 +9,12 @@ the global batch. The pieces:
   order as the JAX package (arguments, then the RGMF_COORDINATOR,
   RGMF_NUM_PROCESSES and RGMF_PROCESS_ID variables, then single-process),
   a no-op unless a coordinator is given and there is more than one
-  process. The backend is NCCL when every rank has a card of its own
-  (rank % device_count) and gloo otherwise: on the CPU, and when ranks
-  share a card (NCCL refuses two ranks on one device; gloo reduces CUDA
-  tensors through the host). The port's collectives are all_reduce (SUM,
+  process. The ranks first tell each other their host and its card count
+  through the coordinator's store; the backend is NCCL when every rank
+  has a card of its own on its host (rank r takes card `local rank`, its
+  index among the ranks of its host) and gloo otherwise: on the CPU, and
+  when ranks share a card (NCCL refuses two ranks on one device; gloo
+  reduces CUDA tensors through the host). The port's collectives are all_reduce (SUM,
   MAX, MIN) and broadcast, the ones gloo takes for CUDA tensors.
 * `process_batch_slice` / `globalize_batch` — rank p's contiguous block
   [p·B/P, (p+1)·B/P) of an identically seeded global batch (B must divide
@@ -28,7 +30,9 @@ broadcast (`DataParallel.assert_replicated` checks that once).
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterable, Optional, Tuple
+import socket
+from collections import Counter
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,14 +57,38 @@ def multi_process_requested(coordinator_address: Optional[str] = None,
     return bool(coord) and bool(n) and n > 1
 
 
-def choose_backend(num_processes: int, device: Optional[torch.device]
-                   ) -> str:
-    """'nccl' when every rank gets a card of its own, else 'gloo'."""
-    if (device is not None and torch.device(device).type == "cuda"
-            and dist.is_nccl_available()
-            and torch.cuda.device_count() >= num_processes):
-        return "nccl"
-    return "gloo"
+def local_ranks(hosts: Sequence[Tuple[str, int]], rank: int
+                ) -> Tuple[int, int]:
+    """(local rank, ranks on its host) of `rank`, given every rank's
+    (host name, card count) in rank order."""
+    same = [r for r, (h, _) in enumerate(hosts) if h == hosts[rank][0]]
+    return same.index(rank), len(same)
+
+
+def choose_backend(hosts: Sequence[Tuple[str, int]], device,
+                   nccl_available: Optional[bool] = None) -> str:
+    """'nccl' when every rank gets a card of its own on its host (each
+    host has at least as many cards as ranks), else 'gloo'. `hosts` is
+    every rank's (host name, card count) in rank order."""
+    if nccl_available is None:
+        nccl_available = dist.is_nccl_available()
+    if device is None or torch.device(device).type != "cuda" or not (
+            nccl_available):
+        return "gloo"
+    per_host = Counter(h for h, _ in hosts)
+    return ("nccl" if all(n <= dict(hosts)[h] for h, n in per_host.items())
+            else "gloo")
+
+
+def _exchange_hosts(store, n: int, pid: int) -> List[Tuple[str, int]]:
+    """Every rank's (host name, card count), through the store."""
+    store.set(f"rgmf_host/{pid}",
+              f"{socket.gethostname()}|{torch.cuda.device_count()}")
+    hosts = []
+    for r in range(n):
+        name, count = store.get(f"rgmf_host/{r}").decode().rsplit("|", 1)
+        hosts.append((name, int(count)))
+    return hosts
 
 
 def maybe_init_distributed(coordinator_address: Optional[str] = None,
@@ -71,8 +99,8 @@ def maybe_init_distributed(coordinator_address: Optional[str] = None,
     process. Safe to call more than once and in single-process runs.
 
     `device` is where the program runs ('cuda' or 'cpu'); it picks the
-    backend (`choose_backend`), and with NCCL rank r takes card r % count.
-    Ends with a barrier, so the ranks leave in step."""
+    backend (`choose_backend`), and with NCCL a rank takes the card of its
+    local rank. Ends with a barrier, so the ranks leave in step."""
     coord, n, pid = _resolve(coordinator_address, num_processes, process_id)
     if not coord or not n or n <= 1:
         return False
@@ -82,14 +110,20 @@ def maybe_init_distributed(coordinator_address: Optional[str] = None,
         raise ValueError("multi-process run: --process_id (or "
                          "RGMF_PROCESS_ID) is required with "
                          f"--num_processes {n}")
-    backend = choose_backend(n, device)
+    # the store init_method="tcp://..." would make, made first so the
+    # ranks can tell each other their hosts before the backend is chosen
+    store, _, _ = next(dist.rendezvous(
+        f"tcp://{coord}?rank={pid}&world_size={n}"))
+    hosts = _exchange_hosts(store, n, pid)
+    local, per_host = local_ranks(hosts, pid)
+    backend = choose_backend(hosts, device)
     if backend == "nccl":
-        torch.cuda.set_device(pid % torch.cuda.device_count())
-    print(f"torch.distributed: rank {pid} of {n}, backend {backend} "
+        torch.cuda.set_device(local)
+    print(f"torch.distributed: rank {pid} of {n} (local rank {local} of "
+          f"{per_host} on {hosts[pid][0]}), backend {backend} "
           f"({'one card per rank' if backend == 'nccl' else 'the CPU or a shared card'}), "
           f"tcp://{coord}", flush=True)
-    dist.init_process_group(backend, init_method=f"tcp://{coord}",
-                            world_size=n, rank=pid)
+    dist.init_process_group(backend, store=store, world_size=n, rank=pid)
     dist.barrier()
     return True
 
@@ -102,7 +136,7 @@ def process_info() -> Tuple[int, int]:
 
 
 def process_device(device) -> torch.device:
-    """The card this rank runs on: with NCCL rank r's card r % count,
+    """The card this rank runs on: with NCCL the card of its local rank,
     else `device` as given (ranks that share a card use its index)."""
     device = torch.device(device)
     if (device.type == "cuda" and dist.is_initialized()

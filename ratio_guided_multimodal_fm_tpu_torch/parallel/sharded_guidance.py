@@ -28,24 +28,15 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from ratio_guided_multimodal_fm_tpu_torch.core.device import device_of
-from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import (
-    make_time_grid,
-    ode_scan,
-)
 from ratio_guided_multimodal_fm_tpu_torch.parallel.mesh import (
     axis_group,
     axis_index,
     axis_size,
 )
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
-    GRAD_METHODS,
     MC_METHODS,
     GuidedSamplerConfig,
-    _make_guided_step,
-    _stack_diags,
-    _validate,
-    safe_exp_log_r,
+    make_guided_sampler_p,
 )
 
 
@@ -84,88 +75,30 @@ def make_distributed_guided_sampler_p(
     (x, y) noise) and `mc_set` (the full (mc_x1, mc_y1, r̂)) replace the
     draws; each rank keeps its rows and its shard. The outputs are the
     whole batch on every rank; with `return_diagnostics` also this rank's
-    per-step diagnostics of its rows."""
-    n_data = axis_size(mesh, data_axis)
-    n_mc = axis_size(mesh, mc_axis)
-    if cfg.mc_batch_size % n_mc:
-        raise ValueError(f"mc_batch_size {cfg.mc_batch_size} not divisible "
-                         f"by the {mc_axis!r} axis size {n_mc}")
-    mc_local = cfg.mc_batch_size // n_mc
+    per-step diagnostics of its rows. The body is the one-process sampler
+    (sample/guided.py:make_guided_sampler_p) on this rank's coordinates."""
     guided = cfg.guidance_method != "none" and log_ratio_apply is not None
-    _validate(cfg, guided)
-    use_mc = guided and cfg.guidance_method in MC_METHODS
-    use_grad = guided and cfg.guidance_method in GRAD_METHODS
-    if cfg.mc_refresh > 1 and use_mc:
+    if cfg.mc_refresh > 1 and guided and cfg.guidance_method in MC_METHODS:
         raise ValueError(
             "mc_refresh > 1 is not supported with a sharded mc_axis — use "
             "the single-set distributed sampler or mc_refresh=1")
-    di, mi = axis_index(mesh, data_axis), axis_index(mesh, mc_axis)
-    mc_group = axis_group(mesh, mc_axis)
+    n_data, di = axis_size(mesh, data_axis), axis_index(mesh, data_axis)
+    mi = axis_index(mesh, mc_axis)
+    local = make_guided_sampler_p(
+        fm_x_apply, fm_y_apply, cfg, log_ratio_apply,
+        data_shard=(di, n_data), mc_shard=(mi, axis_size(mesh, mc_axis)),
+        mc_group=axis_group(mesh, mc_axis))
 
-    @torch.no_grad()
     def sampler(params, generator: torch.Generator, num_samples: int,
                 mc_set=None, init_noise=None,
                 return_diagnostics: bool = False):
-        if num_samples % n_data:
-            raise ValueError(f"num_samples {num_samples} not divisible by "
-                             f"the {data_axis!r} axis size {n_data}")
-        per = num_samples // n_data
-        rows = slice(di * per, (di + 1) * per)
-        shard = slice(mi * mc_local, (mi + 1) * mc_local)
-        device = device_of(generator)
-        model_x, model_y, ratio_model = params
-
-        def fm_x_fn(x, t):
-            return fm_x_apply(model_x, x, t)
-
-        def fm_y_fn(y, t):
-            return fm_y_apply(model_y, y, t)
-
-        def log_ratio_fn(x, y):
-            return log_ratio_apply(ratio_model, x, y)
-
-        f32 = torch.float32
-        if init_noise is not None:
-            x_t, y_t = (a.to(device=device, dtype=f32)[rows]
-                        for a in init_noise)
-        else:
-            # the full noise, as the single-process sampler draws it
-            x_t = torch.randn((num_samples,) + tuple(cfg.x_shape),
-                              generator=generator, dtype=f32,
-                              device=device)[rows]
-            y_t = torch.randn((num_samples,) + tuple(cfg.y_shape),
-                              generator=generator, dtype=f32,
-                              device=device)[rows]
-        if use_mc and mc_set is None:
-            x0, y0 = (torch.randn((cfg.mc_batch_size,) + tuple(shp),
-                                  generator=generator, dtype=f32,
-                                  device=device)[shard]
-                      for shp in (cfg.x_shape, cfg.y_shape))
-            mc_x1 = ode_scan(fm_x_fn, x0, cfg.num_steps, cfg.solver,
-                             cfg.time_grid, cfg.grid_power)
-            mc_y1 = ode_scan(fm_y_fn, y0, cfg.num_steps, cfg.solver,
-                             cfg.time_grid, cfg.grid_power)
-            log_r = log_ratio_fn(mc_x1, mc_y1).to(f32)
-            if cfg.log_ratio_clip is not None:
-                log_r = torch.clamp(log_r, -cfg.log_ratio_clip,
-                                    cfg.log_ratio_clip)
-            mc_set = (mc_x1, mc_y1, safe_exp_log_r(log_r))
-        elif use_mc:
-            mc_set = tuple(a.to(device)[shard] for a in mc_set)
-
-        step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
-                                 mc_set if use_mc else None,
-                                 log_ratio_fn if use_grad else None,
-                                 mc_group=mc_group if use_mc else None)
-        diags = []
-        for t, dt in zip(*make_time_grid(cfg.num_steps, cfg.time_grid,
-                                         cfg.grid_power)):
-            x_t, y_t, diag = step(x_t, y_t, t, dt)
-            diags.append(diag)
-        x1 = _assemble(x_t, num_samples, rows.start, mi == 0)
-        y1 = _assemble(y_t, num_samples, rows.start, mi == 0)
+        x_t, y_t, diags = local(params, generator, num_samples, mc_set,
+                                init_noise)
+        row0 = di * (num_samples // n_data)
+        x1 = _assemble(x_t, num_samples, row0, mi == 0)
+        y1 = _assemble(y_t, num_samples, row0, mi == 0)
         if return_diagnostics:
-            return x1, y1, _stack_diags(diags)
+            return x1, y1, diags
         return x1, y1
 
     return sampler

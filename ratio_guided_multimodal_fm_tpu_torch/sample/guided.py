@@ -54,8 +54,8 @@ from ratio_guided_multimodal_fm_tpu_torch.core.guards import check_finite
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import (
     SOLVERS,
     TIME_GRIDS,
-    euler_sample,
     make_time_grid,
+    ode_scan,
     ode_scan_pair,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
@@ -345,7 +345,10 @@ def _stack_diags(diags: list) -> dict:
 def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                           cfg: GuidedSamplerConfig,
                           log_ratio_apply: Optional[Callable] = None,
-                          fm_pair_apply: Optional[Callable] = None):
+                          fm_pair_apply: Optional[Callable] = None,
+                          data_shard: Tuple[int, int] = (0, 1),
+                          mc_shard: Tuple[int, int] = (0, 1),
+                          mc_group=None):
     """Build the guided sampler with the models as call arguments:
 
         sampler(params, generator, num_samples, mc_set=None,
@@ -363,6 +366,14 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
     into merged-pair evaluation (models/merged.py:merged_pair_apply); it
     is bound once per call. Mergeable nets share a topology, so it needs
     x_shape == y_shape.
+
+    One rank of a ('data', 'mc') mesh (parallel/sharded_guidance.py):
+    `data_shard` = (index, size) keeps rows [i·B/n, (i+1)·B/n) of the
+    batch, `mc_shard` = (index, size) the same block of the MC set, and
+    `mc_group` (the ranks of the mc axis, None for an axis of one) makes
+    the guidance's reductions over N_mc global. Every draw is made in full
+    and then sliced, so the rows are those of the one-process sampler; x1,
+    y1 and diags are this rank's rows.
     """
     guided = cfg.guidance_method != "none" and log_ratio_apply is not None
     _validate(cfg, guided)
@@ -373,10 +384,21 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
             "share a topology (models/merged.py:can_merge)")
     use_mc = guided and cfg.guidance_method in MC_METHODS
     use_grad = guided and cfg.guidance_method in GRAD_METHODS
+    (di, n_data), (mi, n_mc) = data_shard, mc_shard
+    if cfg.mc_batch_size % n_mc:
+        raise ValueError(f"mc_batch_size {cfg.mc_batch_size} not divisible "
+                         f"by the mc axis size {n_mc}")
+    per_mc = cfg.mc_batch_size // n_mc
+    shard = slice(mi * per_mc, (mi + 1) * per_mc)
 
     @torch.no_grad()
     def sampler(params, generator: torch.Generator, num_samples: int,
                 mc_set=None, init_noise=None):
+        if num_samples % n_data:
+            raise ValueError(f"num_samples {num_samples} not divisible by "
+                             f"the data axis size {n_data}")
+        per = num_samples // n_data
+        rows = slice(di * per, (di + 1) * per)
         device = device_of(generator)
         model_x, model_y, ratio_model = params
 
@@ -393,12 +415,15 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                       else fm_pair_apply(model_x, model_y))
         f32 = torch.float32
         if init_noise is not None:
-            x_t, y_t = (a.to(device=device, dtype=f32) for a in init_noise)
+            x_t, y_t = (a.to(device=device, dtype=f32)[rows]
+                        for a in init_noise)
         else:
             x_t = torch.randn((num_samples,) + tuple(cfg.x_shape),
-                              generator=generator, dtype=f32, device=device)
+                              generator=generator, dtype=f32,
+                              device=device)[rows]
             y_t = torch.randn((num_samples,) + tuple(cfg.y_shape),
-                              generator=generator, dtype=f32, device=device)
+                              generator=generator, dtype=f32,
+                              device=device)[rows]
 
         def gen_mc():
             # Phase A: N_mc independent pairs and their terminal ratios
@@ -407,7 +432,7 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
                                    cfg.y_shape, cfg.num_steps,
                                    cfg.log_ratio_clip, cfg.solver,
                                    cfg.time_grid, cfg.grid_power,
-                                   fm_pair_fn=fm_pair_fn)
+                                   fm_pair_fn=fm_pair_fn, shard=shard)
 
         K = cfg.mc_refresh if use_mc else 1
         if K > 1 and mc_set is not None:
@@ -418,6 +443,8 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
         ts, dts = make_time_grid(cfg.num_steps, cfg.time_grid,
                                  cfg.grid_power)
         seg = cfg.num_steps // K
+        if use_mc and mc_set is not None:
+            mc_set = tuple(a.to(device)[shard] for a in mc_set)
         diags = []
         for k in range(K):
             if use_mc and (K > 1 or mc_set is None):
@@ -425,7 +452,7 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
             step = _make_guided_step(fm_x_fn, fm_y_fn, cfg,
                                      mc_set if use_mc else None,
                                      log_ratio_fn if use_grad else None,
-                                     fm_pair_fn)
+                                     fm_pair_fn, mc_group)
             for t, dt in zip(ts[k * seg:(k + 1) * seg],
                              dts[k * seg:(k + 1) * seg]):
                 x_t, y_t, diag = step(x_t, y_t, t, dt)
@@ -443,26 +470,26 @@ def generate_mc_set(fm_x_fn: Callable, fm_y_fn: Callable,
                     log_ratio_clip: Optional[float] = None,
                     solver: str = "euler", time_grid: str = "uniform",
                     grid_power: float = 2.0,
-                    fm_pair_fn: Optional[Callable] = None):
+                    fm_pair_fn: Optional[Callable] = None,
+                    shard: slice = slice(None)):
     """Phase A alone: (mc_x1, mc_y1, mc_ratios), so one MC set can serve
     several guidance strengths (the set is independent of γ).
     `fm_pair_fn` (merged-pair evaluation) integrates both modalities in one
-    loop when their shapes match; the x then the y noise is drawn either
-    way."""
+    loop when their shapes match. The x then the y noise of the whole set
+    is drawn either way; `shard` keeps a block of it (one rank's share of
+    a sharded MC axis)."""
+    x0, y0 = (torch.randn((mc_batch_size,) + tuple(shp),
+                          generator=generator, dtype=torch.float32,
+                          device=generator.device)[shard]
+              for shp in (x_shape, y_shape))
     if fm_pair_fn is not None and tuple(x_shape) == tuple(y_shape):
-        x0, y0 = (torch.randn((mc_batch_size,) + tuple(shp),
-                              generator=generator, dtype=torch.float32,
-                              device=generator.device)
-                  for shp in (x_shape, y_shape))
         mc_x1, mc_y1 = ode_scan_pair(fm_pair_fn, x0, y0, num_steps, solver,
                                      time_grid, grid_power)
     else:
-        mc_x1 = euler_sample(fm_x_fn, generator,
-                             (mc_batch_size,) + tuple(x_shape), num_steps,
-                             solver, time_grid, grid_power)
-        mc_y1 = euler_sample(fm_y_fn, generator,
-                             (mc_batch_size,) + tuple(y_shape), num_steps,
-                             solver, time_grid, grid_power)
+        mc_x1 = ode_scan(fm_x_fn, x0, num_steps, solver, time_grid,
+                         grid_power)
+        mc_y1 = ode_scan(fm_y_fn, y0, num_steps, solver, time_grid,
+                         grid_power)
     log_r = log_ratio_fn(mc_x1, mc_y1).to(torch.float32)
     if log_ratio_clip is not None:
         log_r = torch.clamp(log_r, -log_ratio_clip, log_ratio_clip)

@@ -20,20 +20,17 @@ the caller's (into `static`, before the run) or the device's default
 generator (dropout), which a graph advances on each replay from the seed
 the caller sets before it.
 
-Launch counts: the ops wrappers count a kernel where they launch it; a
-capture only records the launches, so the counts of the capture are taken
-back and every replay adds them once (ops/__init__.py:launch_counts).
+Launch counts: the ops wrappers count the kernels that run when they are
+called, so the eager warm-up counts and neither the capture (which only
+records) nor a replay (which does not pass through them) does; the
+replays' launches are read from a profiler trace (chip_smoke.py, phase
+5k).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict
 
 import torch
-
-from ratio_guided_multimodal_fm_tpu_torch.ops import (
-    add_launches,
-    launch_counts,
-)
 
 
 class TrainGraph:
@@ -45,7 +42,6 @@ class TrainGraph:
         self.graph = None
         self.out = None
         self.replays = 0
-        self.launches = {}    # kernel launches recorded in one replay
 
     def run(self):
         """The macro step's outputs (a tensor or a dict of them, copies of
@@ -54,7 +50,6 @@ class TrainGraph:
             return self._warm_up_and_capture()
         self.graph.replay()
         self.replays += 1
-        add_launches(self.launches)
         return _clone(self.out)
 
     def _warm_up_and_capture(self):
@@ -64,13 +59,9 @@ class TrainGraph:
         with torch.cuda.stream(side):
             out = self.fn(self.static, True)      # a real macro step
         torch.cuda.current_stream(device).wait_stream(side)
-        before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             self.out = self.fn(self.static, False)
-        after = launch_counts()
-        self.launches = {k: after[k] - before[k] for k in after}
-        add_launches({k: -v for k, v in self.launches.items()})
         self.graph = graph
         return out
 

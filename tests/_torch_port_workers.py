@@ -26,6 +26,16 @@ HEADER = textwrap.dedent("""
 """)
 
 
+# leave the group together: a rank that exits while gloo's threads still
+# serve the others can abort at interpreter shutdown
+FOOTER = textwrap.dedent("""
+    import torch.distributed as _dist
+    if _dist.is_initialized():
+        _dist.barrier()
+        _dist.destroy_process_group()
+""")
+
+
 def free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -36,7 +46,7 @@ def free_port() -> int:
 
 def run_workers(body: str, n: int, out_dir, timeout: int = 240,
                 env_extra=None):
-    script = HEADER.format(repo=REPO) + textwrap.dedent(body)
+    script = HEADER.format(repo=REPO) + textwrap.dedent(body) + FOOTER
     path = os.path.join(str(out_dir), "worker.py")
     with open(path, "w") as f:
         f.write(script)

@@ -40,7 +40,9 @@ from ratio_guided_multimodal_fm_tpu_torch.parallel import (
     shard_batch,
 )
 from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
+    choose_backend,
     globalize_batch,
+    local_ranks,
     maybe_init_distributed,
     process_batch_slice,
     process_info,
@@ -241,6 +243,25 @@ def test_single_process_runtime_is_a_no_op():
     x = torch.arange(6)
     assert torch.equal(shard_batch(None, x), x)
     assert pad_to_multiple(10, 4) == 12
+
+
+@pytest.mark.parametrize("hosts, device, want, local", [
+    # two hosts with a card each: NCCL, each rank on its host's card 0
+    ([("a", 1), ("b", 1)], "cuda", "nccl", [(0, 1), (0, 1)]),
+    # one host with two cards: NCCL, ranks on cards 0 and 1
+    ([("a", 2), ("a", 2)], "cuda", "nccl", [(0, 2), (1, 2)]),
+    # two ranks sharing one card: gloo on the CUDA tensors
+    ([("a", 1), ("a", 1)], "cuda", "gloo", [(0, 2), (1, 2)]),
+    # one host short of cards among two: gloo
+    ([("a", 1), ("a", 1), ("b", 2)], "cuda", "gloo",
+     [(0, 2), (1, 2), (0, 1)]),
+    # the CPU: gloo whatever the cards
+    ([("a", 1), ("b", 1)], "cpu", "gloo", [(0, 1), (0, 1)]),
+])
+def test_backend_and_card_from_ranks_per_host(hosts, device, want, local):
+    assert choose_backend(hosts, device, nccl_available=True) == want
+    assert choose_backend(hosts, device, nccl_available=False) == "gloo"
+    assert [local_ranks(hosts, r) for r in range(len(hosts))] == local
 
 
 def test_two_process_global_batch_assembly(dp_run):
