@@ -197,6 +197,17 @@ which fails the script (non-zero exit) on error:
    shape against its float64 plain version, group_norm_silu at the sharded
    sampler's batches and both GN kernels at the data-parallel ranks' B/2
    training sites; phase 6 times flash_guidance there.
+3, 6 (slice 11). Phase 3 forces flash_guidance's score kernel to every
+   cluster size 1-8 (B=512, N=256, D=4096, t=0.05; inputs from a generator
+   of their own), printing card_capacity beside the built-in CAPACITY:
+   quarter-integer images equal to the plain version (1e-3 / 1e-4), no NaN
+   (else the plan, the capacity, cudaGetLastError and the NaN counts are
+   printed first), ess and l within 2e-2 of float64, g against float64
+   printed. Phase 6t also times the backward at the 64-px U-Net's 96- and
+   288-channel training sites. Every device time comes from
+   core/card.py:device_ms, which counts each kernel launch after a marker,
+   and a time below its kernel's bound fails the phase (a bytes bound
+   holds the L2-cold reading, and the warm ones past the 50 MB L2).
 
 Every phase prints its wall time (`phase ...: N s wall`).
 
@@ -261,6 +272,33 @@ def check_close(name, got, want, rtol, atol) -> float:
     except AssertionError as e:
         fail(f"{name}: kernel disagrees with its plain version\n{e}")
     return max_abs(got, want)
+
+
+L2_BYTES = 50e6     # the H100's L2 cache
+
+
+def check_bound(name, bound_ms, bound_by, bytes_moved, **readings):
+    """Fails where a kernel's time reads below its own bound: every reading
+    for an operations bound; for a bytes bound the L2-cold reading
+    (`device_cold_ms`), and the warm ones only where the bytes moved exceed
+    the L2 (a small map may beat the memory bound from the L2). Readings
+    that are None (not measured) are skipped."""
+    for key, ms in readings.items():
+        if ms is None:
+            continue
+        held = (bound_by != "bytes" or key == "device_cold_ms"
+                or bytes_moved > L2_BYTES)
+        if held and ms < bound_ms:
+            fail(f"{name}: {key} {ms:.4f} ms reads below the kernel's "
+                 f"{bound_by} bound {bound_ms:.4f} ms ({bytes_moved / 1e6:.1f}"
+                 f" MB moved): the timer under-reads")
+
+
+def plan_str(plan: dict) -> str:
+    """A backward plan (vars of ops/groupnorm.py:GNPlan) in words."""
+    return (f"clusters of {plan['cluster']}, {plan['threads']} threads, "
+            f"{'staged' if plan['staged'] else 'unstaged'}, "
+            f"{plan['smem_bytes']} B shared")
 
 
 def build_models(dtype, device):
@@ -482,49 +520,32 @@ def ratio_train_sites():
     return model_gn_sites(RatioEstimatorMNIST(), z, z)
 
 
-PROFILE_WARM_KERNELS = 1000
-MARKER_KERNEL = "spin_kernel"     # torch.cuda._sleep's kernel
-
-
 def traced(run):
     """(run()'s result, wall seconds, [(kernel, device ms, launches)] by
-    device time) of one call of `run` under torch.profiler.
-
-    Late in a long process the profiler loses the device events at the
-    start of a session (up to the first ~70 kernels of the profiled call
-    were missing), so the session opens with PROFILE_WARM_KERNELS tiny
-    kernels and a marker kernel (torch.cuda._sleep), and only the events
-    that start after the marker count."""
+    device time) of one call of `run` under torch.profiler, counting only
+    the device events after the session's marker (core/card.py:
+    marked_profile: late in a long process the profiler loses the first
+    ~10-70 device events of a session)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        z = torch.zeros(1, device="cuda")
-        for _ in range(PROFILE_WARM_KERNELS):
-            z.add_(1)
-        torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+    from ratio_guided_multimodal_fm_tpu_torch.core.card import (
+        after_marker,
+        device_events,
+        marked_profile,
+    )
+
+    with marked_profile(cpu=True) as prof:
         h0 = time.perf_counter()
         res = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - h0
-    # device events only: a user annotation's range on the device (e.g.
-    # Optimizer.step#Adam.step) overlaps the kernels it encloses
-    events = [e for e in prof.events()
-              if str(getattr(e, "device_type", "")).endswith("CUDA")
-              and not getattr(e, "is_user_annotation", False)
-              and not e.name.startswith("Optimizer.")]
-    marks = [e for e in events if MARKER_KERNEL in e.name]
-    if not marks:
+    events = after_marker(device_events(prof))
+    if events is None:
         fail("the profiler's trace lost its marker kernel")
-    start = marks[-1].time_range.end
     by = {}
-    for e in events:
-        if e.time_range.start >= start:
-            ms, n = by.get(e.name, (0.0, 0))
-            by[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    for name, start, end in events:
+        ms, n = by.get(name, (0.0, 0))
+        by[name] = (ms + (end - start) / 1e3, n + 1)
     return res, wall, sorted(((k, ms, n) for k, (ms, n) in by.items()),
                              key=lambda r: -r[1])
 
@@ -2642,6 +2663,7 @@ def main(argv=None) -> int:
             TOL_BF16 as TOL_GN_BF16,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
+            backward_plan,
             gn_backward_plan,
             gn_plan,
             gn_stats_reference,
@@ -2651,11 +2673,14 @@ def main(argv=None) -> int:
             group_norm_silu_reference,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
+            CAPACITY,
+            _launch as guidance_launch,
             _scalars,
             card_capacity,
             flash_guidance,
             flash_guidance_reference,
             guidance_plan,
+            last_error,
         )
         from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
             TOL_BF16,
@@ -2778,6 +2803,79 @@ def main(argv=None) -> int:
           + " / ".join(f"{max(v[key] for v in yardstick.values()):.3g}"
                        for key in ("kernel_ess_l_rel", "plain_f32_ess_l_rel")))
     details["flash_guidance_float64_yardstick"] = yardstick
+    # F8: the score kernel at EVERY cluster size 1-8, not only the one this
+    # card's capacity picks (another H100 may pick another), at B=512,
+    # N=256, D=4096, t=0.05: quarter-integer images against the plain
+    # version (TOL_GUIDANCE); N(0,1) images: ess and l against the float64
+    # plain version, g's error printed; a NaN stops the phase after
+    # printing what the launch saw. Its inputs come from a generator of
+    # its own, so that the checks after it see the inputs they saw before
+    # it was added.
+    cap = card_capacity(dev.index or 0)
+    print(f"flash_guidance cluster capacity of this card "
+          f"(cudaOccupancyMaxActiveClusters, sizes 1-8): {cap}; built-in "
+          f"CAPACITY {CAPACITY}; the plan picks "
+          f"{guidance_plan(B_MAIN, N_MC, 1024, 3072, True, cap).cluster}")
+    gen_f8 = torch.Generator(dev).manual_seed(8)
+
+    def rnd_f8(*shape):
+        return torch.randn(shape, generator=gen_f8, device=dev)
+
+    def quarter_f8(*shape):
+        return torch.randint(-8, 9, shape, generator=gen_f8, device=dev) / 4.0
+
+    f8_shapes = ((B_MAIN, 32, 32, 1), (B_MAIN, 32, 32, 3),
+                 (N_MC, 32, 32, 1), (N_MC, 32, 32, 3))
+    normal_in = tuple(rnd_f8(*sh) for sh in f8_shapes) + (rnd_f8(N_MC),)
+    f8_in = tuple(quarter_f8(*sh) for sh in f8_shapes) + (rnd_f8(N_MC),)
+    flat = [lambda a: a.reshape(a.shape[0], -1)] * 4 + [lambda a: a]
+    sweep = {}
+    for K in range(1, 9):
+        errs = []
+        for tag, inputs in (("quarter_ints", f8_in), ("normal", normal_in)):
+            got = guidance_launch(*(f(a) for f, a in zip(flat, inputs)), 0.05,
+                                  cluster=K)
+            torch.cuda.synchronize()
+            nans = [int(torch.isnan(v).sum()) for v in got]
+            if any(nans):
+                plan = guidance_plan(B_MAIN, N_MC, 1024, 3072, True, cap)
+                print(f"F8: NaN at cluster {K} ({tag}): plan {plan} with "
+                      f"cluster {K}; capacity {cap} (built-in {CAPACITY}); "
+                      f"cudaGetLastError after synchronize {last_error()}; "
+                      f"NaN counts g_x {nans[0]}, g_y {nans[1]}, ess "
+                      f"{nans[2]}, l {nans[3]}", flush=True)
+                fail(f"flash_guidance at cluster {K}: NaN in the output")
+            got = (got[0].reshape(inputs[0].shape),
+                   got[1].reshape(inputs[1].shape), got[2], got[3])
+            if tag == "quarter_ints":
+                want = flash_guidance_reference(*inputs, 0.05)
+                for nm, a, b in zip(("g_x", "g_y", "ess", "l"), got, want):
+                    errs.append(check_close(
+                        f"flash_guidance {nm} at cluster {K}", a, b,
+                        **TOL_GUIDANCE))
+                continue
+            plain = flash_guidance_reference(*inputs, 0.05)
+            exact = flash_guidance_reference(*inputs, 0.05, torch.float64)
+            err_k, err_p = (max(float((r[i].double() - exact[i]).abs().max())
+                                for i in (0, 1)) for r in (got, plain))
+            for i, nm in ((2, "ess"), (3, "l")):
+                check_close(f"flash_guidance {nm} at cluster {K} against "
+                            "float64", got[i].double(), exact[i], rtol=2e-2,
+                            atol=1e-4)
+            # g against float64 is held above at the plan's own size; a
+            # rank's float32 FMA chain is D / K long, so the error is
+            # printed here for every K, not held
+            sweep[K] = dict(max_abs_err_vs_plain=max(errs), g_err_f64=err_k,
+                            plain_g_err_f64=err_p)
+    print("flash_guidance at every cluster size 1-8 (B=512, N=256, D=4096, "
+          "t=0.05), no NaN, quarter-integer images equal to the plain "
+          "version (1e-3 / 1e-4), ess and l within 2e-2 of float64; max "
+          "|err| against plain (quarter-integer) / g against float64 (N(0,1),"
+          " kernel | float32 plain, printed): " + ", ".join(
+              f"K={K} {v['max_abs_err_vs_plain']:.3g} / {v['g_err_f64']:.3g}"
+              f" | {v['plain_g_err_f64']:.3g}" for K, v in sweep.items()))
+    details["flash_guidance_cluster_sweep"] = dict(
+        capacity=list(cap), builtin_capacity=list(CAPACITY), rows=sweep)
     # the cluster's ranks add in rank order and nothing is atomic: two
     # launches on the same inputs, the L2 flushed in between, give the same bits
     flush = l2_flusher(dev)
@@ -3670,7 +3768,7 @@ def main(argv=None) -> int:
         fl = 2.0 * 2 * B * N * D             # two GEMMs, 2 flop/FMA
         by = 4.0 * (2 * B * D + N * D + N + 2 * B)
         row = call_times(lambda: flash_guidance(*inputs, t_mid), dev,
-                         ("scores_kernel", "weighted_sum_kernel"),
+                         ("scores_kernel", "weighted_sum_kernel"), 2,
                          strict=False)
         sdpa, sdpa_err = sdpa_for(inputs)
         row.update(
@@ -3681,6 +3779,10 @@ def main(argv=None) -> int:
             bound_by="operations" if fl / peak_f32 > by / peak_bw else "bytes",
             plan=vars(guidance_plan(B, N, Dx, Dy, True, capacity)))
         fg_times[tag] = row
+        check_bound(f"flash_guidance {tag}", row["bound_ms"],
+                    row["bound_by"], by, device_ms=row["device_ms"],
+                    device_cold_ms=row["device_cold_ms"],
+                    event_ms=row["event_ms"])
         print(f"  flash_guidance B={B} N={N} D={D} f32: device "
               f"{ms_str(row['device_ms'])} ms (profiler, both kernels; L2 cold "
               f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
@@ -3766,11 +3868,14 @@ def main(argv=None) -> int:
         k_ms = time_ms(lambda: group_norm_silu(x, w, b, 8), dev)
         try:
             k_dev, _ = device_ms(lambda: group_norm_silu(x, w, b, 8),
-                                 "gn_silu_kernel")
+                                 "gn_silu_kernel", 1)
         except ProfilerSilent as e:
             print(f"  not measured: {e}")
             k_dev = None
-        k_bound = (2 * x.numel() * 2 + 2 * C * 4) / peak_bw * 1e3
+        k_bytes = 2 * x.numel() * 2 + 2 * C * 4
+        k_bound = k_bytes / peak_bw * 1e3
+        check_bound(f"group_norm_silu B={B} C={C} {H}x{H} bf16", k_bound,
+                    "bytes", k_bytes, device_ms=k_dev, event_ms=k_ms)
         per_shape[f"B{B}_C{C}_H{H}"] = dict(ms=k_ms, device_ms=k_dev,
                                             bound_ms=k_bound,
                                             calls_per_step=n)
@@ -3811,7 +3916,7 @@ def main(argv=None) -> int:
     wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
     try:
         site_dev, _ = device_ms(lambda: group_norm_silu(x, w, b, 8),
-                                "gn_silu_kernel")
+                                "gn_silu_kernel", 1)
     except ProfilerSilent as e:
         print(f"  not measured: {e}")
         site_dev = None
@@ -3824,6 +3929,9 @@ def main(argv=None) -> int:
                            dev),
         bound_ms=(2.0 * x.numel() * 2 + 2 * 288 * 4) / peak_bw * 1e3)
     kernels[-1]["unet64_largest_site"] = site
+    check_bound(f"group_norm_silu {site['shape']}", site["bound_ms"],
+                "bytes", 2.0 * x.numel() * 2, device_ms=site["device_ms"],
+                event_ms=site["event_ms"])
     print(f"  group_norm_silu at the 64-px U-Net's largest site "
           f"{site['shape']}: {ms_str(site['device_ms'])} ms on the device "
           f"(profiler), {site['event_ms']:.4f} by events; plain "
@@ -3854,7 +3962,7 @@ def main(argv=None) -> int:
         y_lib = F.silu(F.group_norm(xl, 8, w, b, 1e-6))
         row = call_times(
             lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd, False),
-            dev, ("gn_silu_bwd_kernel",), strict=False)
+            dev, ("gn_silu_bwd_kernel",), 1, strict=False)
         row.update(
             calls_per_step=n,
             bound_ms=3.0 * x.numel() * 4 / peak_bw * 1e3,
@@ -3862,8 +3970,13 @@ def main(argv=None) -> int:
                 dy, x, w, b, mean, rstd, False), dev),
             library_ms=time_ms(lambda: torch.autograd.grad(
                 y_lib, xl, dy, retain_graph=True), dev),
-            plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+            plan=vars(backward_plan(x, dy, 8)))
         bwd_rows[f"B{B}_C{C}_H{H}"] = row
+        check_bound(f"group_norm_silu_backward B={B} C={C} {H}x{H} dx",
+                    row["bound_ms"], "bytes", 3.0 * x.numel() * 4,
+                    device_ms=row["device_ms"],
+                    device_cold_ms=row["device_cold_ms"],
+                    event_ms=row["event_ms"])
         for k in bwd_call:
             bwd_call[k] = (None if bwd_call[k] is None or row[k] is None
                            else bwd_call[k] + n * row[k] * args.steps)
@@ -3872,7 +3985,8 @@ def main(argv=None) -> int:
               f"{ms_str(row['device_cold_ms'])}), {row['event_ms']:.4f} by "
               f"events, host {row['host_ms']:.4f} per call; plain "
               f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
-              f"bound {row['bound_ms']:.4f} by bytes; {n} per step  [{smi}]")
+              f"bound {row['bound_ms']:.4f} by bytes; {n} per step; "
+              f"{plan_str(row['plan'])}  [{smi}]")
     print(f"  group_norm_silu_backward summed over one {args.steps}-step "
           f"experiment-1 grad call: {bwd_call['event_ms']:.2f} ms by events, "
           f"{ms_str(bwd_call['device_ms'], 2)} ms on the device, bound "
@@ -3887,15 +4001,14 @@ def main(argv=None) -> int:
     #     w, b, write dγ, dβ), the plain backward and the library call
     #     (autograd's backward of F.silu(F.group_norm(...)) to x, w and b);
     #     summed over one train step's sites
-    def train_backward_rows(sites, what):
-        """The backward with dγ/dβ at each (C, H) of `sites` at B_TRAIN,
+    def train_backward_rows(sites, what, B=B_TRAIN):
+        """The backward with dγ/dβ at each (C, H) of `sites` at batch B,
         timed four ways, with its bound, plain and library times; summed
         over one train step of `what`."""
         rows = {}
         step_sum = {"event_ms": 0.0, "device_ms": 0.0, "bound_ms": 0.0,
                     "library_ms": 0.0}
         for (C, H), n in sorted(sites.items()):
-            B = B_TRAIN
             x = (rnd(B, C, H, H) * 2.0 + 0.5).contiguous(
                 memory_format=torch.channels_last)
             w, b = torch.rand(C, generator=gen, device=dev) + 0.5, \
@@ -3908,7 +4021,7 @@ def main(argv=None) -> int:
             row = call_times(
                 lambda: group_norm_silu_backward(dy, x, w, b, mean, rstd,
                                                  True),
-                dev, ("gn_silu_bwd_kernel", "gn_wb_reduce_kernel"),
+                dev, ("gn_silu_bwd_kernel", "gn_wb_reduce_kernel"), 2,
                 strict=False)
             by = 3.0 * x.numel() * 4 + 2 * B * 8 * 4 + 4 * C * 4
             row.update(
@@ -3917,8 +4030,13 @@ def main(argv=None) -> int:
                     dy, x, w, b, mean, rstd, True), dev),
                 library_ms=time_ms(lambda: torch.autograd.grad(
                     y_lib, (xl, wl, bl), dy, retain_graph=True), dev),
-                plan=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
+                plan=vars(backward_plan(x, dy, 8)))
             rows[f"B{B}_C{C}_H{H}"] = row
+            check_bound(f"group_norm_silu_backward B={B} C={C} {H}x{H} "
+                        f"dx+dγ/dβ", row["bound_ms"], "bytes", by,
+                        device_ms=row["device_ms"],
+                        device_cold_ms=row["device_cold_ms"],
+                        event_ms=row["event_ms"])
             for k in step_sum:
                 step_sum[k] = (None if step_sum[k] is None or row[k] is None
                                else step_sum[k] + n * row[k])
@@ -3928,7 +4046,7 @@ def main(argv=None) -> int:
                   f"by events, host {row['host_ms']:.4f} per call; plain "
                   f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f}, "
                   f"bound {row['bound_ms']:.4f} by bytes; {n} per {what} "
-                  f"step  [{smi}]")
+                  f"step; {plan_str(row['plan'])}  [{smi}]")
         print(f"  group_norm_silu_backward (dx+dγ/dβ) summed over one {what} "
               f"train step's {sum(sites.values())} sites: "
               f"{step_sum['event_ms']:.3f} ms by events, "
@@ -3945,6 +4063,13 @@ def main(argv=None) -> int:
                                                  "experiment-1 ratio")
     details["gn_backward_ratio_training_times"] = ratio_rows
     details["gn_backward_ms_per_exp1_ratio_train_step"] = ratio_step
+    # the 64-px U-Net's two largest kinds of site (B64_TRAIN, the 8 sites of
+    # 96 channels and the one of 288 at 64x64), whose slices do not fit a
+    # CTA's shared memory at every plan
+    u64_rows, _ = train_backward_rows(
+        {k: sites64[k] for k in ((96, 64), (288, 64))}, "64-px",
+        B=B64_TRAIN)
+    details["gn_backward_unet64_times"] = u64_rows
     # the row: the SVHN U-Net's largest training site, dx + dγ/dβ
     largest = max(tr_rows, key=lambda k: tr_rows[k]["bound_ms"])
     top = tr_rows[largest]
@@ -3978,7 +4103,12 @@ def main(argv=None) -> int:
             else r1["event_ms"], event_ms=r1["event_ms"],
             plain_ms=r1["plain_ms"], bound_ms=r1["bound_ms"],
             library_ms=r1["library_ms"]),
-        exp1_ratio_step_ms=ratio_step))
+        exp1_ratio_step_ms=ratio_step,
+        sites={k: {f: r[f] for f in ("device_ms", "device_cold_ms",
+                                     "event_ms", "plain_ms", "library_ms",
+                                     "bound_ms")}
+               for k, r in list(tr_rows.items()) + list(u64_rows.items())
+               + list(bwd_rows.items())}))
 
     mark("6 kernel times")
 

@@ -64,6 +64,8 @@ def add_common_flags(p: argparse.ArgumentParser):
                         "GPU) or 'cpu'")
     p.add_argument("--seed", type=int, default=42,
                    help="Random seed for reproducibility")
+    p.add_argument("--data_root", type=str, default="./data",
+                   help="Dataset root (IDX/.mat files; synthetic fallback)")
     p.add_argument("--dtype", type=str, default="f32",
                    choices=["f32", "bf16"],
                    help="Model activation dtype (params stay f32; guidance "
@@ -83,6 +85,10 @@ def add_common_flags(p: argparse.ArgumentParser):
                    help="total number of processes")
     p.add_argument("--process_id", type=int, default=None,
                    help="this process's rank in [0, num_processes)")
+    p.add_argument("--no_prefetch", action="store_true",
+                   help="accepted for the JAX CLIs' sake: the port keeps "
+                        "the dataset on the device and has no prefetch "
+                        "thread to turn off")
 
 
 def add_solver_flag(p: argparse.ArgumentParser):
@@ -194,8 +200,8 @@ def sample_smc_from_args(args, fm_x, fm_y, log_ratio, x_shape, y_shape,
 
 
 def add_eval_flags(p: argparse.ArgumentParser):
-    """--eval_chunks / --auto_chunks / --fid / --data_root of the
-    evaluation CLIs (eval/chunked.py, eval/fid.py)."""
+    """--eval_chunks / --auto_chunks / --fid of the evaluation CLIs
+    (eval/chunked.py, eval/fid.py)."""
     from ratio_guided_multimodal_fm_tpu_torch.eval.chunked import (
         DEFAULT_AUTO_CHUNKS,
     )
@@ -209,8 +215,6 @@ def add_eval_flags(p: argparse.ArgumentParser):
     p.add_argument("--fid", action="store_true",
                    help="Also compute classifier-FID vs real data (the "
                         "eval classifier's fc1 features, not Inception)")
-    p.add_argument("--data_root", type=str, default="./data",
-                   help="Dataset root (IDX/.mat files; synthetic fallback)")
 
 
 def add_reflow_flag(p: argparse.ArgumentParser):
@@ -253,21 +257,9 @@ def add_fast_rng_flag(p: argparse.ArgumentParser):
                    help="JAX only (its RngBitGenerator keys); refused here")
 
 
-def add_train_runtime_flags(p: argparse.ArgumentParser):
-    """The JAX train CLIs' other common flags: --data_root is ported; the
-    prefetch switch has nothing to switch (the dataset lives on the device
-    and batches are gathered there)."""
-    p.add_argument("--data_root", type=str, default="./data",
-                   help="Dataset root (IDX/.mat files; synthetic fallback)")
-    p.add_argument("--no_prefetch", action="store_true",
-                   help="accepted for the JAX CLIs' sake: the port keeps "
-                        "the dataset on the device and has no prefetch "
-                        "thread to turn off")
-
-
 def add_ratio_train_flags(p: argparse.ArgumentParser):
     """The flags both ratio-net train CLIs share (JAX train_ratio.py and
-    train_ratio_mnist_svhn.py), with the train runtime and common flags."""
+    train_ratio_mnist_svhn.py), with the common flags."""
     p.add_argument("--loss_type", type=str, default="disc",
                    choices=["disc", "rulsif"])
     p.add_argument("--epochs", type=int, default=30)
@@ -285,7 +277,6 @@ def add_ratio_train_flags(p: argparse.ArgumentParser):
                         "if it exists at startup, resume from it")
     add_fused_flag(p)
     add_fast_rng_flag(p)
-    add_train_runtime_flags(p)
     add_common_flags(p)
 
 

@@ -32,7 +32,6 @@ import torch
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_solver_flag,
-    add_train_runtime_flags,
     checkpoint_path,
     count_params,
     fm_bridge,
@@ -174,7 +173,6 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=128)
     parser.add_argument("--lr", type=float, default=1e-4)
     add_solver_flag(parser)
-    add_train_runtime_flags(parser)
     add_common_flags(parser)
     args = parser.parse_args(argv)
 

@@ -43,7 +43,6 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_reflow_flag,
     add_smc_flags,
     add_solver_flag,
-    add_train_runtime_flags,
     dtype_of,
     maybe_merged_pair_fn,
     ratio_log_fn,
@@ -394,7 +393,6 @@ def make_parser() -> argparse.ArgumentParser:
     add_reflow_flag(parser)
     add_smc_flags(parser)
     add_ema_flag(parser)
-    add_train_runtime_flags(parser)
     add_common_flags(parser)
     # the experiment-1 loaders read --model; serve has the U-Net only
     parser.set_defaults(model="unet")

@@ -16,7 +16,6 @@ import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
-    add_train_runtime_flags,
     count_params,
     init_runtime,
 )
@@ -38,7 +37,6 @@ def add_classifier_flags(p: argparse.ArgumentParser, epochs: int):
     p.add_argument("--epochs", type=int, default=epochs)
     p.add_argument("--batch_size", type=int, default=128)
     p.add_argument("--lr", type=float, default=1e-3)
-    add_train_runtime_flags(p)
     add_common_flags(p)
 
 

@@ -25,7 +25,6 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_fast_rng_flag,
     add_fused_flag,
-    add_train_runtime_flags,
     arm_preemption,
     count_params,
     fm_model,
@@ -94,7 +93,6 @@ def main(argv=None):
                              "step-granular resumable checkpoint here and "
                              "exit; if it exists at startup, resume from it "
                              "(bit-exact against the uninterrupted run)")
-    add_train_runtime_flags(parser)
     add_common_flags(parser)
     args = parser.parse_args(argv)
 

@@ -21,7 +21,6 @@ from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
     add_fast_rng_flag,
     add_fused_flag,
-    add_train_runtime_flags,
     arm_preemption,
     count_params,
     init_runtime,
@@ -76,7 +75,6 @@ def add_flow_train_flags(parser: argparse.ArgumentParser, name: str):
                              "exit; if it exists at startup, resume from it")
     add_fused_flag(parser)
     add_fast_rng_flag(parser)
-    add_train_runtime_flags(parser)
     add_common_flags(parser)
 
 

@@ -5,6 +5,7 @@ cold, host time per call): the one source that the kernel benches
 chip_smoke.py compute bounds and times from."""
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import time
 
@@ -60,49 +61,129 @@ def time_ms(fn, device: torch.device, iters: int = 20,
     return (time.perf_counter() - t0) * 1e3 / iters
 
 
+# Late in a long process torch.profiler loses the first ~10-70 device
+# events of a session, so a session opens with this many tiny kernels and a
+# marker kernel (torch.cuda._sleep's), and only what starts after the marker
+# counts.
+PROFILE_WARM_KERNELS = 1000
+MARKER_KERNEL = "spin_kernel"
+
+
 class ProfilerSilent(RuntimeError):
-    """torch.profiler recorded none of the kernels asked for."""
+    """torch.profiler kept fewer of the kernels asked for than were
+    launched, in every session tried."""
 
 
-def device_ms(fn, names, n: int = 20, between=None, sessions: int = 3):
-    """(device ms per call, {kernel name: ms per call}) of the kernels whose
-    name contains one of `names`, by torch.profiler over n calls of fn();
-    `between()` runs before each call and is not counted. The first number
-    is the time during which at least one of those kernels ran, from the
-    profiler's timeline. A session in which the profiler recorded no such
-    kernel (its device tracing sometimes delivers nothing) is run again, up
-    to `sessions` in all; then it raises ProfilerSilent."""
+@contextlib.contextmanager
+def marked_profile(cpu: bool = False):
+    """A torch.profiler session of the card (and the host with `cpu`) that
+    opens with PROFILE_WARM_KERNELS tiny kernels and the marker kernel; read
+    it with `after_marker(device_events(prof))`."""
     from torch.profiler import ProfilerActivity, profile
 
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
+        z = torch.zeros(1, device="cuda")
+        for _ in range(PROFILE_WARM_KERNELS):
+            z.add_(1)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        yield prof
+
+
+def device_events(prof):
+    """(name, start µs, end µs) of each device event of a finished session;
+    a user annotation's range on the device (e.g. Optimizer.step#Adam.step)
+    overlaps the kernels it encloses and is left out."""
+    return [(e.name, e.time_range.start, e.time_range.end)
+            for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
+
+
+def after_marker(events):
+    """The events that start after the last marker kernel ends, or None
+    where the session lost its marker."""
+    ends = [end for name, _, end in events if MARKER_KERNEL in name]
+    if not ends:
+        return None
+    start = max(ends)
+    return [e for e in events if e[1] >= start]
+
+
+def session_time(events, names, n: int, launches: int):
+    """(device ms per call, {kernel name: ms per call}) of one session's
+    `events` (`device_events`) in which fn() ran n times and launched
+    `launches` kernels named like one of `names` each time, or None where
+    the session kept fewer than n × launches of them after its marker. The
+    first number is the time during which at least one of those kernels ran
+    (the union of their spans), divided by n. Raises ValueError where it
+    kept more: then `launches` is wrong."""
+    kept = after_marker(events) or []
+    spans = sorted((s, e, k) for k, s, e in kept
+                   if any(name in k for name in names))
+    want = n * launches
+    if len(spans) > want:
+        raise ValueError(f"{len(spans)} kernels named like {names} in a "
+                         f"session of {n} calls, more than {launches} a call")
+    if len(spans) < want:
+        return None
+    by = {}
+    busy, lo, hi = 0.0, spans[0][0], spans[0][1]
+    for s, e, k in spans:
+        by[k] = by.get(k, 0.0) + (e - s) / 1e3 / n
+        if s > hi:
+            busy, lo, hi = busy + hi - lo, s, e
+        else:
+            hi = max(hi, e)
+    return (busy + hi - lo) / 1e3 / n, by
+
+
+def timed_sessions(sessions, names, n: int, launches: int):
+    """The first of `sessions` (an iterable of event lists, profiled as it
+    is walked) that kept every launch: `session_time`'s pair. Raises
+    ProfilerSilent, naming what each session kept, where none did."""
+    kept = []
+    for events in sessions:
+        got = session_time(events, names, n, launches)
+        if got is not None:
+            return got
+        after = after_marker(events)
+        kept.append(None if after is None else sum(
+            any(name in k for name in names) for k, _, _ in after))
+    raise ProfilerSilent(
+        f"the profiler kept {kept} of the {n * launches} kernels named like "
+        f"{tuple(names)} ({n} calls x {launches}) in {len(kept)} sessions "
+        f"(None: the marker was lost)")
+
+
+def device_ms(fn, names, launches: int, n: int = 20, between=None,
+              sessions: int = 3):
+    """(device ms per call, {kernel name: ms per call}) of the `launches`
+    kernels a call of fn() launches whose names contain one of `names`, by
+    torch.profiler over n calls; `between()` runs before each call and is
+    not counted. Each session opens with warm-up kernels and a marker
+    (`marked_profile`) and must keep all n × launches kernels after it
+    (`session_time`); a session that falls short is run again, up to
+    `sessions` in all, and then ProfilerSilent is raised."""
     if isinstance(names, str):
         names = (names,)
     fn()
     torch.cuda.synchronize()
-    for _ in range(sessions):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                if between is not None:
-                    between()
-                fn()
-            torch.cuda.synchronize()
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if str(e.device_type).endswith("CUDA")
-                       and any(k in e.name for k in names))
-        if spans:
-            break
-    else:
-        raise ProfilerSilent(f"device_ms: the profiler recorded no kernel "
-                             f"named like {names} in {sessions} sessions")
-    by = {e.key: e.device_time_total / 1e3 / n for e in prof.key_averages()
-          if any(k in e.key for k in names)}
-    busy, (lo, hi) = 0.0, spans[0]
-    for start, end in spans[1:]:
-        if start > hi:
-            busy, lo, hi = busy + hi - lo, start, end
-        else:
-            hi = max(hi, end)
-    return (busy + hi - lo) / 1e3 / n, by
+
+    def profiled():
+        for _ in range(sessions):
+            with marked_profile() as prof:
+                for _ in range(n):
+                    if between is not None:
+                        between()
+                    fn()
+                torch.cuda.synchronize()
+            yield device_events(prof)
+
+    return timed_sessions(profiled(), names, n, launches)
 
 
 def host_ms(fn, n: int = 200) -> float:
@@ -124,16 +205,18 @@ def l2_flusher(device):
     return buf.zero_
 
 
-def call_times(fn, device, names, strict: bool = True) -> dict:
-    """Four times of one call fn() whose kernels are named like `names`:
+def call_times(fn, device, names, launches: int,
+               strict: bool = True) -> dict:
+    """Four times of one call fn() that launches `launches` kernels named
+    like `names`:
     `event_ms` (CUDA events around 20 back-to-back calls), `device_ms`
     (profiler, L2 warm), `device_cold_ms` (the L2 flushed before each call),
-    `host_ms`, and `kernels`, the device time by kernel name. Where the
-    profiler stays silent it raises ProfilerSilent, or with strict=False
-    says so and leaves that time None."""
+    `host_ms`, and `kernels`, the device time by kernel name. Where no
+    profiler session keeps every launch it raises ProfilerSilent, or with
+    strict=False says so and leaves that time None."""
     def profiled(between=None):
         try:
-            return device_ms(fn, names, between=between)
+            return device_ms(fn, names, launches, between=between)
         except ProfilerSilent as e:
             if strict:
                 raise

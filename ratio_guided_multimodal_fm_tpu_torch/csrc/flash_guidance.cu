@@ -759,6 +759,9 @@ int rgmf_flash_guidance_max_clusters(int cluster, int aligned, int device) {
   return rc == 0 ? n : -rc;
 }
 
+// cudaGetLastError of this library's runtime (and clears it).
+int rgmf_last_error(void) { return (int)cudaGetLastError(); }
+
 const char* rgmf_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

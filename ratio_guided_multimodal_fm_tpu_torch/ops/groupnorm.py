@@ -159,9 +159,10 @@ def _header_bytes(groups: int, spc: int, nwarps: int) -> int:
 
 
 def _decompose(B, C, H, W, groups, itemsize, channels_last, align,
-               slice_bytes, small_bytes):
-    """(vec, bulk, cluster, samples per CTA, slice_cap, threads): how the
-    forward and the backward kernel cut x into CTAs' slices."""
+               slice_bytes, small_bytes, max_cluster=MAX_CLUSTER):
+    """(vec, bulk, cluster, samples per CTA, slice_cap, threads, base): how
+    the forward and the backward kernel cut x into CTAs' slices; a CTA's
+    thread count is a multiple of `base`."""
     HW = H * W
     inner = C if channels_last else HW     # contiguous run of one unit
     units = HW if channels_last else C     # what a cluster splits
@@ -172,7 +173,7 @@ def _decompose(B, C, H, W, groups, itemsize, channels_last, align,
     sample_bytes = C * HW * itemsize
 
     cluster = 1
-    while (cluster < MAX_CLUSTER and 2 * cluster <= units
+    while (cluster < max_cluster and 2 * cluster <= units
            and -(-units // cluster) * inner * itemsize > slice_bytes):
         cluster *= 2
     spc = 1
@@ -187,7 +188,7 @@ def _decompose(B, C, H, W, groups, itemsize, channels_last, align,
         raise ValueError(f"group_norm_silu: no thread count for C={C}, "
                          f"groups={groups} (needs a multiple of {base})")
     threads = base * max(1, min(MAX_THREADS // base, round(THREADS / base)))
-    return vec, bulk, cluster, spc, slice_cap, threads
+    return vec, bulk, cluster, spc, slice_cap, threads, base
 
 
 @functools.lru_cache(maxsize=1024)
@@ -196,7 +197,7 @@ def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
     """The launch of the kernel for x [B, C, H, W] of `itemsize`-byte
     elements whose data pointer is `align`-byte aligned. Raises ValueError
     for a shape it cannot plan."""
-    vec, bulk, cluster, spc, slice_cap, threads = _decompose(
+    vec, bulk, cluster, spc, slice_cap, threads, _ = _decompose(
         B, C, H, W, groups, itemsize, channels_last, align, SLICE_BYTES,
         SMALL_BYTES)
     hdr = _header_bytes(groups, spc, threads // 32)
@@ -209,30 +210,43 @@ def gn_plan(B: int, C: int, H: int, W: int, groups: int, itemsize: int,
                   -(-B // spc) * cluster, slice_cap)
 
 
-def _bwd_header_bytes(C: int, groups: int, spc: int, threads: int, vec: int,
-                      channels_last: bool) -> int:
+# The backward (csrc/group_norm_silu_backward.cu)
+WIDE_CLUSTER = 16          # a non-portable cluster, where the card holds it
+MAX_BARRIERS = 4           # mbarriers of a CTA, one a staged sample (kMaxBars)
+# A slice too large to stage is read twice from device memory; this much
+# dynamic shared memory keeps an SM to at most two such CTAs, so that what
+# pass 1 read last is still in the L2 when pass 2 reads it back.
+UNSTAGED_SMEM = 77 * 1024
+
+
+def _bwd_header_bytes(C: int, groups: int, spc: int) -> int:
     """csrc/group_norm_silu_backward.cu:bwd_header_bytes."""
-    n = (16 + 16 * spc * groups + 16 * spc * C + 8 * spc * groups
-         + (16 * vec * threads if channels_last else 0))
+    n = 8 * MAX_BARRIERS + 16 * spc * groups + 16 * spc * C + 8 * spc * groups
     return -(-n // 128) * 128
 
 
 @functools.lru_cache(maxsize=1024)
 def gn_backward_plan(B: int, C: int, H: int, W: int, groups: int,
-                     itemsize: int, channels_last: bool,
-                     align: int = 16) -> GNPlan:
+                     itemsize: int, channels_last: bool, align: int = 16,
+                     max_cluster: int = MAX_CLUSTER) -> GNPlan:
     """The launch of csrc/group_norm_silu_backward.cu for x and dy
     [B, C, H, W] whose data pointers are both `align`-byte aligned: kernel
-    B's decomposition with half its slice, so that a CTA stages the slice of
-    x and of dy (`smem_bytes` of dynamic shared memory); `staged` False
-    reads both twice from device memory. Raises ValueError for a shape it
-    cannot plan."""
-    vec, bulk, cluster, spc, slice_cap, threads = _decompose(
+    B's decomposition with half its slice and clusters of up to
+    `max_cluster` CTAs (16 only where the card holds such clusters), so
+    that a CTA stages the slice of x and of dy (`smem_bytes` of dynamic
+    shared memory). A slice that does not fit is read twice from device
+    memory (`staged` False) by up to 512 threads, at most two CTAs an SM.
+    Raises ValueError for a shape it cannot plan."""
+    vec, bulk, cluster, spc, slice_cap, threads, base = _decompose(
         B, C, H, W, groups, itemsize, channels_last, align, SLICE_BYTES // 2,
-        SMALL_BYTES // 2)
-    hdr = _bwd_header_bytes(C, groups, spc, threads, vec, channels_last)
-    staged = bulk and hdr + 2 * spc * slice_cap * itemsize <= SMEM_MAX
-    smem = hdr + (2 * spc * slice_cap * itemsize if staged else 0)
+        SMALL_BYTES // 2, max_cluster)
+    hdr = _bwd_header_bytes(C, groups, spc)
+    slices = 2 * spc * slice_cap * itemsize      # x and dy of the samples
+    staged = bulk and hdr + slices <= SMEM_MAX
+    smem = hdr + (slices if staged else 0)
+    if bulk and not staged:
+        threads = base * (MAX_THREADS // base)
+        smem = max(hdr, UNSTAGED_SMEM)
     if smem > SMEM_MAX:
         raise ValueError(f"group_norm_silu_backward: {smem} B of shared "
                          f"memory for C={C}, groups={groups}")
@@ -321,6 +335,43 @@ def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
     return (y, mean, rstd) if stats else y
 
 
+@functools.lru_cache(maxsize=None)
+def backward_clusters(index: int, is_bf16: bool, plan: GNPlan) -> int:
+    """Clusters of the plan's launch that card `index` holds at once
+    (cudaOccupancyMaxActiveClusters); builds the kernel if needed."""
+    _kernel_fn("group_norm_silu_backward", _BWD_ARGS)
+    fn = _build.load("group_norm_silu_backward"
+                     ).rgmf_group_norm_silu_backward_max_clusters
+    fn.argtypes = [_I] * 7
+    fn.restype = _I
+    n = fn(int(is_bf16), int(plan.channels_last), plan.vec, plan.cluster,
+           plan.threads, plan.smem_bytes, index)
+    if n < 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}"
+                           f" for {plan}")
+    return n
+
+
+# clusters of up to this many CTAs where the card holds them
+# (backward_clusters); MAX_CLUSTER keeps every plan portable
+BACKWARD_MAX_CLUSTER = WIDE_CLUSTER
+
+
+def backward_plan(x: torch.Tensor, dy: torch.Tensor, groups: int) -> GNPlan:
+    """The plan that the kernel launches with for CUDA x and dy (dy in x's
+    memory format): clusters of up to BACKWARD_MAX_CLUSTER CTAs where the
+    card holds at least one such cluster, else of up to MAX_CLUSTER."""
+    B, C, H, W = x.shape
+    cl = not x.is_contiguous()
+    align = math.gcd(math.gcd(x.data_ptr(), dy.data_ptr()), 16) or 16
+    args = (B, C, H, W, groups, x.element_size(), cl, align)
+    plan = gn_backward_plan(*args, BACKWARD_MAX_CLUSTER)
+    if plan.cluster > MAX_CLUSTER and backward_clusters(
+            _device_and_stream(x)[0], x.dtype == torch.bfloat16, plan) < 1:
+        plan = gn_backward_plan(*args)
+    return plan
+
+
 def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
     fn, err_str = _kernel_fn("group_norm_silu_backward", _BWD_ARGS)
     B, C, H, W = x.shape
@@ -329,20 +380,20 @@ def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
     dy = dy.contiguous(memory_format=torch.channels_last if cl
                        else torch.contiguous_format)
     dx = torch.empty_like(x)
-    align = math.gcd(math.gcd(x.data_ptr(), dy.data_ptr()), 16) or 16
-    plan = gn_backward_plan(B, C, H, W, G, x.element_size(), cl, align)
+    bf16 = x.dtype == torch.bfloat16
+    plan = backward_plan(x, dy, G)
     ws = dgamma = dbeta = None
     if weight_grads:
-        ws = torch.empty((plan.grid, C, 2), dtype=torch.float64,
-                         device=x.device)
+        ws = torch.empty((plan.grid // plan.cluster, C, 2),
+                         dtype=torch.float64, device=x.device)
         dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
         dbeta = torch.empty_like(dgamma)
     err = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
              mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(ws),
-             _ptr(dgamma), _ptr(dbeta), B, C, H * W, G,
-             int(x.dtype == torch.bfloat16), int(cl), plan.vec, plan.cluster,
-             plan.samples_per_cta, plan.threads, int(plan.staged),
-             plan.smem_bytes, plan.grid, *_device_and_stream(x))
+             _ptr(dgamma), _ptr(dbeta), B, C, H * W, G, int(bf16), int(cl),
+             plan.vec, plan.cluster, plan.samples_per_cta, plan.threads,
+             int(plan.staged), plan.smem_bytes, plan.grid,
+             *_device_and_stream(x))
     if err != 0:
         raise RuntimeError(f"group_norm_silu_backward kernel launch failed: "
                            f"CUDA error {err} ({err_str(err).decode()}), "
@@ -361,7 +412,7 @@ def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
 
     CUDA tensors launch csrc/group_norm_silu_backward.cu (dy is brought to
     x's memory format first; with `weight_grads` a second launch reduces the
-    CTAs' dγ/dβ partials), CPU tensors run
+    clusters' dγ/dβ partials), CPU tensors run
     `group_norm_silu_backward_reference`; any other device raises.
     """
     if dy.shape != x.shape or dy.dtype != x.dtype:

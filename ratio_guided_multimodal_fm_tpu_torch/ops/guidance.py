@@ -25,6 +25,7 @@ version of the same function. Any other device raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Iterator, List, Tuple
@@ -108,10 +109,21 @@ def _kernel_fn():
         fn.restype = i
         lib.rgmf_flash_guidance_max_clusters.argtypes = [i, i, i]
         lib.rgmf_flash_guidance_max_clusters.restype = i
+        lib.rgmf_last_error.argtypes = []
+        lib.rgmf_last_error.restype = i
         lib.rgmf_cuda_error_string.argtypes = [i]
         lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
         _c_fn = (fn, lib.rgmf_cuda_error_string)
     return _c_fn
+
+
+def last_error() -> str:
+    """cudaGetLastError of the kernels' library (which clears it), as
+    'code (name)'."""
+    _kernel_fn()
+    lib = _build.load("flash_guidance")
+    err = lib.rgmf_last_error()
+    return f"{err} ({lib.rgmf_cuda_error_string(err).decode()})"
 
 
 def max_active_clusters(cluster: int, aligned: bool, index: int = 0) -> int:
@@ -222,7 +234,10 @@ def card_capacity(index: int) -> Tuple[int, ...]:
                           for k in range(2, MAX_CLUSTER + 1))
 
 
-def _launch(xt, yt, X1, Y1, lr, t: float):
+def _launch(xt, yt, X1, Y1, lr, t: float, cluster: int = 0):
+    """Both kernels on [B, D] rows; `cluster` > 0 forces the score kernel's
+    cluster size in place of the plan's (for checks of every size on one
+    card), else the plan picks it from the card's capacity."""
     fn, err_str = _kernel_fn()
     B, Dx = xt.shape
     N, Dy = Y1.shape
@@ -239,13 +254,17 @@ def _launch(xt, yt, X1, Y1, lr, t: float):
     # the rows the 16-byte loader and the vector stores touch
     aligned = all(p % 16 == 0 for p in ptrs[:4] + ptrs[5:8])
     plan = guidance_plan(B, N, Dx, Dy, aligned, capacity)
+    if cluster:
+        plan = dataclasses.replace(
+            plan, cluster=cluster,
+            grid1=cluster * plan.tiles_b1 * plan.tiles_n1)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(*ptrs[:5], B, N, Dx, Dy, float(np.float32(t)), plan.cluster,
              int(plan.aligned), plan.smem1, plan.smem2, *ptrs[5:], index,
              stream)
     if err != 0:
         raise RuntimeError(f"flash_guidance kernel launch failed: CUDA error "
-                           f"{err} ({err_str(err).decode()})")
+                           f"{err} ({err_str(err).decode()}), {plan}")
     flash_guidance.launches += 1
     return gx, gy, ess, l
 

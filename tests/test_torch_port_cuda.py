@@ -121,6 +121,41 @@ def test_flash_guidance_kernel_float64_yardstick(card, H, y_ch, t):
                                    atol=1e-4)
 
 
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_flash_guidance_kernel_at_every_cluster_size(card, cluster):
+    """The score kernel forced to each cluster size 1-8 (another card may
+    pick any of them) at B=512, N=256, D=4096, t=0.05: on quarter-integer
+    images, which float32 sums exactly, equal to the plain version within
+    1e-3 / 1e-4 (a fault in the cluster's exchange would move whole
+    scores); on N(0,1) images no NaN, ess and l within rtol 2e-2 of the
+    float64 plain version. (g against float64 is held at the plan's own
+    size by test_flash_guidance_kernel_float64_yardstick: a rank's float32
+    FMA chain is D / cluster long, so sizes 1-4 round more than the plain
+    version there.)"""
+    from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import _launch
+
+    g = torch.Generator(card).manual_seed(cluster)
+    quarter = tuple(torch.randint(-8, 9, s, generator=g, device=card) / 4.0
+                    for s in ((512, 32, 32, 1), (512, 32, 32, 3),
+                              (256, 32, 32, 1), (256, 32, 32, 3)))
+    for args in (quarter + (torch.randn(256, generator=g, device=card),),
+                 _normal_guidance_inputs(card, 32, 3, 32)):
+        flat = [a.reshape(a.shape[0], -1) for a in args[:4]] + [args[4]]
+        got = _launch(*flat, 0.05, cluster=cluster)
+        torch.cuda.synchronize()
+        assert not any(bool(torch.isnan(v).any()) for v in got)
+        if args[0] is quarter[0]:
+            want = flash_guidance_reference(*args, 0.05)
+            for a, b in zip(got, want):
+                torch.testing.assert_close(a, b.reshape(a.shape), rtol=1e-3,
+                                           atol=1e-4)
+            continue
+        exact = flash_guidance_reference(*args, 0.05, torch.float64)
+        for i in (2, 3):
+            torch.testing.assert_close(got[i].double(), exact[i], rtol=2e-2,
+                                       atol=1e-4)
+
+
 @pytest.mark.parametrize("B,N,H,y_ch", [(512, 256, 32, 3), (512, 256, 28, 1),
                                         (5, 300, 5, 3)])
 def test_flash_guidance_kernel_is_deterministic(card, B, N, H, y_ch):
@@ -321,6 +356,34 @@ def test_group_norm_silu_backward_kernel(card, dtype, B, C, H,
         for a, c in zip(got[1:], want[1:]):
             torch.testing.assert_close(a, c, rtol=1e-3, atol=1e-3)
         return
+    for nm, (err_k, err_p) in gn_backward_errors(x, w, b, dy, mean, rstd,
+                                                 got).items():
+        assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+@pytest.mark.parametrize("B,C,H", [(128, 192, 32), (64, 96, 64),
+                                   (64, 288, 64)])
+def test_group_norm_silu_backward_wide_plans(card, monkeypatch, B, C, H,
+                                             max_cluster):
+    """float32 channels_last at the large training sites, with clusters of
+    at most 8 CTAs and of 16 where the card holds them: the SVHN U-Net's
+    largest site (staged: one CTA an SM at 8 CTAs, two at 16), the
+    64-px U-Net's 96-channel site (unstaged at 8 CTAs, staged at 16) and
+    its 288-channel one (never staged). dx, dγ and dβ against the float64
+    plain backward (at most twice the float32 plain backward's max |err|),
+    dx alone equal to dx with dγ/dβ, two launches bit for bit."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import groupnorm
+
+    monkeypatch.setattr(groupnorm, "BACKWARD_MAX_CLUSTER", max_cluster)
+    x, w, b, dy = _gn_backward_inputs(card, B, C, H, torch.float32, True, C)
+    mean, rstd = gn_stats_reference(x, 8)
+    dx_only, _, _ = group_norm_silu_backward(dy, x, w, b, mean, rstd, False)
+    got = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+    again = group_norm_silu_backward(dy, x, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert torch.equal(dx_only, got[0])
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
     for nm, (err_k, err_p) in gn_backward_errors(x, w, b, dy, mean, rstd,
                                                  got).items():
         assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)

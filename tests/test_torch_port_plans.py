@@ -13,8 +13,9 @@ are held, at every GroupNorm and ResBlock norm1 -> conv1 shape of both
 experiments' main paths, at B=5 and at the float32 shapes of the
 experiment-1 ratio net, to what the kernels assume — every sample, pixel
 row and channel covered exactly once, dynamic shared memory within one
-block's 232,448 bytes, clusters of at most 8 CTAs; and, forward and
-backward, at the flow-matching trainer's float32 shapes (B = 128, 127).
+block's 232,448 bytes, clusters of at most 8 CTAs (16 for the backward
+where the card holds them); and, forward and backward, at the trainers'
+float32 shapes (B = 128, 127) and every GN site of the trained nets.
 The kernels' library names hash every csrc header, so an edited header
 rebuilds them.
 """
@@ -35,6 +36,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     ResBlock,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops import _build
+from ratio_guided_multimodal_fm_tpu_torch.ops import groupnorm
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     SMEM_MAX,
     gn_backward_plan,
@@ -233,11 +235,12 @@ def test_shape_lists_match_the_models():
     assert ratio1 | (gn1 & set(EXP1_RATIO_GN)) == set(EXP1_RATIO_GN)
 
 
-def _check_gn_plan(plan, B, C, H, channels_last):
+def _check_gn_plan(plan, B, C, H, channels_last, max_cluster=8):
     G = min(8, C)
     HW = H * H
     unit = C if channels_last else HW      # a pixel row / a channel
-    assert 1 <= plan.cluster <= 8 and plan.cluster & (plan.cluster - 1) == 0
+    assert 1 <= plan.cluster <= max_cluster
+    assert plan.cluster & (plan.cluster - 1) == 0
     assert plan.cluster == 1 or plan.samples_per_cta == 1
     assert plan.grid % plan.cluster == 0
     assert plan.smem_bytes <= SMEM_MAX
@@ -270,19 +273,25 @@ GN_BACKWARD_CASES = sorted(
     set(GN_CASES) | {(512, C, H, 4) for C, H in EXP1_RATIO_GN})
 
 
+@pytest.mark.parametrize("max_cluster", [8, 16])
 @pytest.mark.parametrize("channels_last", [True, False])
 @pytest.mark.parametrize("B,C,H,itemsize", GN_BACKWARD_CASES)
 def test_gn_backward_plan_covers_every_element_once(B, C, H, itemsize,
-                                                    channels_last):
-    """The backward cuts x and dy as the forward cuts x, at half the slice:
-    a staged CTA holds the slice of both, and its header's per-thread
-    channel sums (channels_last) stay within one block's shared memory."""
-    plan = gn_backward_plan(B, C, H, H, min(8, C), itemsize, channels_last)
-    _check_gn_plan(plan, B, C, H, channels_last)
+                                                    channels_last,
+                                                    max_cluster):
+    """The backward cuts x and dy as the forward cuts x, at half the slice
+    and in clusters of up to `max_cluster` CTAs: a staged CTA holds the
+    slice of both, one mbarrier a sample, within one block's shared
+    memory."""
+    plan = gn_backward_plan(B, C, H, H, min(8, C), itemsize, channels_last,
+                            16, max_cluster)
+    _check_gn_plan(plan, B, C, H, channels_last, max_cluster)
+    assert plan.samples_per_cta <= groupnorm.MAX_BARRIERS
     if plan.staged:
         assert plan.smem_bytes >= 2 * plan.samples_per_cta * \
             plan.slice_cap * itemsize
-    assert plan.slice_cap * itemsize <= 32 * 1024 or plan.cluster == 8 \
+    assert plan.slice_cap * itemsize <= 32 * 1024 \
+        or plan.cluster == max_cluster \
         or plan.slice_cap == (C if channels_last else H * H)
 
 
@@ -447,3 +456,114 @@ def test_an_edited_header_renames_every_library(tmp_path):
                                                 "fused_gn_silu_conv"]
     # the same sources and headers give the same names
     assert after == [_build._lib_path(s).name for s in srcs]
+
+
+def _gn_sites(net, *inputs):
+    """{(C, H)} of the GroupNormSiLU sites a forward of `net` runs."""
+    seen = set()
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: seen.add(tuple(a[0].shape[1:3])))
+        for m in net.modules() if isinstance(m, GroupNormSiLU)]
+    with torch.no_grad():
+        net(*inputs)
+    for hk in hooks:
+        hk.remove()
+    return seen
+
+
+def _training_sites():
+    """(B, C, H) of every GN site of the trained nets: the SVHN, MNIST-32,
+    28-px, --model original and 64-px U-Nets at B = 128 and 64, and both
+    ratio nets at B = 128 and 512 (the experiment-2 net normalises with
+    BatchNorm and has none)."""
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        FlowMatchingModel,
+        FlowMatchingUNet64,
+    )
+
+    t = torch.zeros(1)
+    unets = [(FlowMatchingUNetSVHN(), (torch.zeros(1, 3, 32, 32), t)),
+             (FlowMatchingUNetMNIST(img_size=32),
+              (torch.zeros(1, 1, 32, 32), t)),
+             (FlowMatchingUNet(), (torch.zeros(1, 1, 28, 28), t)),
+             (FlowMatchingModel(), (torch.zeros(1, 1, 28, 28), t)),
+             (FlowMatchingUNet64(), (torch.zeros(1, 3, 64, 64), t))]
+    ratios = [(RatioEstimatorMNIST(), (torch.zeros(1, 1, 28, 28),) * 2),
+              (RatioEstimatorMNISTSVHN(), (torch.zeros(1, 1, 32, 32),
+                                           torch.zeros(1, 3, 32, 32)))]
+    sites = set()
+    for nets, batches in ((unets, (128, 64)), (ratios, (128, 512))):
+        for net, inputs in nets:
+            sites |= {(B, C, H) for C, H in _gn_sites(net, *inputs)
+                      for B in batches}
+    return sorted(sites)
+
+
+TRAINING_SITES = _training_sites()
+
+
+def test_training_sites_cover_the_named_nets():
+    """The 64-px U-Net's sites at 64 px are among them, and the ratio
+    nets' at B = 512."""
+    assert {(64, 96, 64), (64, 288, 64), (128, 192, 32),
+            (512, 32, 28), (512, 128, 3)} <= set(TRAINING_SITES)
+
+
+@pytest.mark.parametrize("max_cluster", [8, 16])
+@pytest.mark.parametrize("channels_last", [True, False])
+def test_gn_backward_plan_at_every_training_site(channels_last, max_cluster):
+    """float32, every GN site of the trained nets: shared memory within one
+    block's, the cluster within what the card is asked to hold (8, or 16
+    where it holds clusters of 16), every element covered once."""
+    for B, C, H in TRAINING_SITES:
+        plan = gn_backward_plan(B, C, H, H, 8, 4, channels_last, 16,
+                                max_cluster)
+        assert plan.smem_bytes <= SMEM_MAX
+        _check_gn_plan(plan, B, C, H, channels_last, max_cluster)
+        assert plan.samples_per_cta <= groupnorm.MAX_BARRIERS
+
+
+def test_gn_backward_plan_fills_the_sm_at_the_large_sites():
+    """The SVHN U-Net's largest site takes clusters of 16 where the card
+    holds them, two CTAs an SM; with clusters of 8 a slice fills an SM
+    alone. The 64-px U-Net's 96-channel site stages at
+    16; the 288-channel one reads device memory twice, at most two CTAs an
+    SM. Small slices keep several CTAs an SM."""
+    sm = 233_472                           # shared memory of one SM
+    wide = gn_backward_plan(128, 192, 32, 32, 8, 4, True, 16, 16)
+    assert (wide.cluster, wide.staged, wide.threads) == (16, True, 288)
+    assert 2 * (wide.smem_bytes + 1024) <= sm
+    assert wide.smem_bytes == groupnorm._bwd_header_bytes(192, 8, 1) + \
+        2 * 64 * 192 * 4
+    portable = gn_backward_plan(128, 192, 32, 32, 8, 4, True)
+    assert (portable.cluster, portable.staged) == (8, True)
+    assert 2 * (portable.smem_bytes + 1024) > sm
+    assert gn_backward_plan(64, 96, 64, 64, 8, 4, True, 16, 16).staged
+    assert not gn_backward_plan(64, 96, 64, 64, 8, 4, True).staged
+    big = gn_backward_plan(64, 288, 64, 64, 8, 4, True, 16, 16)
+    assert not big.staged and big.smem_bytes == groupnorm.UNSTAGED_SMEM
+    assert 2 * (big.smem_bytes + 1024) <= sm < 3 * (big.smem_bytes + 1024)
+    # the widest block of whole multiples of lcm(32, G, C / 4) = 288
+    assert big.threads == 288
+    assert gn_backward_plan(64, 192, 64, 64, 8, 4, True, 16, 16).threads == 480
+    small = gn_backward_plan(512, 32, 28, 28, 8, 4, True, 16, 16)
+    assert 4 * (small.smem_bytes + 1024) <= sm
+
+
+def test_gn_backward_header_matches_the_kernel_source():
+    """ops/groupnorm.py:_bwd_header_bytes, MAX_BARRIERS and WIDE_CLUSTER
+    equal csrc/group_norm_silu_backward.cu's bwd_header_bytes, kMaxBars and
+    kMaxCluster."""
+    import re
+
+    src = (_build.CSRC / "group_norm_silu_backward.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(
+        r"constexpr int (kMax\w+) = (\d+);", src)}
+    assert consts["kMaxBars"] == groupnorm.MAX_BARRIERS
+    assert consts["kMaxCluster"] == groupnorm.WIDE_CLUSTER
+    body = re.search(r"bwd_header_bytes\(int C, int G, int spc\) \{\s*"
+                     r"return rgmf::round_up\(\s*(.*?),\s*128\);", src,
+                     re.S).group(1)
+    for C, G, spc in ((192, 8, 1), (32, 8, 4), (768, 8, 1), (96, 16, 2)):
+        n = eval(body, {}, dict(C=C, G=G, spc=spc, **consts))
+        assert groupnorm._bwd_header_bytes(C, G, spc) == -(-n // 128) * 128
