@@ -19,3 +19,5 @@ Conventions:
 """
 
 __version__ = "0.1.0"
+
+from ratio_guided_multimodal_fm_tpu_torch.core.prng import set_seed  # noqa: E402,F401

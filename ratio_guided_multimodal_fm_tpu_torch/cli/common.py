@@ -37,6 +37,7 @@ from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (  # noqa: F40
     ema_state_dict,
     load_params,
     save_checkpoint,
+    wait_for_saves,
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
     epoch_data_iter,
@@ -303,14 +304,16 @@ def run_ratio_training(args, model: torch.nn.Module, loader, device,
 
     def save_best(s, epoch, best):
         path = ckpt_name("best")
-        save_checkpoint(path, s.model.state_dict())
+        save_checkpoint(path, s.model.state_dict(), async_save=True)
         print(f"  -> Saved best model: {path}")
         if s.ema is not None:
-            save_checkpoint(ema_checkpoint_path(path), ema_state_dict(s))
+            save_checkpoint(ema_checkpoint_path(path), ema_state_dict(s),
+                            async_save=True)
             print(f"  -> Saved EMA model: {ema_checkpoint_path(path)}")
 
     def save_periodic(s, epoch, best):
-        save_checkpoint(ckpt_name(f"epoch{epoch}"), s.model.state_dict())
+        save_checkpoint(ckpt_name(f"epoch{epoch}"), s.model.state_dict(),
+                        async_save=True)
 
     if args.fused_steps > 1:
         x_all, y_all, loader = index_loader()
@@ -339,6 +342,7 @@ def run_ratio_training(args, model: torch.nn.Module, loader, device,
         save_periodic_fn=save_periodic, save_every=10, patience=5,
         preempt_path=args.preempt_path, **resume)
     if not finish_preemptible(history, args.preempt_path):
+        wait_for_saves()
         print("\nTraining complete!")
         print(f"Best loss: {best:.4f}")
     return state, best, history

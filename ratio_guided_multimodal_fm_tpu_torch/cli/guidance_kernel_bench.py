@@ -1,9 +1,10 @@
 """Times the mc_feng guidance kernel (kernel A, ops/guidance.py) four ways,
 so that the host does not set the number.
 
-At both main-path widths (B=512, N=256; D=4096 of experiment 2 and D=1568
-of experiment 1, float32, t=0.5) it reports, per wrapper call, the times of
-core/card.py:call_times:
+At the main-path widths (B=512, N=256; D=4096 of experiment 2 and D=1568
+of experiment 1) and the 64-px ones (B=64, N=128; D=24,576 and the stretch
+demo's Dx=12,288 / Dy=4,096), float32, t=0.5, it reports, per wrapper call,
+the times of core/card.py:call_times:
 
 * `event_ms`       — CUDA events around 20 back-to-back calls (at ~0.05 ms
   this follows the host's enqueue rate as much as the kernels);
@@ -20,16 +21,18 @@ and `kernels`, the device time by kernel name.
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.guidance_kernel_bench \
         [--out outputs/guidance_kernel_bench.json] [--yardstick_draws N]
 
-It needs a CUDA card. To compare two commits, run it from a checkout of
-each in turn on the same card and read the two files.
+It needs a CUDA card. To compare two commits, run this file from the newer
+checkout with the older one on PYTHONPATH (the timing uses only
+`flash_guidance` and core/card.py), in turns on the same card.
 
-`--yardstick_draws N` instead measures how the float64 yardstick of
-chip_smoke.py phase 3 behaves on N(0,1) images: for N seeds and t in
-(0.05, 0.5, 0.95), at D = 4096 (B=512, N=256) and D = 24,576 (B=64, N=128),
-the max |err| in g against the float64 plain version of the kernel, of the
-float32 plain version and of the float32 plain version with the features
-permuted (another float32 summation order of the same function), and how
-often each of the last two exceeds twice the plain version's.
+`--yardstick_draws N` instead measures kernel A against float64 on N(0,1)
+images: for N seeds and t in (0.05, 0.5, 0.95), at all four widths, the max
+|err| in g against the float64 plain version of the kernel, of the float32
+plain version and of the float32 plain version with the features permuted
+(another float32 summation order of the same function), how often each of
+the last two exceeds twice the plain version's, and the largest ratios of
+ops/guidance.py:bound_ratios (the scores to their a-priori
+bound, kernel 2's g, ESS and l to their float32 tolerance; each <= 1).
 """
 from __future__ import annotations
 
@@ -39,8 +42,10 @@ import os
 
 import torch
 
-B_MAIN, N_MC, T_MID = 512, 256, 0.5
-WIDTHS = {"D4096": (32, 3), "D1568": (28, 1)}     # image size, y channels
+T_MID = 0.5
+# B, N, image size, channels of x and y
+WIDTHS = {"D4096": (512, 256, 32, (1, 3)), "D1568": (512, 256, 28, (1, 1)),
+          "D24576": (64, 128, 64, (3, 3)), "D16384": (64, 128, 64, (3, 1))}
 KERNEL_NAMES = ("scores_kernel", "weighted_sum_kernel")
 
 
@@ -61,10 +66,9 @@ def measure(device) -> dict:
 
     g = torch.Generator(device).manual_seed(0)
     out = {}
-    for tag, (H, y_ch) in WIDTHS.items():
-        inputs = tuple(torch.randn(s, generator=g, device=device) for s in (
-            (B_MAIN, H, H, 1), (B_MAIN, H, H, y_ch), (N_MC, H, H, 1),
-            (N_MC, H, H, y_ch), (N_MC,)))
+    for tag, (B, N, H, ch) in WIDTHS.items():
+        inputs = tuple(torch.randn(s, generator=g, device=device)
+                       for s in shapes(B, N, H, ch))
         row = call_times(lambda: flash_guidance(*inputs, T_MID), device,
                          KERNEL_NAMES, 2)
         row["kernels"] = {short(k): v for k, v in row["kernels"].items()}
@@ -72,24 +76,27 @@ def measure(device) -> dict:
     return out
 
 
+def shapes(B, N, H, ch):
+    return ((B, H, H, ch[0]), (B, H, H, ch[1]), (N, H, H, ch[0]),
+            (N, H, H, ch[1]), (N,))
+
+
 def yardstick(device, draws: int) -> dict:
-    """{shape: rows of (seed, t, kernel, plain, permuted)} max |err| in g
-    against float64, and the counts above twice the plain version's."""
+    """{width: rows of (seed, t, kernel, plain, permuted)} max |err| in g
+    against float64 with the kernel's bound ratios, the counts
+    above twice the plain version's and the largest ratios."""
     from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
-        flash_guidance,
         flash_guidance_reference,
+        bound_ratios,
     )
 
     out = {}
-    for tag, (B, N, H, ch) in {"D4096": (512, 256, 32, (1, 3)),
-                               "D24576": (64, 128, 64, (3, 3))}.items():
+    for tag, (B, N, H, ch) in WIDTHS.items():
         rows = []
         for seed in range(draws):
             g = torch.Generator(device).manual_seed(1000 + seed)
-            shapes = ((B, H, H, ch[0]), (B, H, H, ch[1]), (N, H, H, ch[0]),
-                      (N, H, H, ch[1]), (N,))
             inputs = tuple(torch.randn(sh, generator=g, device=device)
-                           for sh in shapes)
+                           for sh in shapes(B, N, H, ch))
             flat = [a.reshape(a.shape[0], -1) for a in inputs[:4]]
             perms = [torch.randperm(flat[i].shape[1], generator=g,
                                     device=device) for i in (0, 1)]
@@ -100,7 +107,8 @@ def yardstick(device, draws: int) -> dict:
                 exact = flash_guidance_reference(*inputs, t, torch.float64)
                 ex = [e.reshape(e.shape[0], -1) for e in exact[:2]]
                 alt = flash_guidance_reference(*permuted, t, torch.float64)
-                got = flash_guidance(*inputs, t)
+                held = bound_ratios(inputs, t)
+                got = held["out"]
                 plain = flash_guidance_reference(*inputs, t)
                 perm = flash_guidance_reference(*permuted, t)
                 err = [max(float((r[i].reshape(B, -1).double() - e)
@@ -109,12 +117,16 @@ def yardstick(device, draws: int) -> dict:
                                       (perm, [a.reshape(B, -1)
                                               for a in alt[:2]]))]
                 rows.append(dict(seed=seed, t=t, kernel=err[0],
-                                 plain=err[1], permuted=err[2]))
+                                 plain=err[1], permuted=err[2],
+                                 bound_ratios=held["ratios"]))
         over = {k: sum(r[k] > 2.0 * r["plain"] + 1e-6 for r in rows)
                 for k in ("kernel", "permuted")}
-        out[tag] = dict(rows=rows, above_twice_plain=over, cases=len(rows),
-                        max_ratio={k: max(r[k] / r["plain"] for r in rows)
-                                   for k in ("kernel", "permuted")})
+        out[tag] = dict(
+            rows=rows, above_twice_plain=over, cases=len(rows),
+            max_ratio={k: max(r[k] / r["plain"] for r in rows)
+                       for k in ("kernel", "permuted")},
+            max_bound_ratio={k: max(r["bound_ratios"][k] for r in rows)
+                             for k in rows[0]["bound_ratios"]})
     return out
 
 
@@ -144,7 +156,10 @@ def main(argv=None):
                   f"{r['above_twice_plain']['permuted']}; largest ratio to "
                   f"the plain version's: kernel "
                   f"{r['max_ratio']['kernel']:.3g}, permuted plain "
-                  f"{r['max_ratio']['permuted']:.3g}  [{smi}]", flush=True)
+                  f"{r['max_ratio']['permuted']:.3g}; largest ratio to "
+                  f"its bound (<= 1 holds): " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in r["max_bound_ratio"].items())
+                  + f"  [{smi}]", flush=True)
         out.update(device=torch.cuda.get_device_name(device), nvidia_smi=smi)
     else:
         out = None
@@ -158,7 +173,9 @@ def main(argv=None):
               + f"  [{smi}]", flush=True)
     out = out or dict(device=torch.cuda.get_device_name(device),
                       nvidia_smi=smi,
-                      shape=f"B={B_MAIN} N={N_MC} float32 t={T_MID}",
+                      shape={k: f"B={v[0]} N={v[1]} D="
+                             f"{v[2] * v[2] * sum(v[3])} float32 t={T_MID}"
+                             for k, v in WIDTHS.items()},
                       times=times)
     d = os.path.dirname(args.out)
     if d:

@@ -122,7 +122,7 @@ def run_flow_training(model, loader, args, ckpt_prefix: str, device,
         print(f"  -> Saved best model: {path}")
         if s.ema is not None:
             epath = checkpoint_path(ckpt_prefix, "ema", "best")
-            save_checkpoint(epath, s.ema)
+            save_checkpoint(epath, s.ema, async_save=True)
             print(f"  -> Saved EMA model: {epath}")
 
     def save_periodic(s, epoch, best):

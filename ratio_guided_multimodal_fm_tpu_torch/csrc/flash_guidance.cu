@@ -1,8 +1,8 @@
-// mc_feng guidance (Feng et al. Alg. 2) for Hopper (sm_90a), IEEE float32
-// FMA throughout (no tensor cores: there is no float32 mma, and a split
-// product would change the rounding of scores that are ~2000 in magnitude at
-// D = 4096). Exponentials are expf and the ESS quotient is an IEEE division:
-// no approximate intrinsic (__expf, __fdividef) is used.
+// mc_feng guidance (Feng et al. Alg. 2) for Hopper (sm_90a). The scores are
+// float64: their products on the FP64 tensor cores (mma.m16n8k8.f64), their
+// norms, sums and finishing in IEEE float64, S kept in float64; the weighted
+// sum is IEEE float32 FMA. Exponentials are expf and the ESS quotient is an
+// IEEE division: no approximate intrinsic (__expf, __fdividef) is used.
 //
 // Replaces: ratio_guided_multimodal_fm_tpu/ops/guidance_pallas.py:flash_guidance
 // (body `_kernel`), which walks the MC axis N as a sequential grid with a
@@ -10,21 +10,31 @@
 // neither hold that accumulator nor carry a sum from one grid step to the
 // next, so the function is two kernels here:
 //
-//   1. scores_kernel:  S[b, n] = log r[n] - (t^2 |v_n|^2 - 2t <a_b, v_n>) / (2 sigma^2)
+//   1. scores_kernel:  S[b, n] = log r[n]
+//                         - (t^2 |v_n|^2 - 2t <a_b, v_n>) / (2 sigma^2)
 //      with a_b = [x_t | y_t][b], v_n = [X1 | Y1][n], sigma = 1 - t + 1e-3.
-//      The row constant |a_b|^2 of |a_b - t v_n|^2 cancels in the softmax and
-//      is left out: at D = 4096 it is ~4096 and its float32 rounding alone
-//      would move s by ~1e-4.
-//   2. weighted_sum_kernel:  m = max_n S, l = sum e^{S-m}, q = sum e^{2(S-m)},
+//      The row constant |a_b|^2 of |a_b - t v_n|^2 cancels in the softmax
+//      and is left out. The scores are ~t^2 D / (2 sigma^2) in magnitude
+//      (~7e5 at D = 4096, t = 0.95).
+//      Why float64: near-tied weights amplify any rounding of the scores,
+//      and a float32 version's (a float32 S at 7e5 carries an ulp of
+//      0.06, float32 dot products move a near tie by ~1e-3) decides which
+//      float32 order wins on a given draw; in float64 the kernel's scores
+//      are exact to ~1e-9 and its g error is kernel 2's own float32
+//      rounding (ops/guidance.py:score_error_bound is the a-priori bound
+//      on S's error).
+//   2. weighted_sum_kernel:  m = max_n S, l = sum e^{S-m}, q = sum e^{2(S-m)}
+//      (S - m taken in float64 and rounded to float32 for expf),
 //      ESS = l^2/(q+1e-30), W = e^{S-m}/(l+1e-30), G = (W V - [x_t | y_t])/sigma,
 //      written split into g_x and g_y.
 //
-// Bound on the card: operations. 2*B*N*D FMAs (2.15 GFLOP at B=512, N=256,
-// D=4096) at the H100 SXM's 67 TFLOP/s non-tensor float32 rate are ~32 us;
-// the ~21 MB of inputs and outputs take ~6 us at 3.35 TB/s. A float32 FMA
-// GEMM cannot reach that rate on this card: with 8x8 outputs per thread every
-// 64 FMAs need four 16-byte shared-memory reads, which keeps the SM's one
-// load/store unit as busy as its four FMA pipes.
+// Bound on the card: operations. 2*B*N*D multiply-adds (2.15 GFLOP at B=512,
+// N=256, D=4096) at the H100 SXM's 67 TFLOP/s (its FP64 tensor-core rate and
+// its non-tensor float32 rate alike, NVIDIA's data sheet) are ~32 us; the
+// ~22 MB of inputs and outputs take ~7 us at 3.35 TB/s. Kernel 2's float32
+// FMA GEMM cannot reach that rate on this card: with 4x8 outputs per thread
+// its shared-memory reads keep the SM's one load/store unit as busy as its
+// four FMA pipes.
 //
 // What the design does about that:
 //   * Both products run from a ring of kStages shared-memory stages filled by
@@ -32,20 +42,23 @@
 //     load while the current one multiplies, with one CTA barrier per stage.
 //   * Operands whose rows run along the reduction axis (x_t|y_t, X1|Y1 in
 //     kernel 1, W in kernel 2) stay row-major in shared memory with a row
-//     stride of 36 floats: the copies need no transposition, and the float4
-//     reads along k of 8 consecutive rows fall into 8 different bank groups.
-//   * Kernel 1: 8x8 outputs per thread, 8 warps a CTA. The two halves of the
-//     CTA take the two halves of each 32-deep stage and add their 64 x 128
-//     tiles through shared memory at the end. The feature axis is split over
-//     a thread-block cluster of up to 8 CTAs per tile. The ranks exchange
-//     their partial tiles and partial |v_n|^2 through distributed shared
-//     memory and add them in rank order, each rank finishing its share of the
-//     tile's rows: no [slices, B, N] workspace, and the same bits every run.
+//     stride of 36 floats: the copies need no transposition, and a warp's
+//     fragment reads (kernel 1: rows lane / 4, k = lane % 4) or float4 reads
+//     along k of 8 consecutive rows (kernel 2) fall into distinct banks.
+//   * Kernel 1: 8 warps a CTA, each a 32 x 32 block of the 64 x 128 tile as
+//     2 x 4 fragments of the FP64 tensor cores' 16 x 8 x 8 product (sm_90),
+//     the float32 operands converted to float64 (exactly) as they are read.
+//     The feature axis is split over a thread-block cluster of up to 8 CTAs
+//     per tile. The ranks exchange their float64 partial tiles and partial
+//     |v_n|^2 through distributed shared memory and add them in rank order,
+//     each rank finishing its share of the tile's rows: no [slices, B, N]
+//     workspace, and the same bits every run.
 //     The cluster size comes from what the card holds at once: an H100 80GB
 //     HBM3 holds 15 clusters of 8 such CTAs but 17 of 6, so the 16 tiles of
 //     B=512, N=256 take clusters of 6 (one wave) rather than 8 (two).
 //   * The finishing ranks of kernel 1 also leave, behind S, the softmax
-//     partials (max, sum e, sum e^2) of every 32 columns of a row. Kernel 2
+//     partials (max in float64, sum e and sum e^2 in float32) of every 32
+//     columns of a row. Kernel 2
 //     folds them into m, l and q per row in its prologue (taking them from the
 //     scores again costs 131 K exponentials in each of the 32 column blocks),
 //     then forms each W stage on the fly while it writes it to shared memory:
@@ -83,16 +96,17 @@ constexpr int kBN1 = 128;        // kernel 1 tile: MC rows n
 constexpr int kStage1 = (kBM1 + kBN1) * kLd;   // floats of one kernel-1 stage
 constexpr int kBM2 = 64;         // kernel 2 tile: trajectories b
 constexpr int kBD2 = 128;        // kernel 2 tile: features d
-constexpr int kLdP = kBN1 + 16;  // row stride of the partial tile
+constexpr int kLdP = kBN1 + 2;   // row stride of the float64 partial tile
 constexpr unsigned kFull = 0xffffffffu;
 
-static_assert(kBM1 * kLdP <= kStages * kStage1, "partial tile aliases the ring");
+static_assert(2 * (kBM1 * kLdP + kBN1) <= kStages * kStage1,
+              "partial tile and |v|^2 sums alias the ring");
 
 __host__ __device__ constexpr int smem1_floats() {
   return kStages * kStage1 + 3 * kBN1;   // ring, |v|^2 partials (double), sums
 }
 __host__ __device__ constexpr int smem2_floats() {
-  return kStages * kBK * kBD2 + 2 * kBM2 * kLd + 2 * kBM2;
+  return kStages * kBK * kBD2 + 2 * kBM2 * kLd + 3 * kBM2;
 }
 
 struct Args {
@@ -101,7 +115,7 @@ struct Args {
   const float* X1;
   const float* Y1;
   const float* log_r;
-  float* S;
+  double* S;
   float* gx;
   float* gy;
   float* ess;
@@ -109,6 +123,18 @@ struct Args {
   int B, N, Dx, Dy, K;
   float t;
 };
+
+// c += a b on the FP64 tensor cores (16x8x8, sm_90), with g = lane / 4 and
+// q = lane % 4: a[i + 2j] = A[g + 8i][q + 4j], b[j] = B[q + 4j][g] and
+// c[i + 2j] = C[g + 8j][2q + i].
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
 
 // 16-byte asynchronous copy global -> shared; zero-fills when !ok (src must
 // still be a valid address).
@@ -180,8 +206,10 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
   // column n for every row alike, so its rounding does not cancel in the
   // softmax; the ranks' partials are added exactly and rounded once
   double* vn_s = reinterpret_cast<double*>(smem + kStages * kStage1);
-  float* vn_tot = smem + kStages * kStage1 + 2 * kBN1;   // over the ranks
-  float* P = smem;                          // partial tile, after the loop
+  // after the loop, in the ring: this rank's partial tile of <a_b, v_n>,
+  // then |v_n|^2 over the ranks (kBN1), all float64
+  double* P = reinterpret_cast<double*>(smem);
+  double* vn = P + kBM1 * kLdP;
 
   const int tid = threadIdx.x;
   const int K = a.K;
@@ -207,20 +235,26 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
                                   k_end, tid);
   };
 
-  // compute mapping: half h of the CTA takes k in [16h, 16h+16) of a stage;
-  // thread (ty, tx) of a half owns rows ty + 8i and columns tx + 16j
-  const int h = tid >> 7;
-  const int tx = tid & 15;
-  const int ty = (tid & 127) >> 4;
+  // compute mapping: warp w owns the 32 x 32 block at rows 32 (w / 4),
+  // columns 32 (w % 4) of the tile as 2 x 4 fragments of 16 x 8; a lane
+  // reads rows (or columns) lane / 4 (+ 8) of a fragment at k = lane % 4
+  // (+ 4)
+  const int lane = tid & 31;
+  const int wm = (tid >> 7) * 32;
+  const int wn = ((tid >> 5) & 3) * 32;
+  const int fr = lane >> 2;
+  const int fk = lane & 3;
   // |v_n|^2 mapping: row tid/2, k in [16 (tid&1), +16)
   const int vrow = tid >> 1;
   const int vk = (tid & 1) * 16;
 
-  float acc[8][8];
+  double acc[2][4][4];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0;
   double nrm = 0.0;
 
 #pragma unroll
@@ -239,64 +273,52 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
     const float* Vs = As + kBM1 * kLd;
     {
       const float* p = Vs + vrow * kLd + vk;
-      float part = 0.f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const float4 v = *reinterpret_cast<const float4*>(p + 4 * c);
-        part = fmaf(v.x, v.x, part);
-        part = fmaf(v.y, v.y, part);
-        part = fmaf(v.z, v.z, part);
-        part = fmaf(v.w, v.w, part);
+        nrm = fma((double)v.x, (double)v.x, nrm);
+        nrm = fma((double)v.y, (double)v.y, nrm);
+        nrm = fma((double)v.z, (double)v.z, nrm);
+        nrm = fma((double)v.w, (double)v.w, nrm);
       }
-      nrm += (double)part;
     }
-    const float* ap = As + ty * kLd + h * 16;
-    const float* vp = Vs + tx * kLd + h * 16;
+    // the stage's 32 k in float64 on the tensor cores (the float32 inputs
+    // are exact in float64): 4 steps of 8, each 8 fragment products
+    const float* ap = As + (wm + fr) * kLd + fk;
+    const float* vp = Vs + (wn + fr) * kLd + fk;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      float4 af[8], vf[8];
+    for (int kk = 0; kk < kBK; kk += 8) {
+      double af[2][4], bf[4][2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        af[i] = *reinterpret_cast<const float4*>(ap + i * 8 * kLd + 4 * c);
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        vf[j] = *reinterpret_cast<const float4*>(vp + j * 16 * kLd + 4 * c);
+        for (int v = 0; v < 4; ++v)
+          af[i][v] = ap[(16 * i + 8 * (v & 1)) * kLd + kk + 4 * (v >> 1)];
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int j = 0; j < 4; ++j)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float s = acc[i][j];
-          s = fmaf(af[i].x, vf[j].x, s);
-          s = fmaf(af[i].y, vf[j].y, s);
-          s = fmaf(af[i].z, vf[j].z, s);
-          s = fmaf(af[i].w, vf[j].w, s);
-          acc[i][j] = s;
-        }
+        for (int v = 0; v < 2; ++v) bf[j][v] = vp[8 * j * kLd + kk + 4 * v];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dmma(acc[i][j], af[i], bf[j]);
     }
   }
 
   cp_async_wait<0>();
   __syncthreads();   // every thread is done with the ring: P may alias it
 
-  if (h == 1) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        P[(ty + 8 * i) * kLdP + tx + 16 * j] = acc[i][j];
-  }
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h8 = 0; h8 < 2; ++h8)
+        *reinterpret_cast<double2*>(
+            &P[(wm + 16 * i + 8 * h8 + fr) * kLdP + wn + 8 * j + 2 * fk]) =
+            make_double2(acc[i][j][2 * h8], acc[i][j][2 * h8 + 1]);
   nrm += __shfl_xor_sync(kFull, nrm, 1);
   if ((tid & 1) == 0) vn_s[vrow] = nrm;
-  __syncthreads();
-  if (h == 0) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float* p = &P[(ty + 8 * i) * kLdP + tx + 16 * j];
-        *p = acc[i][j] + *p;
-      }
-  }
 
   cg::cluster_group cluster = cg::this_cluster();
   if (K > 1) cluster.sync(); else __syncthreads();
@@ -307,49 +329,53 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
       const double* p = K > 1 ? cluster.map_shared_rank(vn_s, q) : vn_s;
       v += p[tid];
     }
-    vn_tot[tid] = (float)v;
+    vn[tid] = v;
   }
   __syncthreads();
 
   // rank r finishes rows r, r + K, ... of the tile (each half of the CTA every
   // other one of them), adding the ranks' partial sums in rank order
+  // the float32 scalars of the plain version, then float64 arithmetic
   const float sigma = 1.0f - a.t + kEpsT;
-  const float inv_2s2 = 0.5f / (sigma * sigma);
-  const float two_t = 2.0f * a.t;
-  const float t2 = a.t * a.t;
+  const double inv_2s2 = 0.5f / (sigma * sigma);
+  const double two_t = 2.0f * a.t;
+  const double t2 = a.t * a.t;
+  const int h = tid >> 7;
   const int n = tid & 127;
   const int nn = n0 + n;
   const bool in = nn < a.N;
   const int C = (a.N + 31) / 32;
-  float* part = a.S + (size_t)a.B * a.N;
-  const size_t plane = (size_t)a.B * C;
-  const float vn = vn_tot[n];
+  double* part_m = a.S + (size_t)a.B * a.N;
+  float* part_l = reinterpret_cast<float*>(part_m + (size_t)a.B * C);
+  float* part_q = part_l + (size_t)a.B * C;
+  const double vnn = vn[n];
   const float lr = in ? a.log_r[nn] : 0.f;
-  const float* peer[8];
+  const double* peer[8];
 #pragma unroll
   for (int q = 0; q < 8; ++q)
     peer[q] = K > 1 ? cluster.map_shared_rank(P, q < K ? q : 0) : P;
   // four rows at a time: all their loads from the peers go first
   for (int mb = rank + h * K; mb < kBM1; mb += 8 * K) {
-    float pv[4][8];
+    double pv[4][8];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int m = min(mb + 2 * K * r, kBM1 - 1);
 #pragma unroll
       for (int q = 0; q < 8; ++q)
-        pv[r][q] = q < K ? peer[q][m * kLdP + n] : 0.f;
+        pv[r][q] = q < K ? peer[q][m * kLdP + n] : 0.0;
     }
-    float s[4], mx[4];
+    double s[4], mx[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      float cross = 0.f;
+      double cross = 0.0;
 #pragma unroll
       for (int q = 0; q < 8; ++q)
         if (q < K) cross += pv[r][q];
-      // Rounded step by step, without FMA contraction, in the order of the
-      // plain PyTorch version: s = log r - (t^2 |v|^2 - 2t cross) / (2 sigma^2).
-      const float sq = __fsub_rn(__fmul_rn(t2, vn), __fmul_rn(two_t, cross));
-      s[r] = in ? __fsub_rn(lr, __fmul_rn(sq, inv_2s2)) : -FLT_MAX;
+      // In float64, each step rounded without FMA contraction, in the order
+      // of the plain version:
+      // s = log r - (t^2 |v_n|^2 - 2t cross) / (2 sigma^2).
+      const double sq = __dsub_rn(__dmul_rn(t2, vnn), __dmul_rn(two_t, cross));
+      s[r] = in ? __dsub_rn(lr, __dmul_rn(sq, inv_2s2)) : -DBL_MAX;
       mx[r] = s[r];
     }
     // softmax partials of this warp's 32 columns of each row
@@ -357,11 +383,11 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
     for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
       for (int r = 0; r < 4; ++r)
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], off));
+        mx[r] = fmax(mx[r], __shfl_xor_sync(kFull, mx[r], off));
     float l[4], q2[4];
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
-      const float e = in ? expf(s[r] - mx[r]) : 0.f;
+      const float e = in ? expf(__double2float_rn(s[r] - mx[r])) : 0.f;
       l[r] = e;
       q2[r] = e * e;
     }
@@ -380,9 +406,9 @@ __global__ void __launch_bounds__(kThreads, 1) scores_kernel(Args a) {
       a.S[(size_t)b * a.N + nn] = s[r];
       if ((tid & 31) == 0) {
         const size_t idx = (size_t)b * C + nn / 32;
-        part[idx] = mx[r];
-        part[plane + idx] = l[r];
-        part[2 * plane + idx] = q2[r];
+        part_m[idx] = mx[r];
+        part_l[idx] = l[r];
+        part_q[idx] = q2[r];
       }
     }
   }
@@ -406,8 +432,8 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
   extern __shared__ __align__(16) float smem[];
   float* Vs = smem;
   float* Ws = smem + kStages * kStage2;     // [2][BM][kLd]
-  float* row_m = Ws + 2 * BM * kLd;
-  float* row_il = row_m + BM;
+  double* row_m = reinterpret_cast<double*>(Ws + 2 * BM * kLd);
+  float* row_il = reinterpret_cast<float*>(row_m + BM);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -438,52 +464,55 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
   // sum e^2 per 32 columns) that kernel 1 left behind S: warp w takes rows
   // w + 8j, all at once, lane j the j-th partial
   const int C = (N + 31) / 32;
-  const float* part = a.S + (size_t)B * N;
-  const size_t plane = (size_t)B * C;
+  const double* part_m = a.S + (size_t)B * N;
+  const float* part_l = reinterpret_cast<const float*>(part_m + (size_t)B * C);
+  const float* part_q = part_l + (size_t)B * C;
   {
-    float M[SR], l[SR], q[SR];
+    double M[SR];
+    float l[SR], q[SR];
 #pragma unroll
     for (int rr = 0; rr < SR; ++rr) {
-      M[rr] = -FLT_MAX;
+      M[rr] = -DBL_MAX;
       l[rr] = 0.f;
       q[rr] = 0.f;
     }
     for (int cb = 0; cb < C; cb += 32) {
       const bool have = cb + lane < C;
-      float pm[SR], pl[SR], pq[SR];
+      double pm[SR];
+      float pl[SR], pq[SR];
 #pragma unroll
       for (int rr = 0; rr < SR; ++rr) {
         const size_t idx = (size_t)min(m0 + warp + 8 * rr, B - 1) * C +
                            min(cb + lane, C - 1);
-        pm[rr] = part[idx];
-        pl[rr] = part[plane + idx];
-        pq[rr] = part[2 * plane + idx];
+        pm[rr] = part_m[idx];
+        pl[rr] = part_l[idx];
+        pq[rr] = part_q[idx];
       }
 #pragma unroll
       for (int rr = 0; rr < SR; ++rr) {
         if (!have) continue;
         if (pm[rr] > M[rr]) {
-          const float c = expf(M[rr] - pm[rr]);
+          const float c = expf(__double2float_rn(M[rr] - pm[rr]));
           l[rr] *= c;
           q[rr] *= c * c;
           M[rr] = pm[rr];
         }
-        const float c = expf(pm[rr] - M[rr]);
+        const float c = expf(__double2float_rn(pm[rr] - M[rr]));
         l[rr] = fmaf(pl[rr], c, l[rr]);
         q[rr] = fmaf(pq[rr], c * c, q[rr]);
       }
     }
-    float Mw[SR];
+    double Mw[SR];
 #pragma unroll
     for (int rr = 0; rr < SR; ++rr) Mw[rr] = M[rr];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
 #pragma unroll
       for (int rr = 0; rr < SR; ++rr)
-        Mw[rr] = fmaxf(Mw[rr], __shfl_xor_sync(kFull, Mw[rr], off));
+        Mw[rr] = fmax(Mw[rr], __shfl_xor_sync(kFull, Mw[rr], off));
 #pragma unroll
     for (int rr = 0; rr < SR; ++rr) {
-      const float c = expf(M[rr] - Mw[rr]);
+      const float c = expf(__double2float_rn(M[rr] - Mw[rr]));
       l[rr] *= c;
       q[rr] *= c * c;
     }
@@ -495,7 +524,8 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
         q[rr] += __shfl_xor_sync(kFull, q[rr], off);
       }
     // every lane holds every row's totals: lane rr finishes row warp + 8 rr
-    float Mv = Mw[0], lv = l[0], qv = q[0];
+    double Mv = Mw[0];
+    float lv = l[0], qv = q[0];
 #pragma unroll
     for (int rr = 1; rr < SR; ++rr)
       if (lane == rr) {
@@ -507,7 +537,7 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
       const int r = warp + 8 * lane;
       const int b = m0 + r;
       const bool in = b < B;
-      row_m[r] = in ? Mv : 0.f;
+      row_m[r] = in ? Mv : 0.0;
       row_il[r] = in ? __frcp_rn(lv + 1e-30f) : 0.f;
       if (in && d0 == 0) {
         a.ess[b] = (lv * lv) / (qv + 1e-30f);
@@ -517,7 +547,8 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
   }
   __syncthreads();
 
-  // W stage: thread fills chunk wc (4 consecutive n) of rows wr + 32i
+  // W stage: thread fills chunk wc (4 consecutive n) of rows wr + 32i;
+  // sv holds S - m in float32 (-FLT_MAX past N), taken in float64
   const int wc = (tid & 7) * 4;
   const int wr = tid >> 3;
   float4 sv[WR];
@@ -526,16 +557,24 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < WR; ++i) {
       const int b = m0 + wr + 32 * i;
+      const double m = row_m[wr + 32 * i];
       float4 v = make_float4(-FLT_MAX, -FLT_MAX, -FLT_MAX, -FLT_MAX);
       if (b < B) {
-        const float* p = a.S + (size_t)b * N + n;
+        const double* p = a.S + (size_t)b * N + n;
         if (s_vec) {
-          if (n < N) v = *reinterpret_cast<const float4*>(p);
+          if (n < N) {
+            const double2 lo = *reinterpret_cast<const double2*>(p);
+            const double2 hi = *reinterpret_cast<const double2*>(p + 2);
+            v = make_float4(__double2float_rn(lo.x - m),
+                            __double2float_rn(lo.y - m),
+                            __double2float_rn(hi.x - m),
+                            __double2float_rn(hi.y - m));
+          }
         } else {
-          if (n < N) v.x = p[0];
-          if (n + 1 < N) v.y = p[1];
-          if (n + 2 < N) v.z = p[2];
-          if (n + 3 < N) v.w = p[3];
+          if (n < N) v.x = __double2float_rn(p[0] - m);
+          if (n + 1 < N) v.y = __double2float_rn(p[1] - m);
+          if (n + 2 < N) v.z = __double2float_rn(p[2] - m);
+          if (n + 3 < N) v.w = __double2float_rn(p[3] - m);
         }
       }
       sv[i] = v;
@@ -545,14 +584,13 @@ __global__ void __launch_bounds__(kThreads, 2) weighted_sum_kernel(Args a) {
     float* dst = Ws + (st & 1) * BM * kLd + wc;
 #pragma unroll
     for (int i = 0; i < WR; ++i) {
-      const int r = wr + 32 * i;
-      const float m = row_m[r], il = row_il[r];
+      const float il = row_il[wr + 32 * i];
       float4 w;
-      w.x = sv[i].x > -FLT_MAX ? expf(sv[i].x - m) * il : 0.f;
-      w.y = sv[i].y > -FLT_MAX ? expf(sv[i].y - m) * il : 0.f;
-      w.z = sv[i].z > -FLT_MAX ? expf(sv[i].z - m) * il : 0.f;
-      w.w = sv[i].w > -FLT_MAX ? expf(sv[i].w - m) * il : 0.f;
-      *reinterpret_cast<float4*>(dst + r * kLd) = w;
+      w.x = sv[i].x > -FLT_MAX ? expf(sv[i].x) * il : 0.f;
+      w.y = sv[i].y > -FLT_MAX ? expf(sv[i].y) * il : 0.f;
+      w.z = sv[i].z > -FLT_MAX ? expf(sv[i].z) * il : 0.f;
+      w.w = sv[i].w > -FLT_MAX ? expf(sv[i].w) * il : 0.f;
+      *reinterpret_cast<float4*>(dst + wr * kLd + 32 * i * kLd) = w;
     }
   };
 
@@ -711,14 +749,15 @@ extern "C" {
 // Launch both kernels on `stream` with the plan of
 // ops/guidance.py:guidance_plan: `cluster` CTAs split the feature axis of each
 // score tile and `aligned` picks the 16-byte loader. S is the only workspace:
-// [B, N] scores followed by [3, B, ceil(N/32)] softmax partials. smem1 and
+// [B, N] float64 scores followed by the softmax partials, [B, ceil(N/32)]
+// float64 maxima and [2, B, ceil(N/32)] float32 sums. smem1 and
 // smem2 are the plan's dynamic shared-memory bytes and must equal this file's.
 // Returns a CUDA error code (0 = launched); cudaErrorInvalidValue for a plan
 // the kernels cannot run.
 int rgmf_flash_guidance(const float* xt, const float* yt, const float* X1,
                         const float* Y1, const float* log_r, int B, int N,
                         int Dx, int Dy, float t, int cluster, int aligned,
-                        int smem1, int smem2, float* S, float* gx, float* gy,
+                        int smem1, int smem2, double* S, float* gx, float* gy,
                         float* ess, float* l, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;

@@ -1,5 +1,6 @@
 """Procedural digit datasets (the port's copy of data/synthetic.py: the same
-digits for the same seed; offline substitute for MNIST/SVHN).
+digits for the same seed where the DejaVu fonts are installed; offline
+substitute for MNIST/SVHN).
 
 The reference downloads torchvision MNIST/SVHN at import time
 (mnist_svhn_dataset.py:41-53). This environment has zero egress, so the
@@ -28,24 +29,16 @@ _FONT_PATHS = [
 ]
 
 
-def _fonts(size: int):
-    from PIL import ImageFont
-
-    out = []
-    for p in _FONT_PATHS:
-        try:
-            out.append(ImageFont.truetype(p, size))
-        except Exception:
-            pass
-    if not out:
-        out = [ImageFont.load_default()]
-    return out
-
-
 _FONT_CACHE: dict = {}
 
 
 def _font(path_idx: int, size: int):
+    """DejaVu face `path_idx` at `size` px. Where the DejaVu files are
+    missing, Pillow's own scalable face at the same size (Pillow >= 10.1).
+    The JAX module falls back to Pillow's 10-px default there, whose digits
+    keep ~0.1 pixels above half intensity at 28 px (~58 with DejaVu): on
+    them the MNIST classifier reached 0.58 held-out accuracy in 3 epochs
+    (PERF.md)."""
     key = (path_idx, size)
     if key not in _FONT_CACHE:
         from PIL import ImageFont
@@ -53,8 +46,8 @@ def _font(path_idx: int, size: int):
         try:
             _FONT_CACHE[key] = ImageFont.truetype(
                 _FONT_PATHS[path_idx % len(_FONT_PATHS)], size)
-        except Exception:
-            _FONT_CACHE[key] = ImageFont.load_default()
+        except OSError:
+            _FONT_CACHE[key] = ImageFont.load_default(size)
     return _FONT_CACHE[key]
 
 

@@ -3,6 +3,8 @@ from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import (
     TIME_GRIDS,
     cfm_loss,
     euler_sample,
+    euler_scan,
+    euler_scan_pair,
     interpolate,
     make_time_grid,
     ode_scan,
@@ -14,8 +16,14 @@ from ratio_guided_multimodal_fm_tpu_torch.flow.losses import (
     masked_ratio_loss,
     rulsif_loss,
 )
+from ratio_guided_multimodal_fm_tpu_torch.flow.reflow import (
+    generate_couplings,
+    make_reflow_train_step,
+    reflow_loss,
+)
 
 __all__ = ["SOLVERS", "TIME_GRIDS", "cfm_loss", "disc_loss", "euler_sample",
-           "get_ratio_loss", "interpolate", "make_time_grid",
-           "masked_ratio_loss", "ode_scan", "ode_scan_pair",
-           "rulsif_loss"]
+           "euler_scan", "euler_scan_pair", "generate_couplings",
+           "get_ratio_loss", "interpolate", "make_reflow_train_step",
+           "make_time_grid", "masked_ratio_loss", "ode_scan",
+           "ode_scan_pair", "reflow_loss", "rulsif_loss"]

@@ -111,6 +111,13 @@ def ode_scan(velocity_fn: Callable, x0: torch.Tensor, num_steps: int = 100,
     return x
 
 
+def euler_scan(velocity_fn: Callable, x0: torch.Tensor,
+               num_steps: int = 100) -> torch.Tensor:
+    """The JAX package's alias: `ode_scan` with the reference's Euler
+    solver."""
+    return ode_scan(velocity_fn, x0, num_steps, solver="euler")
+
+
 def ode_scan_pair(pair_fn: Callable, x0: torch.Tensor, y0: torch.Tensor,
                   num_steps: int = 100, solver: str = "euler",
                   grid: str = "uniform", grid_power: float = 2.0):
@@ -142,6 +149,13 @@ def ode_scan_pair(pair_fn: Callable, x0: torch.Tensor, y0: torch.Tensor,
             v_x, v_y = 0.5 * (v_x + v_x2), 0.5 * (v_y + v_y2)
         x, y = x + v_x * float(dt), y + v_y * float(dt)
     return x, y
+
+
+def euler_scan_pair(pair_fn: Callable, x0: torch.Tensor, y0: torch.Tensor,
+                    num_steps: int = 100):
+    """The JAX package's alias: `ode_scan_pair` with the reference's Euler
+    solver."""
+    return ode_scan_pair(pair_fn, x0, y0, num_steps, solver="euler")
 
 
 def euler_sample(velocity_fn: Callable, generator: torch.Generator,

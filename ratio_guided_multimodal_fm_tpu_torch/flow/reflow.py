@@ -25,12 +25,6 @@ from ratio_guided_multimodal_fm_tpu_torch.core.device import resolve_device
 from ratio_guided_multimodal_fm_tpu_torch.core.guards import check_finite
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import derive_seed
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import cfm_loss, ode_scan
-from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
-    FMTrainState,
-    _apply_update,
-    _seed_dropout,
-    velocity_nhwc,
-)
 
 
 def reflow_loss(velocity_fn: Callable, x0: torch.Tensor, x1: torch.Tensor,
@@ -48,8 +42,15 @@ def make_reflow_train_step() -> Callable:
     draws t and seeds the dropout masks; or t [B] is injected (parity
     tests). Adam on `state` in place (no EMA); returns the detached float32
     loss (no host synchronisation)."""
+    # train/ imports the samplers' layers, which import flow/: imported
+    # here, so that flow/ (this module included) imports without train/
+    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+        _apply_update,
+        _seed_dropout,
+        velocity_nhwc,
+    )
 
-    def step(state: FMTrainState, x0: torch.Tensor, x1: torch.Tensor,
+    def step(state, x0: torch.Tensor, x1: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None) -> torch.Tensor:
         if generator is not None:

@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ratio_guided_multimodal_fm_tpu_torch.models.layers import flax_init_
 from ratio_guided_multimodal_fm_tpu_torch.models.ratio import BatchNorm2d
 
 
@@ -42,6 +43,7 @@ class _ConvClassifier(nn.Module):
         self.fc1 = nn.Linear(flat, hidden)
         self.dropout = nn.Dropout(dropout)
         self.fc2 = nn.Linear(hidden, 10)
+        flax_init_(self)
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         """fc1 activations (after ReLU) [B, hidden] of NHWC images."""

@@ -27,6 +27,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     Conv2d,
     GroupNormSiLU,
     Linear,
+    flax_init_,
     sinusoidal_embedding,
 )
 
@@ -107,6 +108,7 @@ class FlowMatchingModel(nn.Module):
         self.encoder = _Encoder(img_channels, feature_dim, dtype, norm_eps)
         self.decoder = _Decoder(feature_dim + time_emb_dim, img_channels,
                                 dtype, norm_eps)
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         # the embedding in float32, then cast (JAX flow_matching.py:75)

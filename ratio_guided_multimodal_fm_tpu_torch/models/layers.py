@@ -8,8 +8,11 @@ in `channels_last` memory on the card (cuDNN's native layout for bf16).
 * `timestep_embedding`   — cos-first, exp(-log(P)·i/half)   (JAX :48-62)
 * `sinusoidal_embedding` — sin-first, denominator (half-1)  (JAX :65-71)
 * `GroupNormSiLU`        — GroupNorm(min(8, C)) + SiLU through the
-  `ops.groupnorm.group_norm_silu` kernel on CUDA (JAX :85-142)
+  `ops.groupnorm.group_norm_silu` kernel on CUDA (JAX :85-142); the
+  factories `group_norm` and `gn_silu`                      (JAX :74, :135)
 * `ResBlock`, `Downsample`, `Upsample`                        (JAX :226-323)
+* `flax_init_`           — flax's default initialisers, with which every
+  JAX net starts
 
 The decoder's skip concat is materialised (`torch.cat([h, skip], 1)`, the
 JAX `split_skip=False` graph): same math and same params as the JAX
@@ -49,6 +52,34 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int) -> torch.Tensor:
                                             device=t.device))
     args = t.to(torch.float32)[:, None] * freqs[None, :]
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
+_TRUNC_STD = 0.87962566103423978   # std of a unit normal truncated at ±2
+
+
+@torch.no_grad()
+def flax_init_(module: nn.Module) -> nn.Module:
+    """Re-initialise every convolution, transposed convolution and Linear of
+    `module` in place as flax's defaults do, as the JAX package's nets
+    start: kernels from lecun_normal (a normal truncated at ±2 std,
+    variance 1 / fan_in, fan_in = input channels × kernel taps), biases
+    zero; normalisation layers already start as flax's (scale 1, bias 0).
+    torch's own defaults (kaiming-uniform kernels with a third of that
+    variance, uniform biases) left the experiment-1 ratio net on the 2 ln 2
+    plateau for 22 epochs of 20k synthetic digits; with these it left it in
+    the second epoch (PERF.md). Every port net calls it in its constructor,
+    before any init of its own (the U-Nets' zero out_conv). Returns
+    `module`."""
+    for m in module.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+            # weight [out, in, kh, kw] ([in, out, kh, kw] transposed)
+            fan_in = (m.weight[:, 0] if isinstance(m, nn.ConvTranspose2d)
+                      else m.weight[0]).numel()
+            std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
 
 
 class Conv2d(nn.Conv2d):
@@ -97,6 +128,18 @@ class GroupNormSiLU(nn.Module):
     def forward(self, x):
         return group_norm_silu(x.to(self.dtype), self.weight, self.bias,
                                self.num_groups, self.eps)
+
+
+def group_norm(ch: int, eps: float = 1e-6) -> nn.GroupNorm:
+    """GroupNorm(min(8, ch)) as the reference U-Nets use it (JAX :74),
+    eps 1e-6 by the JAX convention (1e-5 is torch's)."""
+    return nn.GroupNorm(min(8, ch), ch, eps=eps)
+
+
+def gn_silu(ch: int, eps: float = 1e-6,
+            dtype: torch.dtype = torch.float32) -> GroupNormSiLU:
+    """GroupNorm(min(8, ch)) followed by SiLU on kernel B (JAX :135)."""
+    return GroupNormSiLU(ch, eps, dtype)
 
 
 class ResBlock(nn.Module):

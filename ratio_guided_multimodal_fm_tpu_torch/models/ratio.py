@@ -26,6 +26,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     Conv2d,
     GroupNormSiLU,
     Linear,
+    flax_init_,
 )
 
 
@@ -148,6 +149,7 @@ class FlexibleRatioEstimator(nn.Module):
         self.encoder_x = _GNEncoder(x_channels, feature_dim, dtype, norm_eps)
         self.encoder_y = _GNEncoder(y_channels, feature_dim, dtype, norm_eps)
         self.score_net = _score_mlp(feature_dim, hidden_dim, dtype, norm_eps)
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         z = torch.cat([self.encoder_x(x.to(self.dtype)),
@@ -228,6 +230,7 @@ class RatioEstimatorMNISTSVHN(nn.Module):
             nn.SiLU(), nn.Dropout(0.1),
             Linear(h, h // 2, dtype), LayerNorm(h // 2, norm_eps, dtype),
             nn.SiLU(), Linear(h // 2, 1, dtype))
+        flax_init_(self)
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         z = torch.cat([self.encoder_mnist(x), self.encoder_svhn(y)], dim=-1)

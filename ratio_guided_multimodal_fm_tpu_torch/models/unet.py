@@ -25,6 +25,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     Linear,
     ResBlock,
     Upsample,
+    flax_init_,
     timestep_embedding,
 )
 
@@ -84,6 +85,7 @@ class FlexibleUNet(nn.Module):
 
         self.out_norm = GroupNormSiLU(ch, norm_eps, dtype)
         self.out_conv = Conv2d(ch, in_channels, 3, padding=1, **kw)
+        flax_init_(self)
         nn.init.zeros_(self.out_conv.weight)
         nn.init.zeros_(self.out_conv.bias)
 

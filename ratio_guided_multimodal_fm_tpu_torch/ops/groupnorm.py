@@ -51,6 +51,7 @@ MAX_CLUSTER = 8            # the portable thread-block cluster size
 SLICE_BYTES = 64 * 1024    # a CTA's slice: three fit an SM's shared memory
 SMALL_BYTES = 32 * 1024    # samples up to this size may share a CTA
 MAX_THREADS = 512
+EPS = 1e-6   # the JAX module's GroupNorm epsilon (groupnorm_pallas.py:35)
 # The kernel against the plain version on the same input: both take the same
 # statistics and round at the same points, so bfloat16 outputs agree to one
 # bfloat16 step (the float32 SiLU may differ by a few ulps).
@@ -58,7 +59,7 @@ TOL_BF16 = dict(rtol=2**-7, atol=1e-3)
 THREADS = 256              # a CTA's threads, where the shape allows
 
 
-def gn_stats_reference(x: torch.Tensor, num_groups: int, eps: float = 1e-6):
+def gn_stats_reference(x: torch.Tensor, num_groups: int, eps: float = EPS):
     """(mean, rstd) [B, G] of NCHW x: float64 sums, mean and E[x²] rounded to
     float32, the fast variance in float32 (see the top). float64 x keeps
     every step in float64."""
@@ -100,7 +101,7 @@ def _apply_reference(x, weight, bias, mean, rstd):
 
 def group_norm_silu_reference(x: torch.Tensor, weight: torch.Tensor,
                               bias: torch.Tensor, num_groups: int,
-                              eps: float = 1e-6) -> torch.Tensor:
+                              eps: float = EPS) -> torch.Tensor:
     """Plain PyTorch silu(GroupNorm(num_groups)(x)) for NCHW x."""
     mean, rstd = gn_stats_reference(x, num_groups, eps)
     return _apply_reference(x, weight, bias, mean, rstd)
@@ -462,7 +463,7 @@ class _GroupNormSiLU(torch.autograd.Function):
 
 def group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
                     bias: torch.Tensor, num_groups: int,
-                    eps: float = 1e-6) -> torch.Tensor:
+                    eps: float = EPS) -> torch.Tensor:
     """silu(GroupNorm(num_groups)(x)) for NCHW x (contiguous or
     channels_last), float32 or bfloat16; weight/bias [C] float32.
 

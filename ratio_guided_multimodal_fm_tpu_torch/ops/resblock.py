@@ -84,6 +84,10 @@ class ConvPlan:
     weight_elems: int      # the weights as stages (64 outputs x 64 inputs)
 
 
+# the JAX module's name for the plain version (resblock_pallas.py:141)
+reference_gn_silu_conv = fused_gn_silu_conv_reference
+
+
 def _conv_smem(itemsize: int, C: int, W: int, R: int, Wt: int) -> int:
     """csrc/fused_gn_silu_conv.cu:conv_smem(...).total."""
     def up(v, m):

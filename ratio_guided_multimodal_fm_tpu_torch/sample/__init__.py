@@ -1,6 +1,7 @@
 from ratio_guided_multimodal_fm_tpu_torch.sample.guided import (
     GuidedSamplerConfig,
     generate_mc_set,
+    make_guided_sampler,
     make_guided_sampler_p,
     mc_feng_guidance,
     safe_exp_log_r,
@@ -16,7 +17,8 @@ from ratio_guided_multimodal_fm_tpu_torch.sample.smc import (
 )
 
 __all__ = ["GuidedSamplerConfig", "SMCSamplerConfig", "flow_score",
-           "generate_mc_set", "make_guided_sampler_p", "make_smc_sampler",
-           "make_smc_sampler_p", "mc_feng_guidance", "safe_exp_log_r",
+           "generate_mc_set", "make_guided_sampler", "make_guided_sampler_p",
+           "make_smc_sampler", "make_smc_sampler_p", "mc_feng_guidance",
+           "safe_exp_log_r",
            "sample_bimodal_guided", "sample_bimodal_smc",
            "systematic_resample_idx"]

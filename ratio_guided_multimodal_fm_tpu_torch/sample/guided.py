@@ -462,6 +462,35 @@ def make_guided_sampler_p(fm_x_apply: Callable, fm_y_apply: Callable,
     return sampler
 
 
+def make_guided_sampler(fm_x_fn: Callable, fm_y_fn: Callable,
+                        cfg: GuidedSamplerConfig,
+                        log_ratio_fn: Optional[Callable] = None,
+                        fm_pair_fn: Optional[Callable] = None, **shard_kw):
+    """The closure form of `make_guided_sampler_p`, with the models baked
+    into fm_*_fn(x, t [B]) -> v, log_ratio_fn(x, y) -> [B] and
+    fm_pair_fn(x, y, t [B]) -> (v_x, v_y):
+
+        sampler(generator, num_samples, mc_set=None, init_noise=None)
+            -> (x1, y1, diags)
+
+    The same draws in the same order as `make_guided_sampler_p`, so the two
+    agree bit for bit. `shard_kw` (data_shard, mc_shard, mc_group) goes to
+    `make_guided_sampler_p`: the port's counterpart of JAX's `mc_axis`."""
+    inner = make_guided_sampler_p(
+        lambda _, x, t: fm_x_fn(x, t), lambda _, y, t: fm_y_fn(y, t), cfg,
+        None if log_ratio_fn is None else (lambda _, x, y: log_ratio_fn(x, y)),
+        fm_pair_apply=None if fm_pair_fn is None else (
+            lambda _mx, _my: fm_pair_fn),
+        **shard_kw)
+
+    def sampler(generator: torch.Generator, num_samples: int, mc_set=None,
+                init_noise=None):
+        return inner((None, None, None), generator, num_samples, mc_set,
+                     init_noise)
+
+    return sampler
+
+
 @torch.no_grad()
 def generate_mc_set(fm_x_fn: Callable, fm_y_fn: Callable,
                     log_ratio_fn: Callable, generator: torch.Generator,

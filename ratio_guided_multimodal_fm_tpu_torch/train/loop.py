@@ -41,6 +41,7 @@ from ratio_guided_multimodal_fm_tpu_torch.train.checkpoint import (
     ema_checkpoint_path,
     load_checkpoint,
     save_checkpoint,
+    wait_for_saves,
 )
 from ratio_guided_multimodal_fm_tpu_torch.train.preemption import (
     PreemptionGuard,
@@ -246,11 +247,13 @@ def train_epochs(
                 outs.append(train_step(state, batch,
                                        rng.generator(epoch, step_i)))
                 if agree(guard.preempted):
+                    wait_for_saves()
                     _save_preempt(epoch, step_i + 1, _add(_sums(
                         outs, loss_key), carry), len(outs) + carry_n)
                     history.append({"epoch": epoch + 1,
                                     "preempted_at_step": step_i + 1,
                                     "preempted": True})
+                    wait_for_saves()
                     return state, stopper.best, history
             n_steps = len(outs) + carry_n
             if not n_steps:
@@ -272,6 +275,9 @@ def train_epochs(
             if metrics_logger is not None:
                 metrics_logger.log(epoch + 1, {**avg,
                                                "steps_per_sec": steps_per_sec})
+            # the best and periodic saves write on a background thread
+            # while the next epoch runs; the loop waits for them before
+            # it returns (and load_checkpoint waits too)
             if stopper.update(avg_loss) and save_best_fn:
                 save_best_fn(state, epoch + 1, stopper.best)
             if save_periodic_fn and (epoch + 1) % save_every == 0:
@@ -280,6 +286,7 @@ def train_epochs(
                 log_fn(f"\nEarly stopping after {epoch+1} epochs "
                        f"(patience={patience})")
                 break
+    wait_for_saves()
     return state, stopper.best, history
 
 
@@ -306,16 +313,18 @@ def train_flow_matching_epochs(
 
     def save_best(s, epoch, best):
         if best_path:
-            save_checkpoint(best_path, s.model.state_dict())
+            save_checkpoint(best_path, s.model.state_dict(), async_save=True)
             log_fn(f"  -> Saved best model: {best_path}")
             if s.ema is not None:
-                save_checkpoint(ema_checkpoint_path(best_path), s.ema)
+                save_checkpoint(ema_checkpoint_path(best_path), s.ema,
+                                async_save=True)
                 log_fn(f"  -> Saved EMA model: "
                        f"{ema_checkpoint_path(best_path)}")
 
     def save_periodic(s, epoch, best):
         if periodic_path_fn:
-            save_checkpoint(periodic_path_fn(epoch), s.model.state_dict())
+            save_checkpoint(periodic_path_fn(epoch), s.model.state_dict(),
+                            async_save=True)
 
     return train_epochs(
         state, train_step, data_iter_fn, epochs, rng,

@@ -2,8 +2,8 @@
 
 `session_time` counts only the device events after a session's marker
 kernel and holds them to n calls × the launches per call; `timed_sessions`
-repeats a session that kept fewer and raises ProfilerSilent when none kept
-all. No card is needed: the events are (name, start µs, end µs) tuples, as
+repeats a session that kept fewer, takes the median of three that kept
+all, and raises ProfilerSilent when none kept all. No card is needed: the events are (name, start µs, end µs) tuples, as
 `device_events` returns them.
 """
 import pytest
@@ -84,6 +84,23 @@ def test_timed_sessions_repeats_a_short_session():
 
     ms, _ = timed_sessions(sessions(), (K, R), 3, 2)
     assert ms == pytest.approx(0.035) and len(walked) == 3
+
+
+def test_timed_sessions_take_the_median_of_three_full_sessions():
+    walked = []
+
+    def sessions():
+        for ev in (session(3), session(3)[:-2],
+                   session(3, launches=((K, 15.0), (R, 2.5))),
+                   session(3), session(3, launches=((K, 40.0), (R, 5.0)))):
+            walked.append(ev)
+            yield ev
+
+    # a session that reads the kernels at half their time is outvoted, and
+    # the walk stops at the third full session
+    ms, by = timed_sessions(sessions(), (K, R), 3, 2)
+    assert ms == pytest.approx(0.035) and by[K] == pytest.approx(0.030)
+    assert len(walked) == 4
 
 
 def test_timed_sessions_raise_naming_what_was_kept():

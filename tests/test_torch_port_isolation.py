@@ -9,9 +9,10 @@
 * The sampler, evaluation, bench, train, reflow, serve and 64-px demo
   CLIs refuse to run without one unless asked for the CPU.
 * Each module of slice 9 (the encoder-decoder, merged-pair evaluation,
-  FLOP counts, observability, natural-image data, the 64-px demo) and of
-  slice 10 (parallel/, the training CUDA graph, the stretch demo) imports
-  without JAX on its own.
+  FLOP counts, observability, natural-image data, the 64-px demo), of
+  slice 10 (parallel/, the training CUDA graph, the stretch demo) and of
+  slice 12 (the packages that re-export the JAX package's names)
+  imports without JAX on its own.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
 """
@@ -105,6 +106,30 @@ def test_slice10_module_imports_no_jax(module):
     assert r.returncode == 0, r.stdout + r.stderr
     path = PORT / module.replace(".", "/")
     assert path.with_suffix(".py").exists() or (path / "__init__.py").exists()
+
+
+# slice 12: the packages whose __init__ gained re-exports, each first in a
+# fresh interpreter (importing one of their modules runs the __init__ first)
+SLICE12_PACKAGES = ("", "core", "train", "flow", "data", "eval", "sample")
+
+
+@pytest.mark.parametrize("module", SLICE12_PACKAGES)
+def test_slice12_exports_import_no_jax(module):
+    """Each package that re-exports the JAX package's names imports first
+    in a fresh interpreter without jax, the JAX package or triton, and
+    without an import cycle."""
+    name = "ratio_guided_multimodal_fm_tpu_torch" + (f".{module}" if module
+                                                     else "")
+    code = (
+        "import importlib, sys\n"
+        f"importlib.import_module('{name}')\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'triton', "
+        "'ratio_guided_multimodal_fm_tpu') or m.startswith(('jax.', "
+        "'ratio_guided_multimodal_fm_tpu.'))]\n"
+        "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_no_source_imports_jax():

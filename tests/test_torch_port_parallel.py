@@ -71,10 +71,21 @@ def no_dropout(m):
     return m
 
 
+def generic(m):
+    # every parameter moved off its initial value (the nets start as flax's
+    # do: zero biases, a zero out_conv): each leaf is then held at its own
+    # scale, and the first step already reaches every layer
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(0.1 * torch.randn_like(p))
+    return m
+
+
 def fm_case(adapt):
     torch.manual_seed(0)
-    net = FlexibleUNet(in_channels=1, img_size=8, model_channels=8,
-                       channel_mult=(1, 2), num_res_blocks=1, dropout=0.0)
+    net = generic(FlexibleUNet(in_channels=1, img_size=8, model_channels=8,
+                               channel_mult=(1, 2), num_res_blocks=1,
+                               dropout=0.0))
     state = S.create_fm_state(net, "cpu", ema_decay=0.9)
     state.optimizer = torch.optim.SGD(state.model.parameters(), lr=0.05)
     state, step, extract = adapt(state, S.make_fm_train_step(0.9),
@@ -95,7 +106,8 @@ def ratio_case(adapt, kind):
     else:
         net, xs, ys = RatioEstimatorMNISTSVHN(), 32, (32, 3)
         kw = {}
-    state = S.create_ratio_state(no_dropout(net), "cpu", ema_decay=0.9)
+    state = S.create_ratio_state(generic(no_dropout(net)), "cpu",
+                                 ema_decay=0.9)
     state.optimizer = torch.optim.SGD(state.model.parameters(), lr=0.05)
     step = S.make_ratio_train_step(kind, ema_decay=0.9, **kw)
     state, step_fn, extract = adapt(

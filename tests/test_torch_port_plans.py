@@ -153,14 +153,14 @@ def test_guidance_plan_main_shapes_cover_the_card():
     assert guidance_plan(5, 300, 25, 75).grid2 == 1
     assert [hi - lo for lo, hi in score_slices(exp1, 1568)] == [
         256, 256, 256, 256, 256, 288]
-    assert guidance.workspace_floats(512, 256) == 512 * 256 + 3 * 512 * 8
+    assert guidance.workspace_floats(512, 256) == 2 * 512 * 256 + 4 * 512 * 8
     # a short MC axis (8 tiles) fits clusters of 8; a long one fills the
     # card without a split of the feature axis
     assert guidance_plan(512, 64, 1024, 3072).cluster == 8
     assert guidance_plan(512, 4096, 1024, 3072).cluster == 1
     # the shared-memory formulas of csrc/flash_guidance.cu
     assert main.smem1 == 4 * (4 * (64 + 128) * 36 + 3 * 128)
-    assert main.smem2 == 4 * (4 * 32 * 128 + 2 * 64 * 36 + 2 * 64)
+    assert main.smem2 == 4 * (4 * 32 * 128 + 2 * 64 * 36 + 3 * 64)
     with pytest.raises(ValueError, match="empty"):
         guidance_plan(0, 4, 4, 4)
 
