@@ -1,0 +1,9 @@
+"""idle_share.train: share of the profiled training steps' wall time in
+which no device operation ran (the union of their intervals), in %."""
+from portbench.harness import trace as tr
+
+
+def read(ctx):
+    if ctx.trace is None or ctx.work.get("kind") != "train":
+        return None
+    return tr.idle_share(ctx.trace)
