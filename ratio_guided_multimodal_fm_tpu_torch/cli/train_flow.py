@@ -9,7 +9,9 @@ files the experiment-1 sample and evaluate CLIs read. float32, on the card
 unless --device cpu. --model original trains the encoder-decoder
 FlowMatchingModel; --metrics_dir appends each epoch's metrics to
 <dir>/flow_{modality}.jsonl and --profile_dir writes a torch.profiler
-Chrome trace of the run there (core/observability.py). --fused_steps K
+Chrome trace of the run there, with the run's program spans (each
+train.fm.call and its graph's spans) in a Chrome trace beside it on the
+profiler's clock (core/observability.py). --fused_steps K
 takes K optimizer steps a dispatch (one CUDA graph replay on the card);
 with --coordinator_address/--num_processes/--process_id each rank trains
 on its rows of the global batch (data-parallel).
@@ -87,7 +89,8 @@ def main(argv=None):
                         help="Write JSONL epoch metrics here (observability)")
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="Write a torch.profiler Chrome trace of the "
-                             "training run here")
+                             "training run here, and its program spans "
+                             "beside it (spans_*.json)")
     parser.add_argument("--preempt_path", type=str, default=None,
                         help="Preemption-safe training: on SIGTERM, save a "
                              "step-granular resumable checkpoint here and "

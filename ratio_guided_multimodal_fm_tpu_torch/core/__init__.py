@@ -1,5 +1,5 @@
 """Device selection, precision policy, NaN guards, FLOP counts and
-observability (profiler traces, step timers, JSONL metrics)."""
+observability (program spans, profiler traces, JSONL metrics)."""
 from ratio_guided_multimodal_fm_tpu_torch.core.dtypes import (
     BF16_POLICY,
     DEFAULT_POLICY,

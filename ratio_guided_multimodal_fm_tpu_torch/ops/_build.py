@@ -5,7 +5,9 @@ one `nvcc` run takes seconds. Sources are compiled on first use into
 `build/kernels/` at the repository root (listed in .gitignore), one shared
 library per source, named by a hash of the source, of every header
 `csrc/*.cuh` and of the flags, so an edit of any of them rebuilds.
-`build_all()` starts one nvcc process per source, all at once.
+`build_all()` starts one nvcc process per source, all at once. The
+compiles are the span `ops.build`, each library's first load (and any
+build it triggers) the span `ops.load` (core/observability.py).
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, List
+
+from ratio_guided_multimodal_fm_tpu_torch.core.observability import span
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -74,17 +78,22 @@ def build_all() -> Dict[str, dict]:
     """Compile every csrc/*.cu that is not built yet (all nvcc runs in
     parallel). Returns {name: {"seconds", "log"}} for what was built."""
     with _lock:
-        return _build([s for s in sorted(CSRC.glob("*.cu"))
-                       if not _lib_path(s).exists()])
+        srcs = [s for s in sorted(CSRC.glob("*.cu"))
+                if not _lib_path(s).exists()]
+        if not srcs:
+            return {}
+        with span("ops.build"):
+            return _build(srcs)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The shared library of csrc/<name>.cu, built on first use."""
     with _lock:
         if name not in _libs:
-            src = CSRC / f"{name}.cu"
-            out = _lib_path(src)
-            if not out.exists():
-                _build([src])
-            _libs[name] = ctypes.CDLL(str(out))
+            with span("ops.load"):
+                src = CSRC / f"{name}.cu"
+                out = _lib_path(src)
+                if not out.exists():
+                    _build([src])
+                _libs[name] = ctypes.CDLL(str(out))
         return _libs[name]

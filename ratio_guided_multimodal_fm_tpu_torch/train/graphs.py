@@ -20,6 +20,11 @@ the caller's (into `static`, before the run) or the device's default
 generator (dropout), which a graph advances on each replay from the seed
 the caller sets before it.
 
+Spans (core/observability.py): `train.graph.warmup` (the eager macro step,
+until its device work has drained), `train.graph.capture` (the
+`torch.cuda.graph` block) and `train.graph.replay` (a replay and the
+outputs' copies).
+
 Launch counts: the ops wrappers count the kernels that run when they are
 called, so the eager warm-up counts and neither the capture (which only
 records) nor a replay (which does not pass through them) does; the
@@ -31,6 +36,8 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+
+from ratio_guided_multimodal_fm_tpu_torch.core.observability import span
 
 
 class TrainGraph:
@@ -48,20 +55,26 @@ class TrainGraph:
         the graph's static outputs)."""
         if self.graph is None:
             return self._warm_up_and_capture()
-        self.graph.replay()
-        self.replays += 1
-        return _clone(self.out)
+        with span("train.graph.replay"):
+            self.graph.replay()
+            self.replays += 1
+            return _clone(self.out)
 
     def _warm_up_and_capture(self):
         device = next(iter(self.static.values())).device
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            out = self.fn(self.static, True)      # a real macro step
-        torch.cuda.current_stream(device).wait_stream(side)
+        with span("train.graph.warmup"):
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                out = self.fn(self.static, True)      # a real macro step
+            torch.cuda.current_stream(device).wait_stream(side)
+            # torch.cuda.graph synchronises on entry anyway: done here, the
+            # warm-up's device work falls inside its own span
+            torch.cuda.synchronize(device)
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            self.out = self.fn(self.static, False)
+        with span("train.graph.capture"):
+            with torch.cuda.graph(graph):
+                self.out = self.fn(self.static, False)
         self.graph = graph
         return out
 

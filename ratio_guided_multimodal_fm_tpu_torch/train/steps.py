@@ -44,6 +44,11 @@ the step reseeds it from its own generator's seed, so a step's dropout
 masks are position-addressed like its t and x_0 (core/prng.py). The
 batches are NHWC, as the JAX package's; the NCHW model sees them through a
 permuted view, which on the card is channels_last memory.
+
+Each call of a train step returned by `make_fm_train_step`,
+`make_ratio_train_step` and the fused trainers is one span,
+`train.fm.call` or `train.ratio.call` (core/observability.py): draws,
+input copies, dropout seeding and the steps or the graph's replay.
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from ratio_guided_multimodal_fm_tpu_torch.core.guards import (
     check_finite,
     nan_checks_enabled,
 )
+from ratio_guided_multimodal_fm_tpu_torch.core.observability import span
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import derive_seed
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import cfm_loss
 from ratio_guided_multimodal_fm_tpu_torch.flow.losses import get_ratio_loss
@@ -195,12 +201,13 @@ def make_fm_train_step(ema_decay: Optional[float] = None) -> Callable:
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None,
              x0: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if generator is not None:
-            _seed_dropout(x1.device, _dropout_seed(generator, state.dp))
-        elif t is None or x0 is None:
-            raise ValueError("make_fm_train_step: pass a generator, or "
-                             "inject both t and x0")
-        return _fm_substep(state, x1, generator, t, x0, ema_decay)
+        with span("train.fm.call"):
+            if generator is not None:
+                _seed_dropout(x1.device, _dropout_seed(generator, state.dp))
+            elif t is None or x0 is None:
+                raise ValueError("make_fm_train_step: pass a generator, or "
+                                 "inject both t and x0")
+            return _fm_substep(state, x1, generator, t, x0, ema_decay)
 
     return step
 
@@ -293,11 +300,12 @@ def make_ratio_train_step(loss_type: str = "disc",
     def step(state: RatioTrainState, x: torch.Tensor, y: torch.Tensor,
              is_real, generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        if generator is not None:
-            _seed_dropout(x.device, _dropout_seed(generator, state.dp))
-        fn = loss_fn if state.dp is None else get_ratio_loss(
-            loss_type, dp=state.dp, **loss_kwargs)
-        return _ratio_substep(state, x, y, is_real, fn, ema_decay)
+        with span("train.ratio.call"):
+            if generator is not None:
+                _seed_dropout(x.device, _dropout_seed(generator, state.dp))
+            fn = loss_fn if state.dp is None else get_ratio_loss(
+                loss_type, dp=state.dp, **loss_kwargs)
+            return _ratio_substep(state, x, y, is_real, fn, ema_decay)
 
     return step
 
@@ -412,40 +420,41 @@ def make_fm_train_multistep(ema_decay: Optional[float] = None,
         if state.dp is not None:
             raise ValueError("the fused K-step trainer is single-process "
                              "only")
-        device = dataset.device
-        idx = _index_tensor(idx, device)
-        K, B = idx.shape
-        seed = generator.initial_seed()
-        if device.type == "cuda":
-            make_capturable(state.optimizer)
-        if not _graphed(graph, device):
-            t = torch.empty((K, B), dtype=dataset.dtype, device=device)
-            x0 = torch.empty((K, B) + tuple(dataset.shape[1:]),
-                             dtype=dataset.dtype, device=device)
-            _draw_fm(seed, t, x0)
-            _seed_dropout(device, derive_seed(seed, 1))
-            return body(state, dataset, idx, t, x0)
-        from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
-            TrainGraph,
-        )
+        with span("train.fm.call"):
+            device = dataset.device
+            idx = _index_tensor(idx, device)
+            K, B = idx.shape
+            seed = generator.initial_seed()
+            if device.type == "cuda":
+                make_capturable(state.optimizer)
+            if not _graphed(graph, device):
+                t = torch.empty((K, B), dtype=dataset.dtype, device=device)
+                x0 = torch.empty((K, B) + tuple(dataset.shape[1:]),
+                                 dtype=dataset.dtype, device=device)
+                _draw_fm(seed, t, x0)
+                _seed_dropout(device, derive_seed(seed, 1))
+                return body(state, dataset, idx, t, x0)
+            from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
+                TrainGraph,
+            )
 
-        key = (id(state.model), K, B, dataset.data_ptr())
-        g = graphs.get(key)
-        if g is None:
-            g = graphs[key] = TrainGraph(
-                lambda st, check: body(state, dataset, st["idx"], st["t"],
-                                       st["x0"], check),
-                {"idx": idx, "t": torch.empty((K, B), dtype=dataset.dtype,
-                                              device=device),
-                 "x0": torch.empty((K, B) + tuple(dataset.shape[1:]),
-                                   dtype=dataset.dtype, device=device)})
-        _draw_fm(seed, g.static["t"], g.static["x0"])
-        g.static["idx"].copy_(idx, non_blocking=True)
-        _seed_dropout(device, derive_seed(seed, 1))
-        out = g.run()
-        if nan_checks_enabled():
-            check_finite(out, "fm train loss (fused)")
-        return out
+            key = (id(state.model), K, B, dataset.data_ptr())
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = TrainGraph(
+                    lambda st, check: body(state, dataset, st["idx"], st["t"],
+                                           st["x0"], check),
+                    {"idx": idx, "t": torch.empty((K, B), dtype=dataset.dtype,
+                                                  device=device),
+                     "x0": torch.empty((K, B) + tuple(dataset.shape[1:]),
+                                       dtype=dataset.dtype, device=device)})
+            _draw_fm(seed, g.static["t"], g.static["x0"])
+            g.static["idx"].copy_(idx, non_blocking=True)
+            _seed_dropout(device, derive_seed(seed, 1))
+            out = g.run()
+            if nan_checks_enabled():
+                check_finite(out, "fm train loss (fused)")
+            return out
 
     step.graphs = graphs
     return step
@@ -483,37 +492,38 @@ def make_ratio_train_multistep(loss_type: str = "disc",
         if state.dp is not None:
             raise ValueError("the fused K-step trainer is single-process "
                              "only")
-        device = x_all.device
-        xi, yi = _index_tensor(xidx, device), _index_tensor(yidx, device)
-        real = torch.as_tensor(is_real, dtype=torch.float32)
-        if real.device.type == "cpu" and device.type == "cuda":
-            real = real.pin_memory()
-        real = real.to(device, non_blocking=True)
-        K, B = xi.shape
-        seed = generator.initial_seed()
-        if device.type == "cuda":
-            make_capturable(state.optimizer)
-        if not _graphed(graph, device):
-            _seed_dropout(device, derive_seed(seed, 1))
-            return body(state, x_all, y_all, xi, yi, real)
-        from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
-            TrainGraph,
-        )
+        with span("train.ratio.call"):
+            device = x_all.device
+            xi, yi = _index_tensor(xidx, device), _index_tensor(yidx, device)
+            real = torch.as_tensor(is_real, dtype=torch.float32)
+            if real.device.type == "cpu" and device.type == "cuda":
+                real = real.pin_memory()
+            real = real.to(device, non_blocking=True)
+            K, B = xi.shape
+            seed = generator.initial_seed()
+            if device.type == "cuda":
+                make_capturable(state.optimizer)
+            if not _graphed(graph, device):
+                _seed_dropout(device, derive_seed(seed, 1))
+                return body(state, x_all, y_all, xi, yi, real)
+            from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
+                TrainGraph,
+            )
 
-        key = (id(state.model), K, B, x_all.data_ptr(), y_all.data_ptr())
-        g = graphs.get(key)
-        if g is None:
-            g = graphs[key] = TrainGraph(
-                lambda st, check: body(state, x_all, y_all, st["xi"],
-                                       st["yi"], st["real"], check),
-                {"xi": xi, "yi": yi, "real": real})
-        for k, v in (("xi", xi), ("yi", yi), ("real", real)):
-            g.static[k].copy_(v, non_blocking=True)
-        _seed_dropout(device, derive_seed(seed, 1))
-        out = g.run()
-        if nan_checks_enabled():
-            check_finite(out["loss"], "ratio train loss (fused)")
-        return out
+            key = (id(state.model), K, B, x_all.data_ptr(), y_all.data_ptr())
+            g = graphs.get(key)
+            if g is None:
+                g = graphs[key] = TrainGraph(
+                    lambda st, check: body(state, x_all, y_all, st["xi"],
+                                           st["yi"], st["real"], check),
+                    {"xi": xi, "yi": yi, "real": real})
+            for k, v in (("xi", xi), ("yi", yi), ("real", real)):
+                g.static[k].copy_(v, non_blocking=True)
+            _seed_dropout(device, derive_seed(seed, 1))
+            out = g.run()
+            if nan_checks_enabled():
+                check_finite(out["loss"], "ratio train loss (fused)")
+            return out
 
     step.graphs = graphs
     return step

@@ -763,3 +763,74 @@ def test_capturable_adam_matches_the_current_update(card):
     for a, b, c in zip(pa, pb, pc):
         torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
         torch.testing.assert_close(c, a, rtol=1e-6, atol=1e-7)
+
+
+# ---- the program's spans on the card --------------------------------------
+
+def test_span_holds_its_kernels_device_interval(card):
+    """A span around one kernel and a synchronize holds that kernel's
+    device interval from a profiler session: the spans (time.time_ns) and
+    the profiler's device events are on one clock. The host waits 50 ms
+    in the span before the launch and after the synchronize: the device
+    timeline lands up to ~4 ms early against time_ns in some sessions
+    (PERF.md), and another clock (perf_counter, monotonic) would lie ~1e18
+    ns away. The session opens with tiny
+    kernels (the profiler can lose a session's first device events); the
+    span's kernel is the session's only spin kernel."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratio_guided_multimodal_fm_tpu_torch.core import observability as obs
+
+    z = torch.zeros(1, device=card)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(1000):
+            z.add_(1)
+        torch.cuda.synchronize()
+        with obs.span("test.kernel"):
+            time.sleep(0.05)
+            torch.cuda._sleep(2_000_000)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+    s = [r for r in obs.spans() if r.name == "test.kernel"][-1]
+    events = list(prof.profiler.kineto_results.events())
+    kernels = [(e.start_ns(), e.end_ns()) for e in events
+               if str(e.device_type()).endswith("CUDA")
+               and "spin_kernel" in e.name()]
+    assert len(kernels) == 1
+    k0, k1 = kernels[0]
+    print(f"kernel starts {(k0 - s.start_ns) / 1e6:.3f} ms after the span "
+          f"opens, ends {(s.end_ns - k1) / 1e6:.3f} ms before it closes")
+    assert s.start_ns <= k0 < k1 <= s.end_ns
+    assert s.end_ns - s.start_ns < 10**9
+    assert "test.kernel" not in {e.name() for e in events}
+
+
+def test_train_graph_records_one_warmup_and_one_capture(card):
+    """Three calls of the fused FM trainer: one warm-up and one capture
+    (inside the first call's span), then a replay in each later call."""
+    from ratio_guided_multimodal_fm_tpu_torch.core import observability as obs
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    (state,) = _fm_states(card, 1)
+    data = torch.randn(64, 32, 32, 1, device=card)
+    step = S.make_fm_train_multistep(0.999)
+    obs.reset()
+    for m in range(3):
+        idx = torch.randint(0, 64, (2, 8), dtype=torch.int32).numpy()
+        step(state, data, idx, torch.Generator(card).manual_seed(m))
+    torch.cuda.synchronize()
+    counts = {n: t["count"] for n, t in obs.span_totals().items()
+              if n.startswith("train.")}
+    assert counts == {"train.fm.call": 3, "train.graph.warmup": 1,
+                      "train.graph.capture": 1, "train.graph.replay": 2}
+    recs = obs.spans()
+    calls = [r.call_id for r in recs if r.name == "train.fm.call"]
+    assert len(set(calls)) == 3
+    for r in recs:
+        if r.name.startswith("train.graph."):
+            assert r.parent == "train.fm.call" and r.call_id in calls
+    first = [r.name for r in recs if r.call_id == calls[0]
+             and r.name.startswith("train.graph.")]
+    assert first == ["train.graph.warmup", "train.graph.capture"]

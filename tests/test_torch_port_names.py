@@ -71,6 +71,9 @@ NOT_PORTED = {
     ("ops/guidance_pallas.py", "flash_guidance_fits"): (
         "the Pallas kernel's VMEM-fit gate: the CUDA kernels stream the MC "
         "set through shared memory at any N"),
+    ("core/observability.py", "StepTimer"): (
+        "an unsynchronised host rate: the port's timings come from its "
+        "spans (core/observability.py:span) and the benchmark"),
     ("ops/guidance_pallas.py", "NEG_INF"): (
         "the Pallas kernel's -1e30 padding of log r: the CUDA kernels mask "
         "the ragged edges"),

@@ -4,14 +4,15 @@
   it (the cases of tests/test_flops.py and a grid around them); the
   encoder-decoder's and the 64-px U-Net's counts equal to 2 × the MACs
   that forward hooks count on the port's own modules;
-* core/observability.py: StepTimer's rates, MetricsLogger's JSONL records
-  with the JAX logger's keys, profile_trace's Chrome trace;
+* core/observability.py: MetricsLogger's JSONL records with the JAX
+  logger's keys, profile_trace's Chrome trace and its spans' trace (the
+  recorder itself: tests/test_torch_port_spans.py);
 * train_flow --metrics_dir and --profile_dir: one JSONL line per epoch
-  with the keys the JAX CLI writes, and a trace file.
+  with the keys the JAX CLI writes, a trace file and a spans file holding
+  each epoch step's train.fm.call.
 """
 import json
 import os
-import time
 
 import numpy as np
 import pytest
@@ -98,22 +99,6 @@ def test_model_counts_equal_hooked_macs(batch):
         batch, 2, 5, 784 * 2, False) == 5 * (2 * fm + 4.0 * batch * 2 * 1568)
 
 
-def test_step_timer_rates(monkeypatch):
-    clock = iter([10.0, 12.0, 12.0, 12.0])
-    monkeypatch.setattr(time, "perf_counter", lambda: next(clock))
-    timer = pobs.StepTimer(batch_size=8)
-    timer.start()
-    for _ in range(4):
-        timer.tick()
-    s = timer.summary()
-    assert set(s) == {"steps_per_sec", "samples_per_sec",
-                      "samples_per_sec_per_chip"}
-    assert s["steps_per_sec"] == 2.0 and s["samples_per_sec"] == 16.0
-    n_dev = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    assert s["samples_per_sec_per_chip"] == 16.0 / n_dev
-    assert pobs.StepTimer().elapsed == 0.0
-
-
 def test_metrics_logger_records_match_jax(tmp_path):
     for mod, d in ((jobs, tmp_path / "j"), (pobs, tmp_path / "p")):
         log = mod.MetricsLogger(str(d), "flow_x")
@@ -141,11 +126,19 @@ def test_profile_trace_writes_a_chrome_trace(tmp_path):
         pass
     for _ in range(2):              # a second trace does not overwrite
         with pobs.profile_trace(str(tmp_path / "prof")):
-            torch.ones(4, 4) @ torch.ones(4, 4)
-    traces = os.listdir(tmp_path / "prof")
-    assert len(traces) == 2
+            with pobs.span("test.matmul"):
+                torch.ones(4, 4) @ torch.ones(4, 4)
+    files = sorted(os.listdir(tmp_path / "prof"))
+    traces = [f for f in files if f.startswith("trace_")]
+    assert len(traces) == 2 and len(files) == 4
     with open(tmp_path / "prof" / traces[0]) as f:
         assert "traceEvents" in json.load(f)
+    for f in files:
+        if f.startswith("spans_"):
+            with open(tmp_path / "prof" / f) as fh:
+                events = json.load(fh)["traceEvents"]
+            assert [e["name"] for e in events if e["ph"] == "X"] == [
+                "test.matmul"]
 
 
 def test_train_flow_metrics_and_profile_dirs(tmp_path, monkeypatch):
@@ -162,4 +155,10 @@ def test_train_flow_metrics_and_profile_dirs(tmp_path, monkeypatch):
                for r in rows)
     assert [r["loss"] for r in rows] == pytest.approx(
         [h["loss"] for h in hist])
-    assert len(os.listdir("p")) == 1
+    spans, trace = sorted(os.listdir("p"))
+    assert trace.startswith("trace_") and spans.startswith("spans_")
+    with open(os.path.join("p", spans)) as f:
+        calls = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    # one train.fm.call a step: 8 digits in batches of 4, two epochs
+    assert [e["name"] for e in calls] == ["train.fm.call"] * 4
+    assert len({e["args"]["call_id"] for e in calls}) == 4
