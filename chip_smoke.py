@@ -107,7 +107,8 @@ which fails the script (non-zero exit) on error:
    the card's own gradients), then --train_steps
    steps through the epoch driver with metrics-dict steps, the launch
    counters set to 0 and held to 8 GN forward, 8 backward and 8 dγ/dβ
-   launches per experiment-1 step and 0 per experiment-2 step; finite
+   launches per experiment-1 step and 0 per experiment-2 step (which
+   launches the BatchNorm+SiLU forward and backward 12 times each); finite
    metrics, steps/s, pairs/s, peak memory and a 5-step profile;
 5f. reflow at full width: flow/reflow.py:generate_couplings with the SVHN
    and MNIST-32 teachers (float32, batches of 512, 100 steps, 2 batches),
@@ -496,6 +497,15 @@ def gn_sites(net) -> int:
     return sum(isinstance(m, GroupNormSiLU) for m in net.modules())
 
 
+def bn_sites(net) -> int:
+    """The fused BatchNorm+SiLU sites of a net (its _BNEncoder blocks):
+    12 in the experiment-2 ratio net, 0 elsewhere."""
+    from ratio_guided_multimodal_fm_tpu_torch.models.ratio import _BNEncoder
+
+    return sum(len(m.spec) for m in net.modules()
+               if isinstance(m, _BNEncoder))
+
+
 def model_gn_sites(net, *inputs):
     """{(C, H): sites} of a net's GroupNormSiLU inputs, by forward hooks
     on one CPU forward of `inputs` (B=1)."""
@@ -538,6 +548,255 @@ def ratio_train_sites():
 
     z = torch.zeros(1, 1, 28, 28)
     return model_gn_sites(RatioEstimatorMNIST(), z, z)
+
+
+def ratio_bn_sites():
+    """{(C, H): sites} of the experiment-2 ratio net's BatchNorm+SiLU
+    inputs (its 12 sites: 4 in the MNIST encoder, 8 in the SVHN one)."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNISTSVHN,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.models.ratio import BatchNorm2d
+
+    net = RatioEstimatorMNISTSVHN().eval()
+    sites = {}
+
+    def hook(mod, inp, out):
+        key = (inp[0].shape[1], inp[0].shape[2])
+        sites[key] = sites.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, BatchNorm2d)]
+    with torch.no_grad():
+        net(torch.zeros(1, 1, 32, 32), torch.zeros(1, 3, 32, 32))
+    for h in hooks:
+        h.remove()
+    return sites
+
+
+def bn_sites_layout(dev) -> int:
+    """The experiment-2 ratio net's 12 conv outputs in a train-mode forward
+    on the card, each the input of a fused BatchNorm+SiLU: fails unless
+    every one is channels_last (else the wrapper would copy it); returns
+    the fused calls counted."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.device import (
+        place_for_training,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNISTSVHN,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.models.ratio import _BNEncoder
+    from ratio_guided_multimodal_fm_tpu_torch.ops import batch_norm_silu
+
+    net = place_for_training(RatioEstimatorMNISTSVHN(), dev)
+    formats = []
+    hooks = [getattr(enc, f"conv{name}").register_forward_hook(
+        lambda m, i, o: formats.append(
+            o.is_contiguous(memory_format=torch.channels_last)))
+        for enc in net.modules() if isinstance(enc, _BNEncoder)
+        for name, _ in enc.spec]
+    x = torch.rand(8, 32, 32, 1, device=dev).permute(0, 3, 1, 2)
+    y = torch.rand(8, 32, 32, 3, device=dev).permute(0, 3, 1, 2)
+    before = batch_norm_silu.launches
+    net(x, y).sum().backward()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    calls = batch_norm_silu.launches - before
+    if len(formats) != 12 or not all(formats) or calls != 12:
+        fail(f"experiment-2 ratio net: conv outputs channels_last {formats}"
+             f", {calls} fused BatchNorm+SiLU calls in one forward")
+    return calls
+
+
+def bn_kernels_check(dev, seed: int = 16) -> dict:
+    """The BatchNorm+SiLU kernels against their plain versions at each of
+    the experiment-2 ratio net's sites, at B_TRAIN, B_TRAIN - 1 and 1, float32
+    channels_last (inputs from a generator of their own): the saved
+    statistics, running statistics and num_batches_tracked bit for bit, y
+    within ops/batchnorm.py:TOL_F32, dx, dγ, dβ through autograd each within
+    twice the float32 plain backward's max |err| against the float64 plain
+    backward, and a second run bit for bit. Returns the worst errors."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        TOL_F32 as TOL_BN_F32,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        batch_norm_silu,
+        batch_norm_silu_backward_reference,
+        batch_norm_silu_reference,
+    )
+
+    gen = torch.Generator(dev).manual_seed(seed)
+    worst = {"y": 0.0, "dx": [0.0, 0.0], "dgamma": [0.0, 0.0],
+             "dbeta": [0.0, 0.0]}
+
+    def fused(x, w, b, run, dy):
+        xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+        y = batch_norm_silu(xs, ws, bs, *run)
+        saved = y.grad_fn.saved_tensors[3:]
+        return y, torch.autograd.grad(y, (xs, ws, bs), dy), saved
+
+    sites = ratio_bn_sites()
+    for B in (B_TRAIN, B_TRAIN - 1, 1):
+        for (C, H) in sorted(sites):
+            name = f"batch_norm_silu B={B} C={C} {H}x{H} f32 channels_last"
+            x = (torch.randn(B, C, H, H, generator=gen, device=dev) * 2.0
+                 + 0.5).contiguous(memory_format=torch.channels_last)
+            w = torch.rand(C, generator=gen, device=dev) + 0.5
+            b = torch.randn(C, generator=gen, device=dev) * 0.1
+            run = (torch.randn(C, generator=gen, device=dev) * 0.1,
+                   torch.rand(C, generator=gen, device=dev) + 0.5,
+                   torch.zeros((), dtype=torch.long, device=dev))
+            dy = torch.randn(B, C, H, H, generator=gen, device=dev
+                             ).contiguous(memory_format=torch.channels_last)
+            k_run = tuple(t.clone() for t in run)
+            p_run = tuple(t.clone() for t in run)
+            y, got, (mean, rstd) = fused(x, w, b, k_run, dy)
+            y_p, mean_p, rstd_p = batch_norm_silu_reference(x, w, b, *p_run)
+            torch.cuda.synchronize()
+            if not (torch.equal(mean, mean_p) and torch.equal(rstd, rstd_p)
+                    and all(torch.equal(u, v)
+                            for u, v in zip(k_run, p_run))):
+                fail(f"{name}: the statistics differ from the plain "
+                     f"version's")
+            worst["y"] = max(worst["y"], check_close(
+                f"{name} y", y.detach(), y_p, **TOL_BN_F32))
+            plain = batch_norm_silu_backward_reference(dy, x, w, b, mean,
+                                                       rstd)
+            exact = batch_norm_silu_backward_reference(
+                dy.double(), x.double(), w.double(), b.double(),
+                mean.double(), rstd.double())
+            for nm, k_, p_, e_ in zip(("dx", "dgamma", "dbeta"), got, plain,
+                                      exact):
+                err_k = float((k_.double() - e_).abs().max())
+                err_p = float((p_.double() - e_).abs().max())
+                worst[nm][0] = max(worst[nm][0], err_k)
+                worst[nm][1] = max(worst[nm][1], err_p)
+                if err_k > 2.0 * err_p + 1e-6:
+                    fail(f"{name} {nm}: max |err| against float64 "
+                         f"{err_k:.3g} exceeds twice the float32 plain "
+                         f"backward's {err_p:.3g}")
+            again = fused(x, w, b, tuple(t.clone() for t in run), dy)
+            torch.cuda.synchronize()
+            if not (torch.equal(y, again[0]) and all(
+                    torch.equal(u, v) for u, v in zip(got, again[1]))):
+                fail(f"{name}: two runs on the same inputs differ")
+    print(f"batch_norm_silu at the experiment-2 ratio net's "
+          f"{sum(sites.values())} sites {sorted(sites)}, B={B_TRAIN}, "
+          f"{B_TRAIN - 1} and 1, f32 channels_last: statistics and running "
+          f"statistics bit for bit, y max |err| {worst['y']:.3g}; dx, dγ, dβ "
+          f"max |err| against float64 (kernel / float32 plain): "
+          + ", ".join(f"{k} {worst[k][0]:.3g} / {worst[k][1]:.3g}"
+                      for k in ("dx", "dgamma", "dbeta"))
+          + "; reruns bit-identical")
+    return worst
+
+
+def bn_kernel_times(dev, smi, peak_bw, B=None) -> dict:
+    """The BatchNorm+SiLU op at each of the experiment-2 ratio net's sites
+    at B (default B_TRAIN), float32 channels_last: the forward (PyTorch's
+    x·x and two means, then the kernel) and the backward (reduce and apply
+    kernels) timed four ways (core/card.py:call_times), beside the bytes
+    bound (read x, write y; read x and dy, write dx: 5 passes), the
+    design's 11 passes (forward 6: x·x read and written, two means, the
+    kernel's read and write; backward 5 + the reduce's second read of x
+    and dy), the plain versions (forward plus backward) and the library
+    call (F.silu(F.batch_norm(...)) forward plus autograd's backward to x,
+    γ and β); summed over one ratio train step's sites."""
+    import torch
+    import torch.nn.functional as F
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.card import (
+        call_times,
+        time_ms,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import batchnorm as bn
+
+    B = B or B_TRAIN
+    gen = torch.Generator(dev).manual_seed(17)
+    rows, step = {}, {"forward_ms": 0.0, "backward_ms": 0.0, "ms": 0.0,
+                      "bound_ms": 0.0, "design_bound_ms": 0.0,
+                      "plain_ms": 0.0, "library_ms": 0.0}
+    for (C, H), n in sorted(ratio_bn_sites().items()):
+        x = (torch.randn(B, C, H, H, generator=gen, device=dev) * 2.0
+             + 0.5).contiguous(memory_format=torch.channels_last)
+        w = torch.rand(C, generator=gen, device=dev) + 0.5
+        b = torch.randn(C, generator=gen, device=dev) * 0.1
+        run = (torch.zeros(C, device=dev), torch.ones(C, device=dev),
+               torch.zeros((), dtype=torch.long, device=dev))
+        dy = torch.randn(B, C, H, H, generator=gen, device=dev
+                         ).contiguous(memory_format=torch.channels_last)
+        mean, rstd, _ = bn.bn_stats_reference(x)
+        fwd = call_times(lambda: bn._launch(x, w, b, *run, bn.EPS), dev,
+                         ("bn_silu_apply_kernel", "reduce_kernel",
+                          "MulFunctor"), 4, strict=False)
+        bwd = call_times(lambda: bn._launch_backward(dy, x, w, b, mean,
+                                                     rstd), dev,
+                         ("bn_grad_reduce_kernel",
+                          "bn_silu_grad_apply_kernel"), 2, strict=False)
+
+        def plain():
+            bn.batch_norm_silu_reference(x, w, b, *run)
+            bn.batch_norm_silu_backward_reference(dy, x, w, b, mean, rstd)
+
+        xl, wl, bl = (t.clone().requires_grad_(True) for t in (x, w, b))
+        rm, rv = torch.zeros(C, device=dev), torch.ones(C, device=dev)
+
+        def library():
+            y = F.silu(F.batch_norm(xl, rm, rv, wl, bl, True, 0.1, bn.EPS))
+            torch.autograd.grad(y, (xl, wl, bl), dy)
+
+        nbytes = x.numel() * 4
+        row = dict(sites_per_step=n, forward=fwd, backward=bwd,
+                   bound_ms=5 * nbytes / peak_bw * 1e3,
+                   design_bound_ms=11 * nbytes / peak_bw * 1e3,
+                   plain_ms=time_ms(plain, dev),
+                   library_ms=time_ms(library, dev),
+                   plan=vars(bn.bn_plan(x.numel() // C, C)))
+        pick = [(r["device_ms"] if r["device_ms"] is not None
+                 else r["event_ms"]) for r in (fwd, bwd)]
+        row.update(forward_ms=pick[0], backward_ms=pick[1],
+                   ms=pick[0] + pick[1])
+        rows[f"B{B}_C{C}_H{H}"] = row
+        cold = (None if fwd["device_cold_ms"] is None
+                or bwd["device_cold_ms"] is None
+                else fwd["device_cold_ms"] + bwd["device_cold_ms"])
+        check_bound(f"batch_norm_silu B={B} C={C} {H}x{H} forward+backward",
+                    row["bound_ms"], "bytes", 5 * nbytes,
+                    device_ms=(None if fwd["device_ms"] is None
+                               or bwd["device_ms"] is None else row["ms"]),
+                    device_cold_ms=cold,
+                    event_ms=fwd["event_ms"] + bwd["event_ms"])
+        for k in step:
+            step[k] += n * row[k]
+        print(f"  batch_norm_silu B={B} C={C} {H}x{H} f32: forward "
+              f"{ms_str(fwd['device_ms'])} ms (L2 cold "
+              f"{ms_str(fwd['device_cold_ms'])}, events "
+              f"{fwd['event_ms']:.4f}, host {fwd['host_ms']:.4f}), backward "
+              f"{ms_str(bwd['device_ms'])} (L2 cold "
+              f"{ms_str(bwd['device_cold_ms'])}, events "
+              f"{bwd['event_ms']:.4f}, host {bwd['host_ms']:.4f}); bound "
+              f"{row['bound_ms']:.4f} by bytes ({100 * row['bound_ms'] / row['ms']:.1f}"
+              f"%), design's 11 passes {row['design_bound_ms']:.4f} "
+              f"({100 * row['design_bound_ms'] / row['ms']:.1f}%); plain "
+              f"{row['plain_ms']:.4f}, library {row['library_ms']:.4f} "
+              f"(forward + backward); {n} per step  [{smi}]")
+    print(f"  batch_norm_silu summed over one experiment-2 ratio train "
+          f"step's 12 sites (B={B}): forward {step['forward_ms']:.4f} ms + "
+          f"backward {step['backward_ms']:.4f} = {step['ms']:.4f} ms on the "
+          f"device, bound {step['bound_ms']:.4f} ms "
+          f"({100 * step['bound_ms'] / step['ms']:.1f}%), design's 11 passes "
+          f"{step['design_bound_ms']:.4f} "
+          f"({100 * step['design_bound_ms'] / step['ms']:.1f}%), plain "
+          f"{step['plain_ms']:.4f}, library {step['library_ms']:.4f}  "
+          f"[{smi}]")
+    return {"sites": rows, "step": step}
 
 
 def traced(run):
@@ -626,6 +885,8 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        batch_norm_silu,
+        batch_norm_silu_backward,
         flash_guidance,
         fused_gn_silu_conv,
         group_norm_silu,
@@ -636,7 +897,9 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
     wrappers = {"flash_guidance": flash_guidance,
                 "group_norm_silu": group_norm_silu,
                 "group_norm_silu_backward": group_norm_silu_backward,
-                "fused_gn_silu_conv": fused_gn_silu_conv}
+                "fused_gn_silu_conv": fused_gn_silu_conv,
+                "batch_norm_silu": batch_norm_silu,
+                "batch_norm_silu_backward": batch_norm_silu_backward}
     dev = next(models[0].parameters()).device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -835,19 +1098,22 @@ def train_step_card_vs_cpu(name, make_net, shape, dev, reflow=False):
 
 def counted_training(name, state, step, loader, extract, batches, steps,
                      dev, smi, sites, loss_key=None, unit="images",
-                     batch=None):
+                     batch=None, bn=0):
     """`steps` train steps at B=`batch` through the epoch driver
     (train/loop.py:train_epochs over `loader`'s epoch 0, `extract` mapped
     over its batches), two warm-up steps before it, with every launch
     counter set to 0 just before the run and held after it to the counts
     derived from the code (GN forward, backward and its dγ/dβ launch once
-    per GN site per step); every epoch metric finite; then a profiled
+    per GN site per step, the BatchNorm+SiLU forward and backward once per
+    of the `bn` sites); every epoch metric finite; then a profiled
     5-step run on `batches`. Returns the record."""
     import numpy as np
     import torch
 
     from ratio_guided_multimodal_fm_tpu_torch.core.prng import RNG
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        batch_norm_silu,
+        batch_norm_silu_backward,
         flash_guidance,
         fused_gn_silu_conv,
         group_norm_silu,
@@ -862,7 +1128,8 @@ def counted_training(name, state, step, loader, extract, batches, steps,
     for i, b in enumerate(batches[:2]):     # warm-up, outside the count
         step(state, b, RNG(0, dev).generator(9, i))
     wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
-                fused_gn_silu_conv)
+                fused_gn_silu_conv, batch_norm_silu,
+                batch_norm_silu_backward)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -883,7 +1150,9 @@ def counted_training(name, state, step, loader, extract, batches, steps,
     expected = {"flash_guidance": 0, "group_norm_silu": steps * sites,
                 "group_norm_silu_backward": steps * sites,
                 "fused_gn_silu_conv": 0,
-                "group_norm_silu_backward (dγ/dβ)": steps * sites}
+                "group_norm_silu_backward (dγ/dβ)": steps * sites,
+                "batch_norm_silu": steps * bn,
+                "batch_norm_silu_backward": steps * bn}
     if counts != expected:
         fail(f"training {name}: launch counts {counts} != derived "
              f"{expected}")
@@ -1130,7 +1399,8 @@ def run_ratio_training(name, make_net, x_shape, y_shape, steps, dev, smi):
         name, state, lambda s, b, gen: rstep(s, b["x"], b["y"], b["is_real"],
                                              gen),
         Loader(), lambda b: b, list(itertools.islice(batches_of(99), 5)),
-        steps, dev, smi, sites, loss_key="loss", unit="pairs")
+        steps, dev, smi, sites, loss_key="loss", unit="pairs",
+        bn=bn_sites(net))
 
 
 def make_sampler(cfg_kw, x_shape=X_SHAPE, y_shape=Y_SHAPE,
@@ -1290,6 +1560,8 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
         generate_couplings,
     )
     from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        batch_norm_silu,
+        batch_norm_silu_backward,
         flash_guidance,
         fused_gn_silu_conv,
         group_norm_silu,
@@ -1305,7 +1577,8 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
     generate_couplings(apply, net, 0, B_MAIN, shape, num_steps=2,
                        gen_batch_size=B_MAIN, device=dev)        # warm-up
     wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
-                fused_gn_silu_conv)
+                fused_gn_silu_conv, batch_norm_silu,
+                batch_norm_silu_backward)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -1319,7 +1592,8 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
     counts = {w.__name__: w.launches for w in wrappers}
     expected = {"flash_guidance": 0,
                 "group_norm_silu": batches * steps * sites,
-                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
+                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+                "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
     if counts != expected:
         fail(f"reflow couplings {name}: launch counts {counts} != derived "
              f"{expected}")
@@ -1703,7 +1977,9 @@ def slice9_clis(smi):
                 fail(f"CLI train_flow --model original: best {best}, "
                      f"metrics {rows}")
         traces = os.listdir("p")
-        if len(traces) != 2:
+        # per run, the profiler's trace and the port's spans beside it
+        if sorted(t.split("_")[0] for t in traces) != ["spans", "spans",
+                                                         "trace", "trace"]:
             fail(f"train_flow --profile_dir wrote {traces}")
         print(f"CLI train_flow --model original x, y (1 epoch at B="
               f"{B_TRAIN}, --metrics_dir, --profile_dir): "
@@ -1926,6 +2202,7 @@ def _fused_net(name, make_net, kind, xs, ys, dev, smi, steps, batch,
     ya = (torch.rand((FUSED_DATA,) + ys, generator=g, device=dev) * 2 - 1
           if ys else None)
     sites = gn_sites(make_net())
+    bn = bn_sites(make_net())
     host = np.random.RandomState(3)
 
     def chunk(k):
@@ -2008,11 +2285,14 @@ def _fused_net(name, make_net, kind, xs, ys, dev, smi, steps, batch,
                                                 if f else ())) - replays0
             per = {kk: v / macro for kk, v in counts.items()}
             eager = k * sites if f is None else 0
+            bn_eager = k * bn if f is None else 0
             want = {"group_norm_silu.launches": eager,
                     "group_norm_silu_backward.launches": eager,
                     "group_norm_silu_backward.weight_grad_launches": eager,
                     "flash_guidance.launches": 0,
-                    "fused_gn_silu_conv.launches": 0}
+                    "fused_gn_silu_conv.launches": 0,
+                    "batch_norm_silu.launches": bn_eager,
+                    "batch_norm_silu_backward.launches": bn_eager}
             if per != want:
                 fail(f"fused {name} {tag}: the wrappers' launches per macro "
                      f"step {per} != derived {want}")
@@ -2444,7 +2724,8 @@ def sharded_sampler_phase(dev, smi, out_dir, steps):
                 "group_norm_silu": 2 * steps * sites,
                 "group_norm_silu_backward": 0,
                 "group_norm_silu_backward (dγ/dβ)": 0,
-                "fused_gn_silu_conv": 0}
+                "fused_gn_silu_conv": 0, "batch_norm_silu": 0,
+                "batch_norm_silu_backward": 0}
         for r, m in enumerate(meta):
             x = m[tag]
             if x["launches"] != want:
@@ -3339,6 +3620,12 @@ def main(argv=None) -> int:
             backward=vars(gn_backward_plan(B, C, H, H, 8, 4, True)))
         for B in (B_TRAIN, B_TRAIN - 1) for (C, H) in sorted(ratio_sites)}
     details["gn_saved_stats_entries_checked"] = stats_checked[0]
+    # the fused BatchNorm+SiLU at the experiment-2 ratio net's 12 sites
+    # (bn_kernels_check); the net's conv outputs, the kernels' inputs, are
+    # channels_last on the card (no copy in the wrapper)
+    bn_err = bn_kernels_check(dev)
+    details["bn_silu_float64_yardstick"] = bn_err
+    details["bn_silu_calls_in_one_forward"] = bn_sites_layout(dev)
 
     # slice 9: kernel B at the new paths' sampler shapes (the
     # encoder-decoder at B=N_MC and B=B_MAIN; the 64-px U-Nets at B=N64 and
@@ -3594,7 +3881,8 @@ def main(argv=None) -> int:
     sites = [gn_sites(net) for net in models[:2]]
     expected = {"flash_guidance": args.steps,
                 "group_norm_silu": 2 * args.steps * sum(sites),
-                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
+                "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+                "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
     details["main_path"] = run_main_path(
         "main path", sampler, models, expected, 2, X_SHAPE, Y_SHAPE,
         args.steps, smi, flops=sampler_flops(mnist_unet_flops,
@@ -3619,7 +3907,8 @@ def main(argv=None) -> int:
     e1_expected = {"flash_guidance": args.steps,
                    "group_norm_silu": (2 * args.steps * sum(e1_sites[:2])
                                        + e1_sites[2]),
-                   "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0}
+                   "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+                   "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
     details["exp1_path"] = run_main_path(
         "experiment-1 path", e1_sampler, e1_models, e1_expected, 2, E1_SHAPE,
         E1_SHAPE, args.steps, smi,
@@ -3645,7 +3934,8 @@ def main(argv=None) -> int:
                      E1_SHAPE), o_models,
         {"flash_guidance": args.steps,
          "group_norm_silu": 2 * args.steps * sum(o_sites[:2]) + o_sites[2],
-         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi,
         flops=sampler_flops(flow_matching_model_flops,
                             flow_matching_model_flops, 1568),
@@ -3672,7 +3962,8 @@ def main(argv=None) -> int:
         "experiment-1 path, --merged_unet", m_sampler, e1_models,
         {"flash_guidance": args.steps,
          "group_norm_silu": args.steps * sum(e1_sites[:2]) + e1_sites[2],
-         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi,
         flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["merged_exp1_profile"] = profile_call(
@@ -3718,7 +4009,8 @@ def main(argv=None) -> int:
                                         + e1_sites[2]
                                         + args.steps * e1_sites[2]),
                     "group_norm_silu_backward": args.steps * e1_sites[2],
-                    "fused_gn_silu_conv": 0},
+                    "fused_gn_silu_conv": 0,
+                    "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi, method="mc_feng+grad",
         flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["exp1_grad_profile"] = profile_call(
@@ -3728,7 +4020,8 @@ def main(argv=None) -> int:
         "main grad path (experiment 2)",
         make_sampler(dict(e2g_kw, num_steps=args.steps)), models,
         {"flash_guidance": 0, "group_norm_silu": args.steps * sum(sites),
-         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+         "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
         2, X_SHAPE, Y_SHAPE, args.steps, smi, method="grad",
         flops=sampler_flops(mnist_unet_flops, svhn_unet_flops, 4096, "grad"),
         peak=bf16_peak)
@@ -3759,7 +4052,8 @@ def main(argv=None) -> int:
             smc_models, {"flash_guidance": 0,
                          "group_norm_silu": args.steps * sum(smc_sites),
                          "group_norm_silu_backward": 0,
-                         "fused_gn_silu_conv": 0},
+                         "fused_gn_silu_conv": 0,
+                         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
             2, xs, ys, args.steps, smi, method="smc", gamma=SMC_GAMMA,
             flops=sampler_flops(*((mnist_unet_flops, svhn_unet_flops)
                                   if tag == "exp2" else (mnist28, mnist28)),
@@ -3794,7 +4088,8 @@ def main(argv=None) -> int:
     #     counted run of --train_steps steps through the epoch driver with
     #     metrics-dict steps and a 5-step profile. The experiment-1 net runs
     #     both GN kernels at its 8 sites every step; the experiment-2 net's
-    #     BatchNorm encoders run none.
+    #     BatchNorm encoders run the fused BatchNorm+SiLU forward and
+    #     backward at their 12.
     details["ratio_training"] = {}
     for name, make_net, xs, ys in (
             ("experiment-1 ratio (RatioEstimatorMNIST)", RatioEstimatorMNIST,
@@ -3845,7 +4140,8 @@ def main(argv=None) -> int:
             m64, {"flash_guidance": args.steps,
                   "group_norm_silu": (per * args.steps * sum(s64_sites[:2])
                                       + s64_sites[2]),
-                  "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0},
+                  "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
+                  "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
             2, S64, S64, args.steps, smi, batch=B64, n_mc=N64,
             flops=sampler_flops(unet64_flops, unet64_flops, 2 * 64 * 64 * 3,
                                 batch=B64, n_mc=N64), peak=bf16_peak)
@@ -4275,6 +4571,26 @@ def main(argv=None) -> int:
                for k, r in list(tr_rows.items()) + list(u64_rows.items())
                + list(bwd_rows.items())}))
 
+    # 6b'. the fused BatchNorm+SiLU at the experiment-2 ratio net's sites
+    #      (bn_kernel_times), the row its B_TRAIN train step sums
+    bn_times = bn_kernel_times(dev, smi, peak_bw)
+    details["bn_silu_times"] = bn_times
+    e2_launches = details["ratio_training"]["experiment-2 ratio"]["launches"]
+    kernels.append(dict(
+        name="batch_norm_silu", route="cuda",
+        source="ratio_guided_multimodal_fm_tpu_torch/csrc/batch_norm_silu.cu",
+        replaces="none: the JAX package composes flax's BatchNorm and SiLU "
+                 "in XLA",
+        launches=e2_launches["batch_norm_silu"],
+        backward_launches=e2_launches["batch_norm_silu_backward"],
+        max_abs_err=bn_err["y"], ms=bn_times["step"]["ms"],
+        plain_ms=bn_times["step"]["plain_ms"],
+        bound_ms=bn_times["step"]["bound_ms"], bound_by="bytes",
+        library_ms=bn_times["step"]["library_ms"],
+        ms_is=f"forward plus backward summed over one B={B_TRAIN} "
+              "experiment-2 ratio train step's 12 sites, device time by "
+              "torch.profiler, L2 warm"))
+
     mark("6 kernel times")
 
     # 6c. the tier-C bench, kernel C's path, counted
@@ -4318,7 +4634,10 @@ def main(argv=None) -> int:
         "group_norm_silu_backward": f"{largest} f32 channels_last, dx and "
                                     "dγ/dβ (the SVHN U-Net's largest "
                                     "training site)",
-        "fused_gn_silu_conv": f"{row0['shape']} bf16 NHWC groups=8"}
+        "fused_gn_silu_conv": f"{row0['shape']} bf16 NHWC groups=8",
+        "batch_norm_silu": f"the experiment-2 ratio net's 12 sites at "
+                           f"B={B_TRAIN}, f32 channels_last, forward and "
+                           "backward"}
     for k in kernels:
         print(f"  {k['name']}: {k['ms']:.4f} ms/launch (plain "
               f"{k['plain_ms']:.4f}, library {k['library_ms']}), bound "

@@ -28,6 +28,9 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     Linear,
     flax_init_,
 )
+from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+    batch_norm_silu,
+)
 
 
 def log_ratio_from_scores(scores: torch.Tensor, loss_type: str) -> torch.Tensor:
@@ -171,9 +174,20 @@ def RatioEstimatorMNIST(loss_type: str = "disc",
 RatioEstimator = RatioEstimatorMNIST
 
 
+def fuses_bn_silu(bn: BatchNorm2d, x: torch.Tensor) -> bool:
+    """Whether silu(bn(x)) runs as the fused train-mode kernels
+    (ops/batchnorm.py:batch_norm_silu): a training module outside a
+    data-parallel run, on float32 CUDA x. Every other case takes
+    `BatchNorm2d.forward`, then SiLU."""
+    return (bn.training and bn.dp is None and x.is_cuda
+            and x.dtype == torch.float32 and bn.dtype == torch.float32)
+
+
 class _BNEncoder(nn.Module):
     """conv3x3 → BN → SiLU blocks (max-pooled where `pool_after`), global
-    average pool, fc. `spec` lists (name, in_ch, out_ch, pool_after)."""
+    average pool, fc. `spec` lists (name, in_ch, out_ch, pool_after). In
+    training on the card each BN → SiLU pair is one fused op
+    (`fuses_bn_silu`), with the same state-dict keys."""
 
     def __init__(self, spec, feature_dim: int, dtype: torch.dtype):
         super().__init__()
@@ -186,8 +200,14 @@ class _BNEncoder(nn.Module):
 
     def forward(self, x):
         for name, pool in self.spec:
-            x = F.silu(getattr(self, f"bn{name}")(
-                getattr(self, f"conv{name}")(x)))
+            x = getattr(self, f"conv{name}")(x)
+            bn = getattr(self, f"bn{name}")
+            if fuses_bn_silu(bn, x):
+                x = batch_norm_silu(x, bn.weight, bn.bias, bn.running_mean,
+                                    bn.running_var, bn.num_batches_tracked,
+                                    bn.eps)
+            else:
+                x = F.silu(bn(x))
             if pool:
                 x = F.max_pool2d(x, 2)
         return self.fc(x.mean(dim=(2, 3)))

@@ -5,6 +5,9 @@
 * `groupnorm.group_norm_silu_backward` — CUDA C++
   (csrc/group_norm_silu_backward.cu), the Function's backward
 * `resblock.fused_gn_silu_conv`    — CUDA C++ (csrc/fused_gn_silu_conv.cu)
+* `batchnorm.batch_norm_silu`      — CUDA C++ (csrc/batch_norm_silu.cu),
+  train-mode BatchNorm+SiLU of the experiment-2 ratio net; its backward
+  `batchnorm.batch_norm_silu_backward` in the same source
 
 Each wrapper counts the launches of its kernel that run when it is called,
 in `<wrapper>.launches` (`launch_counts` reads them all,
@@ -12,6 +15,12 @@ in `<wrapper>.launches` (`launch_counts` reads them all,
 the kernels and its replays run them without passing through the wrappers,
 so neither counts: a graph's launches are read from a profiler trace.
 """
+from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+    batch_norm_silu,
+    batch_norm_silu_backward,
+    batch_norm_silu_backward_reference,
+    batch_norm_silu_reference,
+)
 from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
     group_norm_silu,
     group_norm_silu_backward,
@@ -31,7 +40,9 @@ _COUNTERS = ((group_norm_silu, "launches"),
              (group_norm_silu_backward, "launches"),
              (group_norm_silu_backward, "weight_grad_launches"),
              (flash_guidance, "launches"),
-             (fused_gn_silu_conv, "launches"))
+             (fused_gn_silu_conv, "launches"),
+             (batch_norm_silu, "launches"),
+             (batch_norm_silu_backward, "launches"))
 
 
 def launch_counts() -> dict:
@@ -46,7 +57,9 @@ def reset_launch_counts() -> None:
         setattr(fn, attr, 0)
 
 
-__all__ = ["flash_guidance", "flash_guidance_reference",
+__all__ = ["batch_norm_silu", "batch_norm_silu_backward",
+           "batch_norm_silu_backward_reference", "batch_norm_silu_reference",
+           "flash_guidance", "flash_guidance_reference",
            "fused_gn_silu_conv", "fused_gn_silu_conv_reference",
            "group_norm_silu", "group_norm_silu_backward",
            "group_norm_silu_backward_reference", "group_norm_silu_reference",

@@ -24,7 +24,11 @@ fused_gn_silu_conv 2e-4 in float32 and rtol 0.1 / atol 0.15 in bfloat16
 against the float32 plain version (tests/test_resblock_pallas.py), and
 rtol 2**-7 / atol 0.05 against the bfloat16 plain version, which rounds at
 the same points; merged-pair sampling against the two nets on the card
-5e-5 (the JAX package's tests/test_merged_unet.py bound).
+5e-5 (the JAX package's tests/test_merged_unet.py bound); batch_norm_silu's
+statistics and running statistics bit for bit with the plain version and
+BatchNorm2d (the same PyTorch means), y within ops/batchnorm.py:TOL_F32,
+its backward within twice the float32 plain backward's max |err| against
+the plain backward in float64.
 """
 import pytest
 import torch
@@ -834,3 +838,181 @@ def test_train_graph_records_one_warmup_and_one_capture(card):
     first = [r.name for r in recs if r.call_id == calls[0]
              and r.name.startswith("train.graph.")]
     assert first == ["train.graph.warmup", "train.graph.capture"]
+
+
+# ---- the fused train-mode BatchNorm+SiLU (csrc/batch_norm_silu.cu) --------
+
+# (C, H) of the experiment-2 ratio net's 12 BatchNorm sites (MNIST encoder
+# 1-4, SVHN encoder 1a-4b)
+BN_SITES = [(32, 32), (64, 16), (128, 8), (128, 4), (64, 32), (64, 32),
+            (128, 16), (128, 16), (256, 8), (256, 8), (256, 4), (256, 4)]
+
+
+def _bn_inputs(card, B, C, H, seed):
+    g = torch.Generator(card).manual_seed(seed)
+    x = (torch.randn(B, C, H, H, generator=g, device=card) * 2.0 + 0.5
+         ).contiguous(memory_format=torch.channels_last)
+    w = torch.rand(C, generator=g, device=card) + 0.5
+    b = torch.randn(C, generator=g, device=card) * 0.1
+    run = (torch.randn(C, generator=g, device=card) * 0.1,
+           torch.rand(C, generator=g, device=card) + 0.5,
+           torch.zeros((), dtype=torch.long, device=card))
+    dy = torch.randn(B, C, H, H, generator=g, device=card
+                     ).contiguous(memory_format=torch.channels_last)
+    return x, w, b, run, dy
+
+
+def _bn_fused(x, w, b, run, dy):
+    """(y, (dx, dγ, dβ), saved (mean, rstd)) of the fused op through
+    autograd, on copies of x, w, b and the running statistics given."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        batch_norm_silu,
+    )
+
+    xs, ws, bs = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = batch_norm_silu(xs, ws, bs, *run)
+    saved = y.grad_fn.saved_tensors[3:]
+    return y, torch.autograd.grad(y, (xs, ws, bs), dy), saved
+
+
+def _hold_bn_kernels(card, x, w, b, run, dy):
+    """The kernels against the plain versions at one input: the saved
+    statistics, the running statistics and num_batches_tracked bit for bit
+    (and equal to BatchNorm2d's); y within TOL_F32; dx, dγ, dβ each within
+    twice the float32 plain backward's max |err| against the float64 plain
+    backward at the same statistics; a second run bit for bit."""
+    from ratio_guided_multimodal_fm_tpu_torch.models.ratio import BatchNorm2d
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        TOL_F32,
+        batch_norm_silu_backward_reference,
+        batch_norm_silu_reference,
+    )
+
+    k_run = tuple(t.clone() for t in run)
+    p_run = tuple(t.clone() for t in run)
+    y, got, (mean, rstd) = _bn_fused(x, w, b, k_run, dy)
+    y_p, mean_p, rstd_p = batch_norm_silu_reference(x, w, b, *p_run)
+    bn = BatchNorm2d(x.shape[1]).to(card).train()
+    with torch.no_grad():
+        bn.running_mean.copy_(run[0])
+        bn.running_var.copy_(run[1])
+    bn(x)
+    torch.cuda.synchronize()
+    assert torch.equal(mean, mean_p) and torch.equal(rstd, rstd_p)
+    assert all(torch.equal(u, v) for u, v in zip(k_run, p_run))
+    assert torch.equal(k_run[0], bn.running_mean)
+    assert torch.equal(k_run[1], bn.running_var)
+    assert y.stride() == x.stride() and got[0].stride() == x.stride()
+    torch.testing.assert_close(y, y_p, **TOL_F32)
+    plain = batch_norm_silu_backward_reference(dy, x, w, b, mean, rstd)
+    exact = batch_norm_silu_backward_reference(
+        dy.double(), x.double(), w.double(), b.double(), mean.double(),
+        rstd.double())
+    for nm, k, p, e in zip(("dx", "dgamma", "dbeta"), got, plain, exact):
+        err_k = float((k.double() - e).abs().max())
+        err_p = float((p.double() - e).abs().max())
+        assert err_k <= 2.0 * err_p + 1e-6, (nm, err_k, err_p)
+    again = _bn_fused(x, w, b, tuple(t.clone() for t in run), dy)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again[0])
+    assert all(torch.equal(u, v) for u, v in zip(got, again[1]))
+    return rstd
+
+
+@pytest.mark.parametrize("B", [128, 127, 1])
+@pytest.mark.parametrize("site", range(12))
+def test_batch_norm_silu_kernels_at_the_ratio_sites(card, site, B):
+    """Each of the 12 sites at the cell's B = 128 and at ragged row counts
+    (B = 127, B = 1), as _hold_bn_kernels holds them."""
+    C, H = BN_SITES[site]
+    _hold_bn_kernels(card, *_bn_inputs(card, B, C, H, 100 * site + B))
+
+
+def test_batch_norm_silu_kernels_at_a_clamped_variance(card):
+    """Channel 1 of two rows whose float32 E[x²] − E[x]² is negative: rstd
+    saved negated, the variance term dropped, as _hold_bn_kernels holds
+    them."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        bn_stats_reference,
+    )
+
+    c = 1.0
+    while True:
+        c = c * 1.0009765625 + 0.123
+        pair = torch.tensor([c, c * (1 + 3e-7)], device=card)
+        if bn_stats_reference(pair.view(2, 1, 1, 1))[1][0] < 0:
+            break
+    x, w, b, run, dy = _bn_inputs(card, 2, 8, 1, 7)
+    x[:, 1, 0, 0] = pair
+    rstd = _hold_bn_kernels(card, x, w, b, run, dy)
+    assert rstd[1] < 0 and (rstd[[0, 2, 3, 4, 5, 6, 7]] > 0).all()
+
+
+def test_batch_norm_silu_backward_takes_dy_in_either_layout(card):
+    from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
+        batch_norm_silu_backward,
+        bn_stats_reference,
+    )
+
+    x, w, b, _, dy = _bn_inputs(card, 16, 64, 16, 3)
+    mean, rstd, _ = bn_stats_reference(x)
+    a = batch_norm_silu_backward(dy.contiguous(), x, w, b, mean, rstd)
+    c = batch_norm_silu_backward(dy, x, w, b, mean, rstd)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(a, c))
+
+
+def test_fused_bn_ratio_graph_equals_eager_loop(card, deterministic_cudnn):
+    """The experiment-2 ratio net (12 BatchNorm sites), K = 8, B = 16, two
+    macro steps: the graph's metrics, parameters, running statistics and
+    EMA equal the eager K-step loop's bit for bit. The wrappers count 12
+    forward and 12 backward calls an eager sub-step (the graph's warm-up
+    and the eager loop) and none on the capture or the replay; the
+    profiler's trace of the replay shows each of the three kernels 8 x 12
+    times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ratio_guided_multimodal_fm_tpu_torch.models import (
+        RatioEstimatorMNISTSVHN,
+    )
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    keys = ("batch_norm_silu.launches", "batch_norm_silu_backward.launches")
+    K, B = 8, 16
+    states = []
+    for _ in range(2):
+        torch.manual_seed(1)
+        states.append(S.create_ratio_state(RatioEstimatorMNISTSVHN(), card,
+                                           ema_decay=0.999))
+    xa = torch.randn(256, 32, 32, 1, device=card)
+    ya = torch.randn(256, 32, 32, 3, device=card)
+    fg = S.make_ratio_train_multistep("disc", 0.999)
+    fe = S.make_ratio_train_multistep("disc", 0.999, graph=False)
+    counted = []
+    for m in range(2):
+        xi, yi = (torch.randint(0, 256, (K, B), dtype=torch.int32).numpy()
+                  for _ in range(2))
+        real = (torch.rand(K, B) < 0.5).float().numpy()
+        before = [launch_counts()[k] for k in keys]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            mg = fg(states[0], xa, ya, xi, yi, real,
+                    torch.Generator(card).manual_seed(m))
+            torch.cuda.synchronize()
+        counted.append([launch_counts()[k] - n for k, n in zip(keys, before)])
+        before = [launch_counts()[k] for k in keys]
+        me = fe(states[1], xa, ya, xi, yi, real,
+                torch.Generator(card).manual_seed(m))
+        assert [launch_counts()[k] - n
+                for k, n in zip(keys, before)] == [12 * K, 12 * K]
+        for k in mg:
+            assert torch.equal(mg[k], me[k]), k
+    assert counted == [[12 * K, 12 * K], [0, 0]]
+    traced = {name: sum(e.count for e in prof.key_averages()
+                        if name in e.key)
+              for name in ("bn_silu_apply_kernel", "bn_grad_reduce_kernel",
+                           "bn_silu_grad_apply_kernel")}
+    assert traced == dict.fromkeys(traced, 12 * K), traced
+    (g,) = fg.graphs.values()
+    assert g.replays == 1
+    _assert_same_state(*states)
