@@ -182,7 +182,8 @@ class Driver:
 
     def work(self, window) -> dict:
         n = self.nets
-        fx, fy = (functools.partial(counts.net_flops, "unet", n[r]["arch"])
+        fx, fy = (functools.partial(counts.net_flops, n[r]["kind"],
+                                    n[r]["arch"])
                   for r in ("flow_x", "flow_y"))
         d = sum(math.prod(common.shape(n[r])) for r in ("flow_x", "flow_y"))
         flops = counts.pair_sampler_flops(fx, fy, self.B, self.N,

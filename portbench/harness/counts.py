@@ -3,10 +3,15 @@ divide by. FLOPs are 2 × MACs of convolutions and dense layers
 (normalisations and elementwise ops are bandwidth, not counted), copied
 from the port's `core/flops.py` and extended with the two ratio nets and
 the GroupNorm+SiLU sites. Bytes count each input read once and each output
-written once, at the cell's shapes and dtypes."""
+written once, at the cell's shapes and dtypes. A kind of net beyond the
+three here brings its counts in its own file
+(`portbench/reference/kinds/<kind>.py`: `flops`, and `gn_sites` where it
+has any)."""
 from __future__ import annotations
 
 from typing import Callable, List, Tuple
+
+from portbench.reference import kinds
 
 # (C, H) of one GroupNorm+SiLU site of a net's forward, per example
 Site = Tuple[int, int]
@@ -169,7 +174,7 @@ def net_flops(kind: str, arch: dict, batch: int) -> float:
         return ratio_gn_flops(arch, batch, arch["img_size"])
     if kind == "ratio_bn":
         return ratio_bn_flops(arch, batch, arch["img_size"])
-    raise ValueError(f"no FLOP count for {kind!r}")
+    return kinds.load(kind).flops(arch, batch)
 
 
 def net_gn_sites(kind: str, arch: dict) -> List[Site]:
@@ -177,7 +182,10 @@ def net_gn_sites(kind: str, arch: dict) -> List[Site]:
         return unet_gn_sites(arch)
     if kind == "ratio_gn":
         return ratio_gn_sites(arch, arch["img_size"])
-    return []
+    if kind == "ratio_bn":
+        return []
+    sites = getattr(kinds.load(kind), "gn_sites", None)
+    return [] if sites is None else sites(arch)
 
 
 def pair_sampler_flops(flops_x: Callable[[int], float],

@@ -16,6 +16,9 @@ foubari/ratio_guided_Multimodal_FM's models).
   score MLP of three LN stages. BatchNorm with flax's semantics: batch
   mean and E[x²]-E[x]² in train mode, running = 0.9 running + 0.1 batch.
 
+Any other kind is one file, `kinds/<kind>.py` (see `kinds/__init__.py`),
+found by its name.
+
 Everything is float32 NCHW. `Net.forward(..., train=True)` applies
 dropout from the device's default generator and updates BatchNorm's
 running statistics. The masks depend on the memory layout of the dropout's
@@ -30,6 +33,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from portbench.reference import kinds
 from portbench.reference.precision import rounder
 
 Layout = List[Tuple[str, Tuple[int, ...]]]
@@ -315,29 +319,32 @@ FORWARDS = {"unet": unet_forward, "ratio_gn": ratio_gn_forward,
 
 
 class Net:
-    """One reference net: `kind` (a key of LAYOUTS), its `arch` and its
-    parameters P (float32, keyed as the published state dict)."""
+    """One reference net: `kind` (a key of LAYOUTS, or a file of
+    `kinds/`), its `arch` and its parameters P (float32, keyed as the
+    published state dict)."""
 
     def __init__(self, kind: str, arch: dict, P: Dict[str, torch.Tensor]):
-        if kind not in FORWARDS:
-            raise ValueError(f"unknown reference net {kind!r}")
+        self.forward = (FORWARDS[kind] if kind in FORWARDS
+                        else kinds.load(kind).forward)
         self.kind, self.arch, self.P = kind, dict(arch), P
 
     def __call__(self, a, b, precision: str = "fp32", train: bool = False):
         """unet: (x NCHW, t [B]) -> v NCHW; ratio nets: (x, y NCHW) ->
         scores [B] (log r̂ for the disc loss)."""
         o = _Ops(self.P, precision, a.device, train)
-        return FORWARDS[self.kind](o, self.arch, a, b)
+        return self.forward(o, self.arch, a, b)
 
     def trainable(self) -> List[str]:
         """Keys of the parameters (not BatchNorm's buffers)."""
-        return [k for k, _ in LAYOUTS[self.kind](self.arch)
+        return [k for k, _ in layout(self.kind, self.arch)
                 if not k.endswith(("running_mean", "running_var",
                                    "num_batches_tracked"))]
 
 
 def layout(kind: str, arch: dict) -> Layout:
-    return LAYOUTS[kind](arch)
+    if kind in LAYOUTS:
+        return LAYOUTS[kind](arch)
+    return kinds.load(kind).layout(arch)
 
 
 def param_count(kind: str, arch: dict) -> int:

@@ -2,10 +2,12 @@
 core/flops.py wherever both count, and to the MACs that the port's own
 nets perform, counted by forward hooks."""
 import json
+import types
 
 import pytest
 import torch
 
+import kind_encdec
 from conftest import ROOT
 from portbench.harness import counts
 from ratio_guided_multimodal_fm_tpu_torch import models
@@ -112,3 +114,56 @@ def test_params_match_published_counts():
     for conf in CONFIGS.values():
         for net in conf["nets"].values():
             assert param_count(net["kind"], net["arch"]) == net["params"]
+
+
+def test_kind_fixture_flops_equal_hooked_macs():
+    """The kind fixture's `flops(arch, 1)`: 2 × the MACs of every
+    Conv2d, ConvTranspose2d (k·k·cout a pixel and channel in) and Linear
+    of the port's FlowMatchingModel at batch 1, and the port's own count."""
+    with torch.device("meta"):
+        m = models.FlowMatchingModel()
+    m = m.to_empty(device="cpu").eval()
+    total = [0.0]
+
+    def hook(mod, inp, out):
+        w = mod.weight
+        if isinstance(mod, torch.nn.ConvTranspose2d):
+            total[0] += 2.0 * inp[0][0].numel() * w[0].numel()
+        elif isinstance(mod, torch.nn.Conv2d):
+            total[0] += 2.0 * out[0].numel() * w[0].numel()
+        else:
+            total[0] += 2.0 * out[0].numel() * w.shape[1]
+
+    kinds = (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear)
+    hooked = [mod.register_forward_hook(hook) for mod in m.modules()
+              if isinstance(mod, kinds)]
+    assert len(hooked) == 10
+    with torch.no_grad():
+        m(torch.zeros(1, 1, 28, 28), torch.zeros(1))
+    arch = {"img_channels": 1, "img_size": 28, "feature_dim": 256,
+            "time_emb_dim": 128, "norm_eps": 1e-6}
+    assert kind_encdec.flops(arch, 1) == total[0]
+    assert kind_encdec.flops(arch, 3) == flops.flow_matching_model_flops(3)
+
+
+@pytest.mark.parametrize("cname", sorted(CONFIGS))
+def test_sampler_work_counts_the_flows_as_unets(cname):
+    """`drivers/sample.py:work` takes each flow's FLOPs by its own kind:
+    for both configurations that is `pair_sampler_flops` with "unet"
+    (plus the ratio net's terminal scores), as before."""
+    from portbench.drivers import sample
+
+    conf = CONFIGS[cname]
+    traffic = json.loads((ROOT / "portbench" / "traffic"
+                          / "sample.mcfeng.b512.json").read_text())
+    drv = sample.Driver(conf, traffic, 7, torch.device("cpu"))
+    work = drv.work(types.SimpleNamespace(rate=1.0))
+    n = conf["nets"]
+    d = sum(s[0] * s[1] * s[2] for s in (n["flow_x"]["shape"],
+                                         n["flow_y"]["shape"]))
+    want = counts.pair_sampler_flops(
+        lambda b: counts.net_flops("unet", n["flow_x"]["arch"], b),
+        lambda b: counts.net_flops("unet", n["flow_y"]["arch"], b),
+        drv.B, drv.N, drv.steps, d)
+    want += counts.net_flops(n["ratio"]["kind"], n["ratio"]["arch"], drv.N)
+    assert work["flops_per_unit"] * drv.B == want

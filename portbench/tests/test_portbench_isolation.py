@@ -36,8 +36,16 @@ def test_forbidden_names_are_whole_top_level_names(monkeypatch):
 
 
 def test_reference_loads_neither_jax_nor_the_program():
+    """The reference, every kind of net under `reference/kinds/` and the
+    kind fixture that PERF.md's worked example copies."""
+    kinds = sorted(p.stem for p in (ROOT / "portbench" / "reference"
+                                    / "kinds").glob("*.py")
+                   if p.stem != "__init__")
     top = _loaded("import portbench.reference.nets, "
-                  "portbench.reference.sampler, portbench.reference.train")
+                  "portbench.reference.sampler, portbench.reference.train, "
+                  "portbench.reference.kinds, portbench.tests.kind_encdec"
+                  + "".join(f", portbench.reference.kinds.{k}"
+                            for k in kinds))
     assert not top & set(runner.FORBIDDEN)
     assert PORT not in top
 
