@@ -7,7 +7,12 @@ state dicts checkpoints/flow_{modality}[_{transform}]_{best|epochN}.pth
 and, with --ema_decay, flow_{modality}[_{transform}]_ema_best.pth: the
 files the experiment-1 sample and evaluate CLIs read. float32, on the card
 unless --device cpu. --model original trains the encoder-decoder
-FlowMatchingModel; --metrics_dir appends each epoch's metrics to
+FlowMatchingModel; --model sit_xl_2|sit_s_2 trains the class-conditional
+SiT transformer (models/sit.py) on pre-extracted latents, --latents
+<file.npz> holding `latents` [N, 32, 32, 4] float32 and `labels` [N]
+integers (the form fast-DiT-style training reads), through the fused
+trainer with the labels on the device, and writes
+checkpoints/flow_{model}_{best|epochN}.pth (no --modality there); --metrics_dir appends each epoch's metrics to
 <dir>/flow_{modality}.jsonl and --profile_dir writes a torch.profiler
 Chrome trace of the run there, with the run's program spans (each
 train.fm.call and its graph's spans) in a Chrome trace beside it on the
@@ -18,10 +23,16 @@ on its rows of the global batch (data-parallel).
 
     python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow \\
         --modality y --transform_type rotate90 --epochs 50
+    python -m ratio_guided_multimodal_fm_tpu_torch.cli.train_flow \\
+        --model sit_xl_2 --latents in256_latents.npz --batch_size 32 \\
+        --fused_steps 2 --ema_decay 0.9999
 """
 from __future__ import annotations
 
 import argparse
+
+import numpy as np
+import torch
 
 from ratio_guided_multimodal_fm_tpu_torch.cli.common import (
     add_common_flags,
@@ -43,6 +54,7 @@ from ratio_guided_multimodal_fm_tpu_torch.data.mnist_dataset import (
     get_flow_dataset,
     get_index_chunk_loader,
 )
+from ratio_guided_multimodal_fm_tpu_torch.models.sit import SiT_S_2, SiT_XL_2
 from ratio_guided_multimodal_fm_tpu_torch.parallel.multihost import (
     is_writer,
 )
@@ -61,12 +73,15 @@ from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
     make_fm_train_step,
 )
 
+SIT_MODELS = {"sit_xl_2": SiT_XL_2, "sit_s_2": SiT_S_2}
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train Flow Matching model")
-    parser.add_argument("--modality", type=str, required=True,
+    parser.add_argument("--modality", type=str, default=None,
                         choices=["x", "y"],
-                        help="Modality to train (x=standard, y=transformed)")
+                        help="Modality to train (x=standard, y=transformed); "
+                             "required for --model unet|original")
     parser.add_argument("--transform_type", type=str, default="rotate90",
                         help="Transformation type for y modality")
     parser.add_argument("--epochs", type=int, default=50)
@@ -77,7 +92,10 @@ def main(argv=None):
     parser.add_argument("--patience", type=int, default=10,
                         help="Early stopping patience")
     parser.add_argument("--model", type=str, default="unet",
-                        choices=["unet", "original"])
+                        choices=["unet", "original", *SIT_MODELS])
+    parser.add_argument("--latents", type=str, default=None,
+                        help="--model sit_*: an .npz of `latents` [N, 32, "
+                             "32, 4] float32 and `labels` [N] integers")
     parser.add_argument("--ema_decay", type=float, default=None,
                         help="Polyak-average the weights with this decay "
                              "(e.g. 0.999); best saves also write "
@@ -98,18 +116,28 @@ def main(argv=None):
                              "(bit-exact against the uninterrupted run)")
     add_common_flags(parser)
     args = parser.parse_args(argv)
+    sit = args.model in SIT_MODELS
+    if sit and not args.latents:
+        parser.error(f"--model {args.model} trains on --latents <file.npz>")
+    if not sit and args.modality is None:
+        parser.error(f"--model {args.model} needs --modality x|y")
 
     device = init_runtime(args)
     arm_preemption()   # SIGTERM-safe from startup (train CLIs only)
     set_seed(args.seed)
     print(f"Random seed: {args.seed}; device: {device}")
 
-    transform = args.transform_type if args.modality == "y" else None
-    print(f"Training modality: {args.modality}")
-    if args.modality == "y":
-        print(f"Transform type: {args.transform_type}")
+    transform = None
+    if sit:
+        print(f"Training {args.model} on {args.latents}")
+    else:
+        print(f"Training modality: {args.modality}")
+        if args.modality == "y":
+            transform = args.transform_type
+            print(f"Transform type: {args.transform_type}")
 
-    state = create_fm_state(fm_model(args.model), device, lr=args.lr,
+    model = SIT_MODELS[args.model]() if sit else fm_model(args.model)
+    state = create_fm_state(model, device, lr=args.lr,
                             ema_decay=args.ema_decay)
     print(f"Model parameters: {count_params(state.model):,}")
 
@@ -121,17 +149,28 @@ def main(argv=None):
               f"step {resume['start_step']} "
               f"(best {resume['start_best']:.4f})")
 
-    modality = args.modality
-    if args.fused_steps > 1:
-        # K optimizer steps a dispatch over the dataset on the device: the
-        # driver iterates macro steps ([K, B] index chunks)
-        dataset = get_flow_dataset(transform, True, args.data_root, device)
+    modality = args.model if sit else args.modality
+    if sit or args.fused_steps > 1:
+        # K optimizer steps a dispatch over the dataset on the device (and
+        # its labels, for SiT): the driver iterates macro steps ([K, B]
+        # index chunks); SiT trains this way at every K, 1 included
+        labels = None
+        if sit:
+            with np.load(args.latents) as f:
+                dataset = torch.from_numpy(np.ascontiguousarray(
+                    f["latents"], np.float32)).to(device)
+                labels = torch.from_numpy(f["labels"].astype(np.int64)).to(
+                    device)
+            print(f"{len(dataset):,} latents")
+        else:
+            dataset = get_flow_dataset(transform, True, args.data_root,
+                                       device)
         loader = get_index_chunk_loader(len(dataset), args.batch_size,
                                         args.fused_steps, seed=args.seed)
         fused = make_fm_train_multistep(args.ema_decay)
 
         def step(s, idx, g):
-            return fused(s, dataset, idx, g)
+            return fused(s, dataset, idx, g, labels=labels)
 
         print(f"Fused dispatch: {args.fused_steps} steps/program, "
               f"{len(loader)} programs/epoch (epoch logs count programs)")

@@ -14,6 +14,11 @@ from ratio_guided_multimodal_fm_tpu_torch.models.ratio import (
     RatioEstimatorMNISTSVHN,
     log_ratio_from_scores,
 )
+from ratio_guided_multimodal_fm_tpu_torch.models.sit import (
+    SiT,
+    SiT_S_2,
+    SiT_XL_2,
+)
 from ratio_guided_multimodal_fm_tpu_torch.models.unet import (
     FlexibleUNet,
     FlowMatchingUNet,
@@ -28,5 +33,5 @@ __all__ = [
     "FlowMatchingUNet64", "FlowMatchingUNetMNIST", "FlowMatchingUNetSVHN",
     "MNISTClassifier", "MNISTClassifier32", "SVHNClassifier",
     "RatioEstimator", "RatioEstimatorMNIST", "RatioEstimatorMNISTSVHN",
-    "log_ratio_from_scores",
+    "SiT", "SiT_S_2", "SiT_XL_2", "log_ratio_from_scores",
 ]

@@ -8,6 +8,9 @@
 * `batchnorm.batch_norm_silu`      — CUDA C++ (csrc/batch_norm_silu.cu),
   train-mode BatchNorm+SiLU of the experiment-2 ratio net; its backward
   `batchnorm.batch_norm_silu_backward` in the same source
+* `attention.sdpa`                 — PyTorch's memory-efficient (CUTLASS)
+  attention on the card, its math backend on the CPU, pinned: counted per
+  backend (`efficient_launches`, `math_launches`)
 
 Each wrapper counts the launches of its kernel that run when it is called,
 in `<wrapper>.launches` (`launch_counts` reads them all,
@@ -15,6 +18,7 @@ in `<wrapper>.launches` (`launch_counts` reads them all,
 the kernels and its replays run them without passing through the wrappers,
 so neither counts: a graph's launches are read from a profiler trace.
 """
+from ratio_guided_multimodal_fm_tpu_torch.ops.attention import sdpa
 from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
     batch_norm_silu,
     batch_norm_silu_backward,
@@ -42,7 +46,9 @@ _COUNTERS = ((group_norm_silu, "launches"),
              (flash_guidance, "launches"),
              (fused_gn_silu_conv, "launches"),
              (batch_norm_silu, "launches"),
-             (batch_norm_silu_backward, "launches"))
+             (batch_norm_silu_backward, "launches"),
+             (sdpa, "efficient_launches"),
+             (sdpa, "math_launches"))
 
 
 def launch_counts() -> dict:
@@ -63,4 +69,4 @@ __all__ = ["batch_norm_silu", "batch_norm_silu_backward",
            "fused_gn_silu_conv", "fused_gn_silu_conv_reference",
            "group_norm_silu", "group_norm_silu_backward",
            "group_norm_silu_backward_reference", "group_norm_silu_reference",
-           "launch_counts", "reset_launch_counts"]
+           "launch_counts", "reset_launch_counts", "sdpa"]

@@ -107,9 +107,14 @@ def create_fm_state(model: nn.Module, device, lr: float = 1e-4,
     return state
 
 
-def velocity_nhwc(model: nn.Module) -> Callable:
-    """(x NHWC, t [B]) -> v NHWC through the NCHW model, without copies."""
-    return lambda x, t: model(x.permute(0, 3, 1, 2), t).permute(0, 2, 3, 1)
+def velocity_nhwc(model: nn.Module,
+                  y: Optional[torch.Tensor] = None) -> Callable:
+    """(x NHWC, t [B]) -> v NHWC through the NCHW model, without copies;
+    with `y` (a class-conditional net's labels [B]) the model is called as
+    model(x, t, y)."""
+    cond = () if y is None else (y,)
+    return lambda x, t: model(x.permute(0, 3, 1, 2), t, *cond).permute(
+        0, 2, 3, 1)
 
 
 def _dropout_seed(generator: torch.Generator, dp=None) -> int:
@@ -162,12 +167,12 @@ def _apply_update(state: FMTrainState, loss: torch.Tensor,
 
 def _fm_substep(state: FMTrainState, x1: torch.Tensor,
                 generator: Optional[torch.Generator], t, x0,
-                ema_decay: Optional[float], check: bool = True
-                ) -> torch.Tensor:
+                ema_decay: Optional[float], check: bool = True,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The FM step body shared by the single and the fused steps: the
-    loss (drawing what is not injected), the update; returns the detached
-    loss of the whole batch (summed over the ranks in a data-parallel
-    run)."""
+    loss (drawing what is not injected; `y` the labels of a
+    class-conditional net), the update; returns the detached loss of the
+    whole batch (summed over the ranks in a data-parallel run)."""
     dp = state.dp
     if dp is not None and t is None:
         # the one-process draws of the global batch (t, then x_0), this
@@ -177,7 +182,7 @@ def _fm_substep(state: FMTrainState, x1: torch.Tensor,
                                dtype=x1.dtype, device=x1.device))
         x0 = dp.rows(torch.randn(shape, generator=generator, dtype=x1.dtype,
                                  device=x1.device))
-    loss = cfm_loss(velocity_nhwc(state.model), x1, t, x0, generator)
+    loss = cfm_loss(velocity_nhwc(state.model, y), x1, t, x0, generator)
     if check:
         check_finite(loss, "fm train loss")
     if dp is None:
@@ -189,25 +194,29 @@ def _fm_substep(state: FMTrainState, x1: torch.Tensor,
 
 
 def make_fm_train_step(ema_decay: Optional[float] = None) -> Callable:
-    """step(state, x1, generator=None, *, t=None, x0=None) -> loss.
+    """step(state, x1, generator=None, *, t=None, x0=None, y=None) -> loss.
 
     x1: NHWC float32 batch on the model's device. t [B] and x0 (x1's shape)
     may be injected (parity tests); otherwise `generator` draws t, then x0,
-    and seeds the dropout masks. Updates `state` in place and returns the
+    and seeds the dropout masks (and a class-conditional net's label
+    drop). y: the labels [B] (int64, on the device) of a class-conditional
+    net (models/sit.py), None for the unconditional nets. Updates `state` in place and returns the
     detached float32 loss (no host synchronisation). In a data-parallel
     run x1 is this rank's rows and the loss is the global batch's."""
 
     def step(state: FMTrainState, x1: torch.Tensor,
              generator: Optional[torch.Generator] = None, *,
              t: Optional[torch.Tensor] = None,
-             x0: Optional[torch.Tensor] = None) -> torch.Tensor:
+             x0: Optional[torch.Tensor] = None,
+             y: Optional[torch.Tensor] = None) -> torch.Tensor:
         with span("train.fm.call"):
             if generator is not None:
                 _seed_dropout(x1.device, _dropout_seed(generator, state.dp))
             elif t is None or x0 is None:
                 raise ValueError("make_fm_train_step: pass a generator, or "
                                  "inject both t and x0")
-            return _fm_substep(state, x1, generator, t, x0, ema_decay)
+            return _fm_substep(state, x1, generator, t, x0, ema_decay,
+                               y=y)
 
     return step
 
@@ -386,12 +395,15 @@ def _graphed(graph: Optional[bool], device: torch.device) -> bool:
 def make_fm_train_multistep(ema_decay: Optional[float] = None,
                             graph: Optional[bool] = None) -> Callable:
     """The fused K-step FM trainer (JAX make_fm_train_multistep):
-    step(state, dataset, idx [K, B], generator) -> mean loss.
+    step(state, dataset, idx [K, B], generator, labels=None) -> mean loss.
 
     dataset: the whole modality, NHWC float32 on the model's device; idx:
     int32 [K, B] rows of it (numpy or a tensor; data/mnist_dataset.py:
-    get_index_chunk_loader). Sub-step j gathers dataset[idx[j]] on the
-    device and takes the single step (make_fm_train_step) on it with t and
+    get_index_chunk_loader); labels: for a class-conditional net, the
+    dataset's labels [N] (int64, on the device), gathered with the same
+    rows (None: the unconditional nets, whose path is unchanged). Sub-step
+    j gathers dataset[idx[j]] (and labels[idx[j]]) on the device and takes
+    the single step (make_fm_train_step) on it with t and
     x_0 drawn from derive_seed(seed, 0, j), seed = the macro step's
     generator's seed (position-addressed: a resume at macro-step
     granularity reproduces the run); the dropout masks of the K sub-steps
@@ -407,16 +419,19 @@ def make_fm_train_multistep(ema_decay: Optional[float] = None,
     (capturable). Single-process only.
     """
 
-    def body(state, dataset, idx, t, x0, check=True):
+    def body(state, dataset, idx, t, x0, check=True, labels=None):
         return torch.stack([
             _fm_substep(state, dataset.index_select(0, idx[j]), None, t[j],
-                        x0[j], ema_decay, check)
+                        x0[j], ema_decay, check,
+                        None if labels is None
+                        else labels.index_select(0, idx[j]))
             for j in range(idx.shape[0])]).mean()
 
     graphs = {}
 
     def step(state: FMTrainState, dataset: torch.Tensor, idx,
-             generator: torch.Generator) -> torch.Tensor:
+             generator: torch.Generator,
+             labels: Optional[torch.Tensor] = None) -> torch.Tensor:
         if state.dp is not None:
             raise ValueError("the fused K-step trainer is single-process "
                              "only")
@@ -433,17 +448,18 @@ def make_fm_train_multistep(ema_decay: Optional[float] = None,
                                  dtype=dataset.dtype, device=device)
                 _draw_fm(seed, t, x0)
                 _seed_dropout(device, derive_seed(seed, 1))
-                return body(state, dataset, idx, t, x0)
+                return body(state, dataset, idx, t, x0, labels=labels)
             from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
                 TrainGraph,
             )
 
-            key = (id(state.model), K, B, dataset.data_ptr())
+            key = (id(state.model), K, B, dataset.data_ptr(),
+                   None if labels is None else labels.data_ptr())
             g = graphs.get(key)
             if g is None:
                 g = graphs[key] = TrainGraph(
                     lambda st, check: body(state, dataset, st["idx"], st["t"],
-                                           st["x0"], check),
+                                           st["x0"], check, labels),
                     {"idx": idx, "t": torch.empty((K, B), dtype=dataset.dtype,
                                                   device=device),
                      "x0": torch.empty((K, B) + tuple(dataset.shape[1:]),

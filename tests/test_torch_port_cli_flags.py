@@ -40,6 +40,10 @@ ALLOWED = {
                                     "the port's device flag is --device"},
                      {"--device": "the port's device flag (cuda or cpu), in "
                                   "place of JAX's --platform"}),
+    "train_flow": ({}, {"--latents": "the port's class-conditional SiT "
+                                     "(--model sit_xl_2|sit_s_2) trains on "
+                                     "pre-extracted latents and labels; the "
+                                     "JAX package has no SiT"}),
     "stretch64_demo": ({}, {"--model_channels": "the port's demo takes the "
                                                 "U-Net width, so that the CPU "
                                                 "tests run it narrow",

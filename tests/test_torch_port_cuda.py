@@ -1016,3 +1016,101 @@ def test_fused_bn_ratio_graph_equals_eager_loop(card, deterministic_cudnn):
     (g,) = fg.graphs.values()
     assert g.replays == 1
     _assert_same_state(*states)
+
+
+# ---- SiT: pinned attention and the class-conditional fused trainer --------
+
+SIT_TINY = dict(input_size=8, patch_size=2, in_channels=4, hidden_size=96,
+                depth=2, num_heads=4, num_classes=10)
+
+
+def _sit_states(card, n=2):
+    from ratio_guided_multimodal_fm_tpu_torch.models import SiT
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    out = []
+    for _ in range(n):
+        torch.manual_seed(0)
+        model = SiT(**SIT_TINY)
+        with torch.no_grad():       # SiT's zero init leaves no gradient
+            for p in model.parameters():   # but the last layer's
+                p.add_(torch.randn_like(p) * 0.05)
+        out.append(S.create_fm_state(model, card, lr=1e-4, ema_decay=0.9999))
+    return out
+
+
+def test_sdpa_pins_the_efficient_backend_in_float32(card):
+    """At SiT-XL/2's attention shape (16 heads of 72 over 256 tokens) the
+    pinned call counts one memory-efficient launch and no math one, and is
+    within twice the float32 math path's max |err| against float64 (a
+    float32-accurate product: the 3xTF32 tensor-core kernel), while TF32
+    products miss float64 by over ten times that. A dtype the backend
+    cannot take raises instead of falling back."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts, sdpa
+
+    g = torch.Generator(card).manual_seed(0)
+    q, k, v = (torch.randn(2, 16, 256, 72, generator=g, device=card)
+               for _ in range(3))
+    before = launch_counts()
+    out = sdpa(q, k, v)
+    after = launch_counts()
+    assert after["sdpa.efficient_launches"] == (
+        before["sdpa.efficient_launches"] + 1)
+    assert after["sdpa.math_launches"] == before["sdpa.math_launches"]
+
+    def plain(a, b, c):
+        w = torch.softmax(a @ b.transpose(-2, -1) / a.shape[-1] ** 0.5, -1)
+        return w @ c
+
+    exact = plain(q.double(), k.double(), v.double())
+    err = float((out.double() - exact).abs().max())
+    err_f32 = float((plain(q, k, v).double() - exact).abs().max())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        err_tf32 = float((plain(q, k, v).double() - exact).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"sdpa max|err| vs float64: efficient {err:.3e}, float32 math "
+          f"{err_f32:.3e}, TF32 math {err_tf32:.3e}")
+    assert err <= 2 * err_f32 < err_tf32 / 10
+    with pytest.raises(RuntimeError):
+        sdpa(q.double(), k.double(), v.double())
+
+
+def test_fused_sit_graph_equals_eager_loop(card, deterministic_cudnn):
+    """Two macro steps of K=2 at B=8 with labels (label drop on): the
+    graph replay's losses, parameters and EMA equal the eager K-step
+    loop's bit for bit; the warm-up counts its 2 × depth attention calls
+    on the memory-efficient backend, the capture and the replay none; the
+    spans are one warm-up, one capture and one replay."""
+    from ratio_guided_multimodal_fm_tpu_torch.core import observability as obs
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+    from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
+
+    graphed, eager = _sit_states(card)
+    data = torch.randn(64, 8, 8, 4, device=card)
+    labels = torch.randint(0, 10, (64,), device=card)
+    fg = S.make_fm_train_multistep(0.9999)
+    fe = S.make_fm_train_multistep(0.9999, graph=False)
+    obs.reset()
+    counted = []
+    for m in range(2):
+        idx = torch.randint(0, 64, (2, 8), dtype=torch.int32).numpy()
+        before = launch_counts()
+        lg = fg(graphed, data, idx, torch.Generator(card).manual_seed(m),
+                labels=labels)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        counted.append([after[k] - before[k] for k in (
+            "sdpa.efficient_launches", "sdpa.math_launches")])
+        le = fe(eager, data, idx, torch.Generator(card).manual_seed(m),
+                labels=labels)
+        assert torch.equal(lg, le)
+    assert counted == [[2 * SIT_TINY["depth"], 0], [0, 0]]
+    counts = {n: t["count"] for n, t in obs.span_totals().items()
+              if n.startswith("train.graph.")}
+    assert counts == {"train.graph.warmup": 1, "train.graph.capture": 1,
+                      "train.graph.replay": 1}
+    (g,) = fg.graphs.values()
+    assert g.replays == 1
+    _assert_same_state(graphed, eager)
