@@ -129,7 +129,9 @@ which fails the script (non-zero exit) on error:
    the same draws (bit for bit, else within 1e-4·max|ref|, printed); then
    the single step, the graph at K=1 and at K=8 in turns, twice, 48 steps
    each: steps/s, replays, peak memory, the wrappers' (eager) launches per
-   macro step held to K·sites for the single step and 0 for a replay;
+   macro step held to K·sites for the single step and 0 for a replay (the
+   attention's and the 3×TF32 linear's counters to 0: these nets call
+   neither);
    the timed K=8 graph's state against the eager loop on all its draws
    (same bounds); a profiled run of each: the busy share and the GN
    kernels' launches in the trace held to K·sites a macro step;
@@ -167,6 +169,18 @@ which fails the script (non-zero exit) on error:
    train step); flash_guidance at D=24,576 (B=64, N=128) the same four
    ways, and group_norm_silu at the 64-px U-Net's largest site
    (64x288x64x64 bf16) beside its bytes bound;
+6l. SiT-XL/2 in float32 at the SiT cell's B = 32, one eager forward and
+   backward from launch counters at 0: the 3×TF32 linear's launches and
+   split pre-passes held to 4 token projections × 28 blocks × 3 roles
+   each, and three more such steps timed by CUDA events; then the linear
+   bench (cli/linear_kernel_bench.py): SiT-XL/2's four token projections
+   at M = 8,192 in each role (forward, dgrad, wgrad) through the wrapper
+   and its autograd Function, the kernel with its split pre-pass beside
+   its bound (FLOPs over the bf16 peak / 6) and torch.matmul in float32
+   (`library_ms`, the products the port no longer calls, which are also
+   the plain versions); the bench fails where the kernel breaks the
+   3×TF32 rule (3× the float32 product's max |err| against float64, under
+   a tenth of the TF32 product's);
 6c. runs the tier-C bench (cli/resblock_kernel_bench.py), the path of
    fused_gn_silu_conv, with its launch counter set to 0; the bench holds
    the kernel against the bfloat16 plain version at each of its shapes
@@ -891,6 +905,7 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
         fused_gn_silu_conv,
         group_norm_silu,
         group_norm_silu_backward,
+        linear_tf32x3,
     )
 
     batch, n_mc = batch or B_MAIN, n_mc or N_MC
@@ -899,7 +914,8 @@ def run_main_path(name, sampler, models, expected, gen_seed, x_shape,
                 "group_norm_silu_backward": group_norm_silu_backward,
                 "fused_gn_silu_conv": fused_gn_silu_conv,
                 "batch_norm_silu": batch_norm_silu,
-                "batch_norm_silu_backward": batch_norm_silu_backward}
+                "batch_norm_silu_backward": batch_norm_silu_backward,
+                "linear_tf32x3": linear_tf32x3}
     dev = next(models[0].parameters()).device
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1118,6 +1134,7 @@ def counted_training(name, state, step, loader, extract, batches, steps,
         fused_gn_silu_conv,
         group_norm_silu,
         group_norm_silu_backward,
+        linear_tf32x3,
     )
     from ratio_guided_multimodal_fm_tpu_torch.train.loop import (
         epoch_data_iter,
@@ -1129,7 +1146,7 @@ def counted_training(name, state, step, loader, extract, batches, steps,
         step(state, b, RNG(0, dev).generator(9, i))
     wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
                 fused_gn_silu_conv, batch_norm_silu,
-                batch_norm_silu_backward)
+                batch_norm_silu_backward, linear_tf32x3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -1152,7 +1169,8 @@ def counted_training(name, state, step, loader, extract, batches, steps,
                 "fused_gn_silu_conv": 0,
                 "group_norm_silu_backward (dγ/dβ)": steps * sites,
                 "batch_norm_silu": steps * bn,
-                "batch_norm_silu_backward": steps * bn}
+                "batch_norm_silu_backward": steps * bn,
+                "linear_tf32x3": 0}
     if counts != expected:
         fail(f"training {name}: launch counts {counts} != derived "
              f"{expected}")
@@ -1566,6 +1584,7 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
         fused_gn_silu_conv,
         group_norm_silu,
         group_norm_silu_backward,
+        linear_tf32x3,
     )
 
     net = place_model(_train_net(make_net, 60), dev)
@@ -1578,7 +1597,7 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
                        gen_batch_size=B_MAIN, device=dev)        # warm-up
     wrappers = (flash_guidance, group_norm_silu, group_norm_silu_backward,
                 fused_gn_silu_conv, batch_norm_silu,
-                batch_norm_silu_backward)
+                batch_norm_silu_backward, linear_tf32x3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers:
@@ -1593,7 +1612,8 @@ def run_couplings(name, make_net, shape, steps, batches, dev, smi):
     expected = {"flash_guidance": 0,
                 "group_norm_silu": batches * steps * sites,
                 "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-                "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
+                "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                "linear_tf32x3": 0}
     if counts != expected:
         fail(f"reflow couplings {name}: launch counts {counts} != derived "
              f"{expected}")
@@ -2057,6 +2077,53 @@ STRETCH64_ARGV = ["--n", "256", "--epochs", "1", "--ratio_epochs", "1",
                   "--num_steps", "20"]
 
 
+def sit_linear_step(dev, smi, batch: int = 32, steps: int = 3) -> dict:
+    """SiT-XL/2 in float32 (32×32×4 latents, 1,000 classes) at `batch`:
+    one eager forward and backward of a squared-output loss from launch
+    counters at 0, whose 3×TF32 linear launches and split pre-passes are
+    held to 4 token projections × depth × 3 roles each (forward, dgrad,
+    wgrad; every other product of the net is F.linear); then `steps` more
+    such steps timed by CUDA events."""
+    import torch
+
+    from ratio_guided_multimodal_fm_tpu_torch.core.card import time_ms
+    from ratio_guided_multimodal_fm_tpu_torch.models.sit import SiT_XL_2
+    from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
+
+    torch.manual_seed(0)
+    net = SiT_XL_2(input_size=32, in_channels=4, num_classes=1000).to(dev)
+    g = torch.Generator(dev).manual_seed(0)
+    x = torch.randn(batch, 4, 32, 32, generator=g, device=dev)
+    t = torch.rand(batch, generator=g, device=dev)
+    y = torch.randint(0, 1000, (batch,), generator=g, device=dev)
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        net(x, t, y).square().mean().backward()
+
+    reset_launches()
+    step()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    depth = len(net.blocks)
+    got = {k: counts[f"linear_tf32x3.{k}"]
+           for k in ("launches", "split_launches")}
+    want = 4 * depth * 3
+    if got != {"launches": want, "split_launches": want}:
+        fail(f"SiT-XL/2 eager step: linear_tf32x3 counted {got}, derived "
+             f"{want} launches and {want} pre-passes (4 sites x {depth} "
+             f"blocks x 3 roles)")
+    step_ms = time_ms(step, dev, steps, 0)
+    print(f"  SiT-XL/2 eager step at B={batch}: linear_tf32x3 "
+          f"{got['launches']} launches and {got['split_launches']} "
+          f"pre-passes (4 x {depth} x 3), {step_ms:.1f} ms a step by CUDA "
+          f"events over {steps}  [{smi}]")
+    del net
+    torch.cuda.empty_cache()
+    return dict(batch=batch, depth=depth, **got, step_ms=step_ms,
+                steps_timed=steps)
+
+
 def reset_launches():
     """Every wrapper's launch counters to 0."""
     from ratio_guided_multimodal_fm_tpu_torch.ops import reset_launch_counts
@@ -2292,7 +2359,11 @@ def _fused_net(name, make_net, kind, xs, ys, dev, smi, steps, batch,
                     "flash_guidance.launches": 0,
                     "fused_gn_silu_conv.launches": 0,
                     "batch_norm_silu.launches": bn_eager,
-                    "batch_norm_silu_backward.launches": bn_eager}
+                    "batch_norm_silu_backward.launches": bn_eager,
+                    "linear_tf32x3.launches": 0,
+                    "linear_tf32x3.split_launches": 0,
+                    "sdpa.efficient_launches": 0,
+                    "sdpa.math_launches": 0}
             if per != want:
                 fail(f"fused {name} {tag}: the wrappers' launches per macro "
                      f"step {per} != derived {want}")
@@ -2725,7 +2796,9 @@ def sharded_sampler_phase(dev, smi, out_dir, steps):
                 "group_norm_silu_backward": 0,
                 "group_norm_silu_backward (dγ/dβ)": 0,
                 "fused_gn_silu_conv": 0, "batch_norm_silu": 0,
-                "batch_norm_silu_backward": 0}
+                "batch_norm_silu_backward": 0,
+                "linear_tf32x3": 0, "linear_tf32x3.split_launches": 0,
+                "sdpa.efficient_launches": 0, "sdpa.math_launches": 0}
         for r, m in enumerate(meta):
             x = m[tag]
             if x["launches"] != want:
@@ -3882,7 +3955,8 @@ def main(argv=None) -> int:
     expected = {"flash_guidance": args.steps,
                 "group_norm_silu": 2 * args.steps * sum(sites),
                 "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-                "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
+                "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                "linear_tf32x3": 0}
     details["main_path"] = run_main_path(
         "main path", sampler, models, expected, 2, X_SHAPE, Y_SHAPE,
         args.steps, smi, flops=sampler_flops(mnist_unet_flops,
@@ -3908,7 +3982,8 @@ def main(argv=None) -> int:
                    "group_norm_silu": (2 * args.steps * sum(e1_sites[:2])
                                        + e1_sites[2]),
                    "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-                   "batch_norm_silu": 0, "batch_norm_silu_backward": 0}
+                   "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                   "linear_tf32x3": 0}
     details["exp1_path"] = run_main_path(
         "experiment-1 path", e1_sampler, e1_models, e1_expected, 2, E1_SHAPE,
         E1_SHAPE, args.steps, smi,
@@ -3935,7 +4010,8 @@ def main(argv=None) -> int:
         {"flash_guidance": args.steps,
          "group_norm_silu": 2 * args.steps * sum(o_sites[:2]) + o_sites[2],
          "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+         "linear_tf32x3": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi,
         flops=sampler_flops(flow_matching_model_flops,
                             flow_matching_model_flops, 1568),
@@ -3963,7 +4039,8 @@ def main(argv=None) -> int:
         {"flash_guidance": args.steps,
          "group_norm_silu": args.steps * sum(e1_sites[:2]) + e1_sites[2],
          "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+         "linear_tf32x3": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi,
         flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["merged_exp1_profile"] = profile_call(
@@ -4010,7 +4087,8 @@ def main(argv=None) -> int:
                                         + args.steps * e1_sites[2]),
                     "group_norm_silu_backward": args.steps * e1_sites[2],
                     "fused_gn_silu_conv": 0,
-                    "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+                    "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                    "linear_tf32x3": 0},
         2, E1_SHAPE, E1_SHAPE, args.steps, smi, method="mc_feng+grad",
         flops=sampler_flops(mnist28, mnist28, 1568), peak=bf16_peak)
     details["exp1_grad_profile"] = profile_call(
@@ -4021,7 +4099,8 @@ def main(argv=None) -> int:
         make_sampler(dict(e2g_kw, num_steps=args.steps)), models,
         {"flash_guidance": 0, "group_norm_silu": args.steps * sum(sites),
          "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+         "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+         "linear_tf32x3": 0},
         2, X_SHAPE, Y_SHAPE, args.steps, smi, method="grad",
         flops=sampler_flops(mnist_unet_flops, svhn_unet_flops, 4096, "grad"),
         peak=bf16_peak)
@@ -4053,7 +4132,8 @@ def main(argv=None) -> int:
                          "group_norm_silu": args.steps * sum(smc_sites),
                          "group_norm_silu_backward": 0,
                          "fused_gn_silu_conv": 0,
-                         "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+                         "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                         "linear_tf32x3": 0},
             2, xs, ys, args.steps, smi, method="smc", gamma=SMC_GAMMA,
             flops=sampler_flops(*((mnist_unet_flops, svhn_unet_flops)
                                   if tag == "exp2" else (mnist28, mnist28)),
@@ -4141,7 +4221,8 @@ def main(argv=None) -> int:
                   "group_norm_silu": (per * args.steps * sum(s64_sites[:2])
                                       + s64_sites[2]),
                   "group_norm_silu_backward": 0, "fused_gn_silu_conv": 0,
-                  "batch_norm_silu": 0, "batch_norm_silu_backward": 0},
+                  "batch_norm_silu": 0, "batch_norm_silu_backward": 0,
+                  "linear_tf32x3": 0},
             2, S64, S64, args.steps, smi, batch=B64, n_mc=N64,
             flops=sampler_flops(unet64_flops, unet64_flops, 2 * 64 * 64 * 3,
                                 batch=B64, n_mc=N64), peak=bf16_peak)
@@ -4591,6 +4672,45 @@ def main(argv=None) -> int:
               "experiment-2 ratio train step's 12 sites, device time by "
               "torch.profiler, L2 warm"))
 
+    # 6l. the 3×TF32 linear kernel: SiT-XL/2's eager step, then the bench
+    sit = sit_linear_step(dev, smi)
+    details["sit_linear_step"] = sit
+    from ratio_guided_multimodal_fm_tpu_torch.cli import linear_kernel_bench
+
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            lin = linear_kernel_bench.main([
+                "--out", os.path.join(tmp, "linear_kernel_bench.json")])
+        except AssertionError as e:    # the kernel broke the 3×TF32 rule
+            fail(f"linear bench: {e}")
+    for row in lin["rows"]:
+        check_bound(f"linear_tf32x3 {row['site']} {row['role']}",
+                    row["bound_ms"], "operations", 0,
+                    event_ms=row["kernel_ms"])
+        print(f"  linear_tf32x3 {row['site']} {row['role']} {row['shape']}: "
+              f"kernel {row['kernel_ms']:.4f} ms (split "
+              f"{row['split_ms']:.4f}), library {row['library_ms']:.4f}, "
+              f"bound {row['bound_ms']:.4f} by operations; max |err| "
+              f"{row['kernel_max_abs_err']:.3g} (float32 "
+              f"{row['library_max_abs_err']:.3g}, TF32 "
+              f"{row['tf32_max_abs_err']:.3g})  [{smi}]")
+    details["linear_bench"] = lin
+    fc1 = next(r for r in lin["rows"]
+               if (r["site"], r["role"]) == ("fc1", "forward"))
+    kernels.append(dict(
+        name="linear_tf32x3", route="cuda",
+        source="ratio_guided_multimodal_fm_tpu_torch/csrc/linear_tf32x3.cu",
+        replaces="none: the JAX package leaves its dense layers to XLA",
+        launches=sit["launches"], split_launches=sit["split_launches"],
+        launches_are="one eager forward and backward of SiT-XL/2 at B=32",
+        sit_xl2_eager_step_ms=sit["step_ms"],
+        max_abs_err=fc1["kernel_max_abs_err"], ms=fc1["kernel_ms"],
+        plain_ms=fc1["library_ms"], bound_ms=fc1["bound_ms"],
+        bound_by="operations", library_ms=fc1["library_ms"],
+        ms_is="CUDA events around 10 back-to-back calls of the wrapper "
+              "(pre-pass and product); the plain version is the library's "
+              "float32 product"))
+
     mark("6 kernel times")
 
     # 6c. the tier-C bench, kernel C's path, counted
@@ -4635,6 +4755,8 @@ def main(argv=None) -> int:
                                     "dγ/dβ (the SVHN U-Net's largest "
                                     "training site)",
         "fused_gn_silu_conv": f"{row0['shape']} bf16 NHWC groups=8",
+        "linear_tf32x3": "SiT-XL/2's fc1 forward, M=8192 K=1152 N=4608 "
+                         "f32 (every site and role: details.linear_bench)",
         "batch_norm_silu": f"the experiment-2 ratio net's 12 sites at "
                            f"B={B_TRAIN}, f32 channels_last, forward and "
                            "backward"}

@@ -16,7 +16,9 @@ Each block is adaLN-Zero: SiLU and a hidden → 6·hidden linear on c give
 shift, scale and gate for attention and for the MLP, and each branch is
 x + gate·f(LN(x)·(1 + scale) + shift), LayerNorm without affine at eps
 1e-6; f is multi-head attention (qkv with bias, `ops.attention.sdpa`,
-the memory-efficient backend on the card) or the tanh-GELU MLP. The final
+the memory-efficient backend on the card) or the tanh-GELU MLP. The four
+token projections are `TokenLinear`: in float32 the 3×TF32 kernel of
+`ops.linear` on the card. The final
 layer modulates the same way and projects each token to p·p·C_out values;
 unpatchify gives [B, C_out, H, W] and, with `learn_sigma`, C_out = 2·C and
 `forward` keeps the first C channels.
@@ -51,6 +53,7 @@ from ratio_guided_multimodal_fm_tpu_torch.models.layers import (
     timestep_embedding,
 )
 from ratio_guided_multimodal_fm_tpu_torch.ops.attention import sdpa
+from ratio_guided_multimodal_fm_tpu_torch.ops.linear import linear_tf32x3
 
 FREQ_DIM = 256     # the time embedding's sinusoid width (SiT's default)
 LN_EPS = 1e-6
@@ -126,12 +129,27 @@ class LabelEmbedder(nn.Module):
         return self.embedding_table(labels).to(self.dtype)
 
 
+class TokenLinear(Linear):
+    """A block's token projection (attn.qkv, attn.proj, mlp.fc1, mlp.fc2):
+    in float32 `ops.linear.linear_tf32x3`, the 3×TF32 tensor-core kernel
+    on the card (F.linear on the CPU), forward and backward; in bfloat16
+    `layers.Linear`'s F.linear, which cuBLAS already runs on the tensor
+    cores. The skinny products (adaLN, the time MLP, the final layer) stay
+    `layers.Linear`."""
+
+    def forward(self, x):
+        d = self.dtype
+        if d != torch.float32:
+            return super().forward(x)
+        return linear_tf32x3(x.to(d), self.weight.to(d), self.bias.to(d))
+
+
 class Attention(nn.Module):
     def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = Linear(hidden, 3 * hidden, dtype=dtype)
-        self.proj = Linear(hidden, hidden, dtype=dtype)
+        self.qkv = TokenLinear(hidden, 3 * hidden, dtype=dtype)
+        self.proj = TokenLinear(hidden, hidden, dtype=dtype)
 
     def forward(self, x):
         B, N, C = x.shape
@@ -144,8 +162,8 @@ class Attention(nn.Module):
 class Mlp(nn.Module):
     def __init__(self, hidden: int, mlp_hidden: int, dtype: torch.dtype):
         super().__init__()
-        self.fc1 = Linear(hidden, mlp_hidden, dtype=dtype)
-        self.fc2 = Linear(mlp_hidden, hidden, dtype=dtype)
+        self.fc1 = TokenLinear(hidden, mlp_hidden, dtype=dtype)
+        self.fc2 = TokenLinear(mlp_hidden, hidden, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))

@@ -8,6 +8,10 @@
 * `batchnorm.batch_norm_silu`      — CUDA C++ (csrc/batch_norm_silu.cu),
   train-mode BatchNorm+SiLU of the experiment-2 ratio net; its backward
   `batchnorm.batch_norm_silu_backward` in the same source
+* `linear.linear_tf32x3`           — CUDA C++ (csrc/linear_tf32x3.cu),
+  SiT's float32 token projections as 3×TF32 wgmma products, forward,
+  dgrad and wgrad (`launches`), each after a split pre-pass
+  (`split_launches`)
 * `attention.sdpa`                 — PyTorch's memory-efficient (CUTLASS)
   attention on the card, its math backend on the CPU, pinned: counted per
   backend (`efficient_launches`, `math_launches`)
@@ -35,6 +39,7 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.guidance import (
     flash_guidance,
     flash_guidance_reference,
 )
+from ratio_guided_multimodal_fm_tpu_torch.ops.linear import linear_tf32x3
 from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
     fused_gn_silu_conv,
     fused_gn_silu_conv_reference,
@@ -47,6 +52,8 @@ _COUNTERS = ((group_norm_silu, "launches"),
              (fused_gn_silu_conv, "launches"),
              (batch_norm_silu, "launches"),
              (batch_norm_silu_backward, "launches"),
+             (linear_tf32x3, "launches"),
+             (linear_tf32x3, "split_launches"),
              (sdpa, "efficient_launches"),
              (sdpa, "math_launches"))
 
@@ -69,4 +76,4 @@ __all__ = ["batch_norm_silu", "batch_norm_silu_backward",
            "fused_gn_silu_conv", "fused_gn_silu_conv_reference",
            "group_norm_silu", "group_norm_silu_backward",
            "group_norm_silu_backward_reference", "group_norm_silu_reference",
-           "launch_counts", "reset_launch_counts", "sdpa"]
+           "launch_counts", "linear_tf32x3", "reset_launch_counts", "sdpa"]

@@ -28,7 +28,9 @@ the same points; merged-pair sampling against the two nets on the card
 statistics and running statistics bit for bit with the plain version and
 BatchNorm2d (the same PyTorch means), y within ops/batchnorm.py:TOL_F32,
 its backward within twice the float32 plain backward's max |err| against
-the plain backward in float64.
+the plain backward in float64; linear_tf32x3 (3×TF32) in each role within
+3× cuBLAS's float32 product's max |err| against float64 and under a tenth
+of the TF32 product's, and two launches bit for bit.
 """
 import pytest
 import torch
@@ -1081,8 +1083,10 @@ def test_fused_sit_graph_equals_eager_loop(card, deterministic_cudnn):
     """Two macro steps of K=2 at B=8 with labels (label drop on): the
     graph replay's losses, parameters and EMA equal the eager K-step
     loop's bit for bit; the warm-up counts its 2 × depth attention calls
-    on the memory-efficient backend, the capture and the replay none; the
-    spans are one warm-up, one capture and one replay."""
+    on the memory-efficient backend and 4 sites × depth × 3 roles × K
+    launches of the 3×TF32 linear kernel (each after one split pre-pass),
+    the capture and the replay none; the spans are one warm-up, one
+    capture and one replay."""
     from ratio_guided_multimodal_fm_tpu_torch.core import observability as obs
     from ratio_guided_multimodal_fm_tpu_torch.ops import launch_counts
     from ratio_guided_multimodal_fm_tpu_torch.train import steps as S
@@ -1102,11 +1106,14 @@ def test_fused_sit_graph_equals_eager_loop(card, deterministic_cudnn):
         torch.cuda.synchronize()
         after = launch_counts()
         counted.append([after[k] - before[k] for k in (
-            "sdpa.efficient_launches", "sdpa.math_launches")])
+            "sdpa.efficient_launches", "sdpa.math_launches",
+            "linear_tf32x3.launches", "linear_tf32x3.split_launches")])
         le = fe(eager, data, idx, torch.Generator(card).manual_seed(m),
                 labels=labels)
         assert torch.equal(lg, le)
-    assert counted == [[2 * SIT_TINY["depth"], 0], [0, 0]]
+    linears = 4 * SIT_TINY["depth"] * 3 * 2
+    assert counted == [[2 * SIT_TINY["depth"], 0, linears, linears],
+                       [0, 0, 0, 0]]
     counts = {n: t["count"] for n, t in obs.span_totals().items()
               if n.startswith("train.graph.")}
     assert counts == {"train.graph.warmup": 1, "train.graph.capture": 1,
@@ -1114,3 +1121,116 @@ def test_fused_sit_graph_equals_eager_loop(card, deterministic_cudnn):
     (g,) = fg.graphs.values()
     assert g.replays == 1
     _assert_same_state(graphed, eager)
+
+
+# SiT-XL/2's token projections (K, N) at B = 32 (M = 8,192 tokens), and the
+# CPU-size SiT's (hidden 96)
+LINEAR_XL = {"qkv": (1152, 3456), "proj": (1152, 1152), "fc1": (1152, 4608),
+             "fc2": (4608, 1152)}
+LINEAR_TINY = {"qkv": (96, 288), "proj": (96, 96), "fc1": (96, 384),
+               "fc2": (384, 96)}
+
+
+def _check_linear_role(card, role, M, K, N, name):
+    """One role through the wrapper and its autograd Function, held to
+    cli/linear_kernel_bench.py's 3×TF32 rule (3× the float32 product's max
+    |err| against float64, under a tenth of the TF32 product's)."""
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        linear_kernel_bench as LB,
+    )
+
+    calls = LB.role_calls(role, *LB.operands(M, K, N, card))
+    LB.check_role(f"{name} M={M}", role, LB.role_errors(calls))
+
+
+@pytest.mark.parametrize("role", ["forward", "dgrad", "wgrad"])
+@pytest.mark.parametrize("site", sorted(LINEAR_XL))
+def test_linear_tf32x3_at_the_sit_xl_shapes(card, site, role):
+    """Each role at SiT-XL/2's shapes: the kernel's max |err| against a
+    float64 product within 3× cuBLAS's float32 product's, and under a tenth
+    of the TF32 product's (three TF32 products, float32-accurate)."""
+    K, N = LINEAR_XL[site]
+    _check_linear_role(card, role, 8192, K, N, site)
+
+
+@pytest.mark.parametrize("role", ["forward", "dgrad", "wgrad"])
+@pytest.mark.parametrize("M,site", [(8190, "fc1"), (8190, "fc2"),
+                                    (128, "qkv"), (127, "qkv"),
+                                    (127, "proj"), (128, "fc1"),
+                                    (127, "fc2")])
+def test_linear_tf32x3_ragged_and_at_the_cpu_sit_widths(card, M, site, role):
+    """A ragged M at SiT-XL/2's widths (TMA's zero fill, masked stores) and
+    the CPU-size SiT's widths (96 → 288, 96, 384; 384 → 96)."""
+    K, N = (LINEAR_XL if M > 1000 else LINEAR_TINY)[site]
+    _check_linear_role(card, role, M, K, N, site)
+
+
+@pytest.mark.parametrize("role", ["forward", "dgrad", "wgrad"])
+@pytest.mark.parametrize("M", [16, 17, 127])
+@pytest.mark.parametrize("K,N", [(100, 36), (36, 100)])
+def test_linear_tf32x3_at_widths_off_the_tile(card, K, N, M, role):
+    """Widths that are multiples of 4 but not of 32: a partial last stage
+    of 32 (TMA's zero fill along K), wgrad's transposed A with a ragged
+    row count, and transposed planes whose rows are padded to a multiple
+    of 4 (the pad columns unwritten: M = 17, 127), wgrad splitting dy
+    (K > N) and x (K <= N); M = 16 is the plan's floor."""
+    _check_linear_role(card, role, M, K, N, f"K={K} N={N}")
+
+
+@pytest.mark.parametrize("M", [1, 15])
+def test_linear_tf32x3_raises_below_the_row_floor(card, M):
+    """Fewer rows than ops/linear.py:MIN_ROWS raise on the card, as the
+    plan documents, and nothing falls back."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import linear_tf32x3
+
+    x = torch.randn(M, 96, device=card)
+    w = torch.randn(288, 96, device=card)
+    with pytest.raises(ValueError, match="no plan"):
+        linear_tf32x3(x, w)
+
+
+@pytest.mark.parametrize("role", ["forward", "dgrad", "wgrad"])
+def test_linear_tf32x3_is_deterministic(card, role):
+    from ratio_guided_multimodal_fm_tpu_torch.cli import (
+        linear_kernel_bench as LB,
+    )
+
+    kernel, _, _ = LB.role_calls(role, *LB.operands(4096, 1152, 4608, card))
+    assert torch.equal(kernel(), kernel())
+
+
+def test_linear_tf32x3_through_autograd_with_bias(card):
+    """The wrapper on [B, N, K] activations with a bias, forward and
+    backward, against F.linear in float64, and its launch counters."""
+    from ratio_guided_multimodal_fm_tpu_torch.ops import (
+        launch_counts,
+        linear_tf32x3,
+    )
+
+    g = torch.Generator(card).manual_seed(1)
+    x = torch.randn(4, 64, 96, generator=g, device=card, requires_grad=True)
+    w = torch.randn(288, 96, generator=g, device=card, requires_grad=True)
+    b = torch.randn(288, generator=g, device=card, requires_grad=True)
+    dy = torch.randn(4, 64, 288, generator=g, device=card)
+    before = launch_counts()
+    y = linear_tf32x3(x, w, b)
+    y.backward(dy)
+    after = launch_counts()
+    for k in ("linear_tf32x3.launches", "linear_tf32x3.split_launches"):
+        assert after[k] - before[k] == 3
+    x64, w64, b64 = (t.detach().double().requires_grad_() for t in (x, w, b))
+    y64 = torch.nn.functional.linear(x64, w64, b64)
+    y64.backward(dy.double())
+    for got, want in ((y, y64), (x.grad, x64.grad), (w.grad, w64.grad),
+                      (b.grad, b64.grad)):
+        torch.testing.assert_close(got.double(), want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.bfloat16])
+def test_linear_tf32x3_raises_off_float32(card, dtype):
+    from ratio_guided_multimodal_fm_tpu_torch.ops import linear_tf32x3
+
+    x = torch.randn(8, 96, device=card, dtype=dtype)
+    w = torch.randn(288, 96, device=card, dtype=dtype)
+    with pytest.raises(TypeError, match="float32"):
+        linear_tf32x3(x, w)

@@ -150,6 +150,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
     from ratio_guided_multimodal_fm_tpu_torch.cli import (
         evaluate,
         evaluate_mnist_svhn,
+        linear_kernel_bench,
         reflow,
         resblock_kernel_bench,
         sample,
@@ -184,6 +185,7 @@ def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
                  lambda: evaluate.main(["--num_steps", "1"]),
                  lambda: evaluate_mnist_svhn.main(["--num_steps", "1"]),
                  lambda: resblock_kernel_bench.main([]),
+                 lambda: linear_kernel_bench.main([]),
                  lambda: train_flow.main(["--modality", "x"]),
                  lambda: train_flow_mnist32.main([]),
                  lambda: train_flow_svhn.main([]),
