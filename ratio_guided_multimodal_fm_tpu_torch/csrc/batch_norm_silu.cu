@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "c_api.cuh"
+
 namespace {
 
 constexpr int kSlice = 32;                    // channels of a reduce CTA
@@ -404,10 +406,6 @@ int rgmf_batch_norm_silu_backward(const float* x, const float* dy,
   bn_silu_grad_apply_kernel<<<apply_grid, kApplyThreads,
                               6 * C * sizeof(float), s>>>(a);
   return (int)cudaGetLastError();
-}
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -82,6 +82,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "c_api.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
@@ -800,9 +802,5 @@ int rgmf_flash_guidance_max_clusters(int cluster, int aligned, int device) {
 
 // cudaGetLastError of this library's runtime (and clears it).
 int rgmf_last_error(void) { return (int)cudaGetLastError(); }
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
 
 }  // extern "C"

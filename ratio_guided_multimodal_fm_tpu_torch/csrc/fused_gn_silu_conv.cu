@@ -55,6 +55,7 @@
 // with warp-specialised producers is for a later change). float32 stays plain
 // IEEE FMA (never TF32), an 8x4 register tile per thread over the same halo.
 
+#include "c_api.cuh"
 #include "gn_common.cuh"
 
 namespace {
@@ -667,10 +668,6 @@ int rgmf_fused_gn_silu_conv(const void* x, const float* gn_scale,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? launch_all<bf16>(a, conv_w, smem_bytes, eps, s)
                  : launch_all<float>(a, conv_w, smem_bytes, eps, s);
-}
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -39,6 +39,7 @@
 
 #include <cooperative_groups.h>
 
+#include "c_api.cuh"
 #include "gn_common.cuh"
 
 namespace {
@@ -362,10 +363,6 @@ int rgmf_group_norm_silu(const void* x, const float* w, const float* b,
                                               threads, smem_bytes, s)
                : dispatch_layout<float, false>(a, channels_last, vec, grid,
                                                threads, smem_bytes, s);
-}
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -62,6 +62,7 @@
 
 #include <cooperative_groups.h>
 
+#include "c_api.cuh"
 #include "gn_common.cuh"
 
 namespace {
@@ -605,10 +606,6 @@ int rgmf_group_norm_silu_backward_max_clusters(int is_bf16, int channels_last,
   const int rc = dispatch(a, is_bf16, channels_last, vec, 1024 * cluster,
                           threads, smem_bytes, 0, &n);
   return rc == 0 ? n : -rc;
-}
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -62,7 +62,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "gn_common.cuh"
+#include "c_api.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -487,10 +488,6 @@ int rgmf_linear_gemm(const float* a, const float* b, const float* bias,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(a_trans ? launch<true>(ma, mb, g, s)
                        : launch<false>(ma, mb, g, s));
-}
-
-const char* rgmf_cuda_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -21,7 +21,10 @@ in `<wrapper>.launches` (`launch_counts` reads them all,
 `reset_launch_counts` sets them to 0). A CUDA graph's capture only records
 the kernels and its replays run them without passing through the wrappers,
 so neither counts: a graph's launches are read from a profiler trace.
+Binding, launching, checking and counting are `_capi`'s, the one seam
+between the wrappers and csrc/.
 """
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import COUNTERS
 from ratio_guided_multimodal_fm_tpu_torch.ops.attention import sdpa
 from ratio_guided_multimodal_fm_tpu_torch.ops.batchnorm import (
     batch_norm_silu,
@@ -45,28 +48,16 @@ from ratio_guided_multimodal_fm_tpu_torch.ops.resblock import (
     fused_gn_silu_conv_reference,
 )
 
-_COUNTERS = ((group_norm_silu, "launches"),
-             (group_norm_silu_backward, "launches"),
-             (group_norm_silu_backward, "weight_grad_launches"),
-             (flash_guidance, "launches"),
-             (fused_gn_silu_conv, "launches"),
-             (batch_norm_silu, "launches"),
-             (batch_norm_silu_backward, "launches"),
-             (linear_tf32x3, "launches"),
-             (linear_tf32x3, "split_launches"),
-             (sdpa, "efficient_launches"),
-             (sdpa, "math_launches"))
-
 
 def launch_counts() -> dict:
     """{'<wrapper>.<counter>': count} of every kernel wrapper."""
     return {f"{fn.__name__}.{attr}": getattr(fn, attr)
-            for fn, attr in _COUNTERS}
+            for fn, attr in COUNTERS}
 
 
 def reset_launch_counts() -> None:
     """Every wrapper's counters to 0."""
-    for fn, attr in _COUNTERS:
+    for fn, attr in COUNTERS:
         setattr(fn, attr, 0)
 
 

@@ -28,6 +28,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import count, counters
+
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q kᵀ / sqrt(d)) v over [B, H, N, d] (no mask, no dropout):
@@ -38,12 +40,8 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION if cuda
                      else SDPBackend.MATH):
         out = F.scaled_dot_product_attention(q, k, v)
-    if not cuda:
-        sdpa.math_launches += 1
-    elif not torch.cuda.is_current_stream_capturing():
-        sdpa.efficient_launches += 1
+    count(sdpa, "efficient_launches" if cuda else "math_launches", q.device)
     return out
 
 
-sdpa.efficient_launches = 0
-sdpa.math_launches = 0
+counters(sdpa, "efficient_launches", "math_launches")

@@ -25,19 +25,20 @@ raises.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-from ratio_guided_multimodal_fm_tpu_torch.ops import _build
-from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
-    NUM_SMS,
-    _device_and_stream,
-    _eager,
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import (
+    FLOAT,
+    INT,
+    PTR,
+    Kernel,
+    counters,
 )
+from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import NUM_SMS
 
 EPS = 1e-5                 # flax's and torch's BatchNorm epsilon
 SLICE = 32                 # channels of a backward reduce CTA (csrc kSlice)
@@ -141,25 +142,10 @@ def batch_norm_silu_backward_reference(dy, x, weight, bias, mean, rstd):
     return dx, s2.to(x.dtype), s1.to(x.dtype)
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = {"batch_norm_silu": [_P] * 10 + [_I] * 2 + [ctypes.c_float]
-         + [_I] * 2 + [_P],
-         "batch_norm_silu_backward": [_P] * 12 + [_I] * 5 + [_P]}
-_c_fns = {}
-
-
-def _kernel_fn(name: str):
-    """The C entry point rgmf_<name> of csrc/batch_norm_silu.cu and the
-    library's error-string function."""
-    if name not in _c_fns:
-        lib = _build.load("batch_norm_silu")
-        fn = getattr(lib, f"rgmf_{name}")
-        fn.argtypes = _ARGS[name]
-        fn.restype = ctypes.c_int
-        lib.rgmf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fns[name] = (fn, lib.rgmf_cuda_error_string)
-    return _c_fns[name]
+_FORWARD = Kernel("batch_norm_silu", "batch_norm_silu",
+                  [PTR] * 10 + [INT] * 2 + [FLOAT] + [INT])
+_BACKWARD = Kernel("batch_norm_silu", "batch_norm_silu_backward",
+                   [PTR] * 12 + [INT] * 4)
 
 
 def _check(what, t, C, dtype=torch.float32):
@@ -176,27 +162,22 @@ def _launch(x, weight, bias, running_mean, running_var, num_batches_tracked,
             eps):
     """(y, mean, rstd): PyTorch's two means, then the kernel; x
     channels_last float32."""
-    fn, err_str = _kernel_fn("batch_norm_silu")
     N, C, H, W = x.shape
     rows = N * H * W
     plan = bn_plan(rows, C)
     mean, msq = bn_moments(x)
     y = torch.empty_like(x)
     rstd = torch.empty_like(mean)
-    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+    _FORWARD(x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
              mean.data_ptr(), msq.data_ptr(), y.data_ptr(), rstd.data_ptr(),
              running_mean.data_ptr(), running_var.data_ptr(),
              num_batches_tracked.data_ptr(), rows, C, float(eps),
-             plan.apply_grid, *_device_and_stream(x))
-    if err != 0:
-        raise RuntimeError(f"batch_norm_silu kernel launch failed: CUDA "
-                           f"error {err} ({err_str(err).decode()}), {plan}")
-    batch_norm_silu.launches += _eager()
+             plan.apply_grid, on=x, plan=plan,
+             counter=(batch_norm_silu, "launches"))
     return y, mean, rstd
 
 
 def _launch_backward(dy, x, weight, bias, mean, rstd):
-    fn, err_str = _kernel_fn("batch_norm_silu_backward")
     N, C, H, W = x.shape
     rows = N * H * W
     plan = bn_plan(rows, C)
@@ -211,16 +192,12 @@ def _launch_backward(dy, x, weight, bias, mean, rstd):
                      dtype=torch.float64, device=x.device)
     # the reduce's last-CTA tickets, one a slice, 0 at launch
     tickets = torch.zeros(plan.slices, dtype=torch.int32, device=x.device)
-    err = fn(
+    _BACKWARD(
         x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
         mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), dgamma.data_ptr(),
         dbeta.data_ptr(), ws.data_ptr(), coef.data_ptr(), tickets.data_ptr(),
-        rows, C, plan.row_blocks, plan.apply_grid, *_device_and_stream(x))
-    if err != 0:
-        raise RuntimeError(f"batch_norm_silu_backward kernel launch failed: "
-                           f"CUDA error {err} ({err_str(err).decode()}), "
-                           f"{plan}")
-    batch_norm_silu_backward.launches += _eager()
+        rows, C, plan.row_blocks, plan.apply_grid, on=x, plan=plan,
+        counter=(batch_norm_silu_backward, "launches"))
     return dx, dgamma, dbeta
 
 
@@ -246,7 +223,7 @@ def batch_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
     return _launch_backward(dy, x, weight, bias, mean, rstd)
 
 
-batch_norm_silu_backward.launches = 0
+counters(batch_norm_silu_backward, "launches")
 
 
 class _BatchNormSiLU(torch.autograd.Function):
@@ -317,4 +294,4 @@ def batch_norm_silu(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         eps)
 
 
-batch_norm_silu.launches = 0
+counters(batch_norm_silu, "launches")

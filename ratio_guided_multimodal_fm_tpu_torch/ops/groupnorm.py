@@ -34,7 +34,6 @@ written.
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from dataclasses import dataclass
@@ -43,7 +42,17 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
-from ratio_guided_multimodal_fm_tpu_torch.ops import _build
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import (
+    FLOAT,
+    INT,
+    PTR,
+    Kernel,
+    bind,
+    count,
+    counters,
+    device_index,
+    ptr,
+)
 
 SMEM_MAX = 232_448         # dynamic shared memory one block may use (H100)
 NUM_SMS = 132              # streaming multiprocessors of an H100 SXM
@@ -271,49 +280,15 @@ def gn_slices(plan: GNPlan, B: int, C: int, H: int, W: int
             yield cta, b, lo, hi
 
 
-_c_fns = {}
-
-
-def _kernel_fn(name: str, argtypes):
-    """The C entry point rgmf_<name> of csrc/<name>.cu and the library's
-    error-string function."""
-    if name not in _c_fns:
-        lib = _build.load(name)
-        fn = getattr(lib, f"rgmf_{name}")
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-        lib.rgmf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fns[name] = (fn, lib.rgmf_cuda_error_string)
-    return _c_fns[name]
-
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_FWD_ARGS = [_P] * 6 + [_I] * 4 + [ctypes.c_float] + [_I] * 10 + [_P]
-_BWD_ARGS = [_P] * 10 + [_I] * 14 + [_P]
-
-
-def _device_and_stream(x):
-    dev = x.device
-    return (dev.index if dev.index is not None else torch.cuda.current_device(),
-            torch.cuda.current_stream(dev).cuda_stream)
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
-def _eager() -> int:
-    """1 when the kernel just launched runs now, 0 when a CUDA graph
-    capture only recorded it (a replay runs it without this wrapper, so a
-    graph's launches are read from a profiler trace of its replays)."""
-    return int(not torch.cuda.is_current_stream_capturing())
+_FORWARD = Kernel("group_norm_silu", "group_norm_silu",
+                  [PTR] * 6 + [INT] * 4 + [FLOAT] + [INT] * 9)
+_BACKWARD = Kernel("group_norm_silu_backward", "group_norm_silu_backward",
+                   [PTR] * 10 + [INT] * 13)
 
 
 def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
             stats: bool = False):
     """y (x's strides); with `stats` also (mean, rstd) float32 [B, G]."""
-    fn, err_str = _kernel_fn("group_norm_silu", _FWD_ARGS)
     B, C, H, W = x.shape
     cl = not x.is_contiguous()          # then channels_last (checked)
     y = torch.empty_like(x)             # x's strides
@@ -324,15 +299,12 @@ def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
         rstd = torch.empty_like(mean)
     align = math.gcd(x.data_ptr(), 16) or 16
     plan = gn_plan(B, C, H, W, num_groups, x.element_size(), cl, align)
-    err = fn(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-             _ptr(mean), _ptr(rstd), B, C, H * W, num_groups, float(eps),
+    _FORWARD(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+             ptr(mean), ptr(rstd), B, C, H * W, num_groups, float(eps),
              int(x.dtype == torch.bfloat16), int(cl), plan.vec, plan.cluster,
              plan.samples_per_cta, plan.threads, int(plan.staged),
-             plan.smem_bytes, plan.grid, *_device_and_stream(x))
-    if err != 0:
-        raise RuntimeError(f"group_norm_silu kernel launch failed: CUDA "
-                           f"error {err} ({err_str(err).decode()}), {plan}")
-    group_norm_silu.launches += _eager()
+             plan.smem_bytes, plan.grid, on=x, plan=plan,
+             counter=(group_norm_silu, "launches"))
     return (y, mean, rstd) if stats else y
 
 
@@ -340,11 +312,8 @@ def _launch(x: torch.Tensor, weight, bias, num_groups: int, eps: float,
 def backward_clusters(index: int, is_bf16: bool, plan: GNPlan) -> int:
     """Clusters of the plan's launch that card `index` holds at once
     (cudaOccupancyMaxActiveClusters); builds the kernel if needed."""
-    _kernel_fn("group_norm_silu_backward", _BWD_ARGS)
-    fn = _build.load("group_norm_silu_backward"
-                     ).rgmf_group_norm_silu_backward_max_clusters
-    fn.argtypes = [_I] * 7
-    fn.restype = _I
+    fn = bind("group_norm_silu_backward",
+              "group_norm_silu_backward_max_clusters", [INT] * 7)
     n = fn(int(is_bf16), int(plan.channels_last), plan.vec, plan.cluster,
            plan.threads, plan.smem_bytes, index)
     if n < 0:
@@ -368,13 +337,12 @@ def backward_plan(x: torch.Tensor, dy: torch.Tensor, groups: int) -> GNPlan:
     args = (B, C, H, W, groups, x.element_size(), cl, align)
     plan = gn_backward_plan(*args, BACKWARD_MAX_CLUSTER)
     if plan.cluster > MAX_CLUSTER and backward_clusters(
-            _device_and_stream(x)[0], x.dtype == torch.bfloat16, plan) < 1:
+            device_index(x.device), x.dtype == torch.bfloat16, plan) < 1:
         plan = gn_backward_plan(*args)
     return plan
 
 
 def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
-    fn, err_str = _kernel_fn("group_norm_silu_backward", _BWD_ARGS)
     B, C, H, W = x.shape
     G = mean.shape[1]
     cl = not x.is_contiguous()
@@ -389,18 +357,15 @@ def _launch_backward(dy, x, weight, bias, mean, rstd, weight_grads: bool):
                          dtype=torch.float64, device=x.device)
         dgamma = torch.empty(C, dtype=torch.float32, device=x.device)
         dbeta = torch.empty_like(dgamma)
-    err = fn(x.data_ptr(), dy.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-             mean.data_ptr(), rstd.data_ptr(), dx.data_ptr(), _ptr(ws),
-             _ptr(dgamma), _ptr(dbeta), B, C, H * W, G, int(bf16), int(cl),
-             plan.vec, plan.cluster, plan.samples_per_cta, plan.threads,
-             int(plan.staged), plan.smem_bytes, plan.grid,
-             *_device_and_stream(x))
-    if err != 0:
-        raise RuntimeError(f"group_norm_silu_backward kernel launch failed: "
-                           f"CUDA error {err} ({err_str(err).decode()}), "
-                           f"{plan}")
-    group_norm_silu_backward.launches += _eager()
-    group_norm_silu_backward.weight_grad_launches += _eager() * weight_grads
+    _BACKWARD(x.data_ptr(), dy.data_ptr(), weight.data_ptr(),
+              bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+              dx.data_ptr(), ptr(ws), ptr(dgamma), ptr(dbeta), B, C, H * W,
+              G, int(bf16), int(cl), plan.vec, plan.cluster,
+              plan.samples_per_cta, plan.threads, int(plan.staged),
+              plan.smem_bytes, plan.grid, on=x, plan=plan,
+              counter=(group_norm_silu_backward, "launches"))
+    if weight_grads:
+        count(group_norm_silu_backward, "weight_grad_launches", x.device)
     return dx, dgamma, dbeta
 
 
@@ -430,9 +395,9 @@ def group_norm_silu_backward(dy: torch.Tensor, x: torch.Tensor,
                             rstd.contiguous(), weight_grads)
 
 
-group_norm_silu_backward.launches = 0
-# the calls that also ran the second launch, the dγ/dβ reduction
-group_norm_silu_backward.weight_grad_launches = 0
+# weight_grad_launches: the calls that also ran the second launch, the
+# dγ/dβ reduction
+counters(group_norm_silu_backward, "launches", "weight_grad_launches")
 
 
 class _GroupNormSiLU(torch.autograd.Function):
@@ -504,4 +469,4 @@ def group_norm_silu(x: torch.Tensor, weight: torch.Tensor,
     return _launch(x, weight, bias, num_groups, eps)
 
 
-group_norm_silu.launches = 0
+counters(group_norm_silu, "launches")

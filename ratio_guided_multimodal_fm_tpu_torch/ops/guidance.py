@@ -24,7 +24,6 @@ version of the same function. Any other device raises.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 import functools
 from dataclasses import dataclass
@@ -33,7 +32,16 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
-from ratio_guided_multimodal_fm_tpu_torch.ops import _build
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import (
+    FLOAT,
+    INT,
+    PTR,
+    Kernel,
+    bind,
+    counters,
+    device_index,
+    error_string,
+)
 
 EPS_T = 1e-3  # sigma floor, matches ref flow_utils.py:279
 
@@ -107,42 +115,21 @@ def flash_guidance_reference(x_t, y_t, mc_x1, mc_y1, mc_log_r, t: float,
             l[:, 0])
 
 
-_c_fn = None
-
-
-def _kernel_fn():
-    global _c_fn
-    if _c_fn is None:
-        lib = _build.load("flash_guidance")
-        fn = lib.rgmf_flash_guidance
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i] * 4 + [ctypes.c_float] + [i] * 4
-                       + [p] * 5 + [i, p])
-        fn.restype = i
-        lib.rgmf_flash_guidance_max_clusters.argtypes = [i, i, i]
-        lib.rgmf_flash_guidance_max_clusters.restype = i
-        lib.rgmf_last_error.argtypes = []
-        lib.rgmf_last_error.restype = i
-        lib.rgmf_cuda_error_string.argtypes = [i]
-        lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fn = (fn, lib.rgmf_cuda_error_string)
-    return _c_fn
+_GUIDANCE = Kernel("flash_guidance", "flash_guidance",
+                   [PTR] * 5 + [INT] * 4 + [FLOAT] + [INT] * 4 + [PTR] * 5)
 
 
 def last_error() -> str:
     """cudaGetLastError of the kernels' library (which clears it), as
     'code (name)'."""
-    _kernel_fn()
-    lib = _build.load("flash_guidance")
-    err = lib.rgmf_last_error()
-    return f"{err} ({lib.rgmf_cuda_error_string(err).decode()})"
+    err = bind("flash_guidance", "last_error", [])()
+    return f"{err} ({error_string('flash_guidance', err)})"
 
 
 def max_active_clusters(cluster: int, aligned: bool, index: int = 0) -> int:
     """Clusters of `cluster` score-kernel CTAs that card `index` holds at
     once (cudaOccupancyMaxActiveClusters); builds the kernel if needed."""
-    _kernel_fn()
-    n = _build.load("flash_guidance").rgmf_flash_guidance_max_clusters(
+    n = bind("flash_guidance", "flash_guidance_max_clusters", [INT] * 3)(
         cluster, int(aligned), index)
     if n < 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters: CUDA error {-n}")
@@ -252,13 +239,11 @@ def _launch(xt, yt, X1, Y1, lr, t: float, cluster: int = 0):
     cluster size in place of the plan's (for checks of every size on one
     card), else the plan picks it from the card's capacity. Returns
     (g_x, g_y, ess, l, workspace, plan)."""
-    fn, err_str = _kernel_fn()
     B, Dx = xt.shape
     N, Dy = Y1.shape
     dev = xt.device
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
     f32 = torch.float32
-    capacity = card_capacity(index)
+    capacity = card_capacity(device_index(dev))
     ws = torch.empty((workspace_floats(B, N),), dtype=f32, device=dev)
     gx = torch.empty_like(xt)
     gy = torch.empty_like(yt)
@@ -272,14 +257,9 @@ def _launch(xt, yt, X1, Y1, lr, t: float, cluster: int = 0):
         plan = dataclasses.replace(
             plan, cluster=cluster,
             grid1=cluster * plan.tiles_b1 * plan.tiles_n1)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(*ptrs[:5], B, N, Dx, Dy, float(np.float32(t)), plan.cluster,
-             int(plan.aligned), plan.smem1, plan.smem2, *ptrs[5:], index,
-             stream)
-    if err != 0:
-        raise RuntimeError(f"flash_guidance kernel launch failed: CUDA error "
-                           f"{err} ({err_str(err).decode()}), {plan}")
-    flash_guidance.launches += 1
+    _GUIDANCE(*ptrs[:5], B, N, Dx, Dy, float(np.float32(t)), plan.cluster,
+              int(plan.aligned), plan.smem1, plan.smem2, *ptrs[5:], on=xt,
+              plan=plan, counter=(flash_guidance, "launches"))
     return gx, gy, ess, l, ws, plan
 
 
@@ -347,7 +327,7 @@ def _checked_call(x_t, y_t, mc_x1, mc_y1, mc_log_r, t, cluster=0,
     return out, ws[:2 * B * N].view(torch.float64).view(B, N), plan
 
 
-flash_guidance.launches = 0
+counters(flash_guidance, "launches")
 
 
 # ---- yardsticks that a correct kernel meets by construction --------------

@@ -39,17 +39,18 @@ graph's capture only records, and its replays do not pass through here).
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
-from ratio_guided_multimodal_fm_tpu_torch.ops import _build
-from ratio_guided_multimodal_fm_tpu_torch.ops.groupnorm import (
-    _device_and_stream,
-    _eager,
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import (
+    INT,
+    PTR,
+    Kernel,
+    counters,
+    ptr,
 )
 
 MAX_ELEMENTS = 2**31     # every operand, plane and output below this
@@ -93,29 +94,8 @@ def linear_plan(M: int, N: int, K: int) -> dict:
             "wgrad": wgrad}
 
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ARGS = {"linear_split": [_P, _P] + [_I] * 4 + [_I, _P],
-         "linear_gemm": [_P] * 4 + [_I] * 7 + [_I, _P]}
-_c_fns = {}
-
-
-def _kernel_fn(name: str):
-    """The C entry point rgmf_<name> of csrc/linear_tf32x3.cu and the
-    library's error-string function."""
-    if name not in _c_fns:
-        lib = _build.load("linear_tf32x3")
-        fn = getattr(lib, f"rgmf_{name}")
-        fn.argtypes = _ARGS[name]
-        fn.restype = ctypes.c_int
-        lib.rgmf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fns[name] = (fn, lib.rgmf_cuda_error_string)
-    return _c_fns[name]
-
-
-def _raise(name, err, err_str, what):
-    raise RuntimeError(f"linear_tf32x3 {name} launch failed: CUDA error "
-                       f"{err} ({err_str(err).decode()}), {what}")
+_SPLIT = Kernel("linear_tf32x3", "linear_split", [PTR] * 2 + [INT] * 4)
+_GEMM = Kernel("linear_tf32x3", "linear_gemm", [PTR] * 4 + [INT] * 7)
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -127,7 +107,6 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def _split(src: torch.Tensor, trans: bool) -> torch.Tensor:
     """The high and low TF32 planes of src [rows, cols]: [2, rows, cols],
     or [2, cols, ld] of srcᵀ (ld = rows rounded up to 4)."""
-    fn, err_str = _kernel_fn("linear_split")
     rows, cols = src.shape
     if trans:
         ld = -(-rows // 4) * 4
@@ -137,25 +116,19 @@ def _split(src: torch.Tensor, trans: bool) -> torch.Tensor:
         ld = cols
         planes = torch.empty((2, rows, cols), dtype=torch.float32,
                              device=src.device)
-    err = fn(src.data_ptr(), planes.data_ptr(), rows, cols, ld, int(trans),
-             *_device_and_stream(src))
-    if err:
-        _raise("split", err, err_str, f"{rows}x{cols} trans={trans}")
-    linear_tf32x3.split_launches += _eager()
+    _SPLIT(src.data_ptr(), planes.data_ptr(), rows, cols, ld, int(trans),
+           on=src, plan=f"{rows}x{cols} trans={trans}",
+           counter=(linear_tf32x3, "split_launches"))
     return planes
 
 
 def _gemm(plan: GemmPlan, a: torch.Tensor, planes: torch.Tensor,
           bias, out: torch.Tensor) -> torch.Tensor:
-    fn, err_str = _kernel_fn("linear_gemm")
     ldo = plan.R if plan.out_trans else plan.C
-    err = fn(a.data_ptr(), planes.data_ptr(),
-             None if bias is None else bias.data_ptr(), out.data_ptr(),
-             plan.R, plan.C, plan.K, planes.shape[-1], ldo,
-             int(plan.a_trans), int(plan.out_trans), *_device_and_stream(a))
-    if err:
-        _raise("gemm", err, err_str, str(plan))
-    linear_tf32x3.launches += _eager()
+    _GEMM(a.data_ptr(), planes.data_ptr(), ptr(bias), out.data_ptr(),
+          plan.R, plan.C, plan.K, planes.shape[-1], ldo, int(plan.a_trans),
+          int(plan.out_trans), on=a, plan=plan,
+          counter=(linear_tf32x3, "launches"))
     return out
 
 
@@ -242,5 +215,4 @@ def linear_tf32x3(x: torch.Tensor, weight: torch.Tensor,
     return _LinearTF32x3.apply(x2, weight, bias).reshape(*x.shape[:-1], N)
 
 
-linear_tf32x3.launches = 0
-linear_tf32x3.split_launches = 0
+counters(linear_tf32x3, "launches", "split_launches")

@@ -26,7 +26,6 @@ A `channels_last` NCHW activation of the port's U-Nets is this layout with
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 from dataclasses import dataclass
 from typing import Iterator, Tuple
@@ -34,7 +33,13 @@ from typing import Iterator, Tuple
 import torch
 import torch.nn.functional as F
 
-from ratio_guided_multimodal_fm_tpu_torch.ops import _build
+from ratio_guided_multimodal_fm_tpu_torch.ops._capi import (
+    FLOAT,
+    INT,
+    PTR,
+    Kernel,
+    counters,
+)
 
 EPS = 1e-6   # the JAX module's GroupNorm epsilon
 # The kernel against the plain version on the same bfloat16 input: both
@@ -133,26 +138,11 @@ def conv_tiles(plan: ConvPlan, B: int, H: int, W: int
                range(w0, min(W, w0 + plan.cols)))
 
 
-_c_fn = None
-
-
-def _kernel_fn():
-    global _c_fn
-    if _c_fn is None:
-        lib = _build.load("fused_gn_silu_conv")
-        fn = lib.rgmf_fused_gn_silu_conv
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p] * 5 + [i] * 6 + [ctypes.c_float] + [i] * 4
-                       + [p] * 3 + [i, p])
-        fn.restype = i
-        lib.rgmf_cuda_error_string.argtypes = [i]
-        lib.rgmf_cuda_error_string.restype = ctypes.c_char_p
-        _c_fn = (fn, lib.rgmf_cuda_error_string)
-    return _c_fn
+_CONV = Kernel("fused_gn_silu_conv", "fused_gn_silu_conv",
+               [PTR] * 5 + [INT] * 6 + [FLOAT] + [INT] * 4 + [PTR] * 3)
 
 
 def _launch(x, gn_scale, gn_bias, conv_w, conv_b, groups: int):
-    fn, err_str = _kernel_fn()
     B, H, W, C = x.shape
     O = conv_w.shape[3]
     plan = conv_plan(H, W, C, O, x.element_size())
@@ -160,17 +150,11 @@ def _launch(x, gn_scale, gn_bias, conv_w, conv_b, groups: int):
     stats = torch.empty((B * groups, 2), dtype=torch.float32, device=dev)
     wp = torch.empty(plan.weight_elems, dtype=x.dtype, device=dev)
     out = torch.empty((B, H, W, O), dtype=x.dtype, device=dev)
-    err = fn(x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
-             conv_w.data_ptr(), conv_b.data_ptr(), B, H, W, C, O, groups,
-             EPS, int(x.dtype == torch.bfloat16), plan.rows, plan.cols,
-             plan.smem_bytes, wp.data_ptr(), stats.data_ptr(),
-             out.data_ptr(), dev.index if dev.index is not None else
-             torch.cuda.current_device(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_gn_silu_conv kernel launch failed: CUDA "
-                           f"error {err} ({err_str(err).decode()}), {plan}")
-    fused_gn_silu_conv.launches += 1
+    _CONV(x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(),
+          conv_w.data_ptr(), conv_b.data_ptr(), B, H, W, C, O, groups, EPS,
+          int(x.dtype == torch.bfloat16), plan.rows, plan.cols,
+          plan.smem_bytes, wp.data_ptr(), stats.data_ptr(), out.data_ptr(),
+          on=x, plan=plan, counter=(fused_gn_silu_conv, "launches"))
     return out
 
 
@@ -225,4 +209,4 @@ def fused_gn_silu_conv(x: torch.Tensor, gn_scale: torch.Tensor,
     return _launch(x, gn_scale, gn_bias, conv_w, conv_b, groups)
 
 
-fused_gn_silu_conv.launches = 0
+counters(fused_gn_silu_conv, "launches")

@@ -30,13 +30,21 @@ called, so the eager warm-up counts and neither the capture (which only
 records) nor a replay (which does not pass through them) does; the
 replays' launches are read from a profiler trace (chip_smoke.py, phase
 5k).
+
+`fused_macro_step` is the part the fused trainers of train/steps.py share:
+one macro step either as the eager loop or on the cached graph of its
+model, K, B and data.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
+from ratio_guided_multimodal_fm_tpu_torch.core.guards import (
+    check_finite,
+    nan_checks_enabled,
+)
 from ratio_guided_multimodal_fm_tpu_torch.core.observability import span
 
 
@@ -83,3 +91,56 @@ def _clone(out):
     if isinstance(out, dict):
         return {k: v.clone() for k, v in out.items()}
     return out.clone()
+
+
+def make_capturable(optimizer: torch.optim.Optimizer) -> None:
+    """Switch an Adam to capturable=True: its step count lives on the
+    parameters' device, so bias correction is computed there in float32
+    (inside a CUDA graph, not frozen into it). A step count already taken
+    moves to the device."""
+    for group in optimizer.param_groups:
+        if group.get("capturable"):
+            continue
+        group["capturable"] = True
+        for p in group["params"]:
+            st = optimizer.state.get(p)
+            if st and "step" in st:
+                st["step"] = torch.as_tensor(
+                    st["step"], dtype=torch.float32).to(p.device)
+
+
+def fused_macro_step(graphs: Dict[tuple, TrainGraph], state,
+                     graph: Optional[bool], *, key: tuple, body: Callable,
+                     inputs: Dict[str, torch.Tensor],
+                     buffers: Callable[[], Dict[str, torch.Tensor]],
+                     prepare: Callable[[Dict[str, torch.Tensor]], None],
+                     loss: Callable, what: str):
+    """One macro step of a fused trainer: `body(static, check)` over the
+    tensors `inputs` (on the model's device) and the draw buffers that
+    `buffers()` allocates, after `prepare(static)` has drawn into the
+    buffers and seeded the dropout.
+
+    On a card Adam becomes capturable first. On the CPU, or with graph
+    False, the body runs as it is, with its NaN checks. Otherwise (graph
+    None or True) the TrainGraph of (id(state.model), *key) in `graphs`,
+    made on first use with `inputs` as its static tensors, takes `inputs`
+    into its static tensors, is prepared and runs; where NaN checks are on,
+    `loss(out)` is checked after it (named `what`)."""
+    device = next(iter(inputs.values())).device
+    if device.type == "cuda":
+        make_capturable(state.optimizer)
+    if not (device.type == "cuda" if graph is None else graph):
+        static = {**inputs, **buffers()}
+        prepare(static)
+        return body(static, True)
+    key = (id(state.model),) + key
+    g = graphs.get(key)
+    if g is None:
+        g = graphs[key] = TrainGraph(body, {**inputs, **buffers()})
+    for k, v in inputs.items():
+        g.static[k].copy_(v, non_blocking=True)
+    prepare(g.static)
+    out = g.run()
+    if nan_checks_enabled():
+        check_finite(loss(out), what)
+    return out

@@ -63,14 +63,14 @@ from torch import nn
 from ratio_guided_multimodal_fm_tpu_torch.core.device import (
     place_for_training,
 )
-from ratio_guided_multimodal_fm_tpu_torch.core.guards import (
-    check_finite,
-    nan_checks_enabled,
-)
+from ratio_guided_multimodal_fm_tpu_torch.core.guards import check_finite
 from ratio_guided_multimodal_fm_tpu_torch.core.observability import span
 from ratio_guided_multimodal_fm_tpu_torch.core.prng import derive_seed
 from ratio_guided_multimodal_fm_tpu_torch.flow.cfm import cfm_loss
 from ratio_guided_multimodal_fm_tpu_torch.flow.losses import get_ratio_loss
+from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
+    fused_macro_step,
+)
 
 
 @dataclass
@@ -388,10 +388,6 @@ def _draw_fm(seed: int, t: torch.Tensor, x0: torch.Tensor) -> None:
         x0[j].normal_(0.0, 1.0, generator=g)
 
 
-def _graphed(graph: Optional[bool], device: torch.device) -> bool:
-    return device.type == "cuda" if graph is None else bool(graph)
-
-
 def make_fm_train_multistep(ema_decay: Optional[float] = None,
                             graph: Optional[bool] = None) -> Callable:
     """The fused K-step FM trainer (JAX make_fm_train_multistep):
@@ -440,37 +436,25 @@ def make_fm_train_multistep(ema_decay: Optional[float] = None,
             idx = _index_tensor(idx, device)
             K, B = idx.shape
             seed = generator.initial_seed()
-            if device.type == "cuda":
-                make_capturable(state.optimizer)
-            if not _graphed(graph, device):
-                t = torch.empty((K, B), dtype=dataset.dtype, device=device)
-                x0 = torch.empty((K, B) + tuple(dataset.shape[1:]),
-                                 dtype=dataset.dtype, device=device)
-                _draw_fm(seed, t, x0)
-                _seed_dropout(device, derive_seed(seed, 1))
-                return body(state, dataset, idx, t, x0, labels=labels)
-            from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
-                TrainGraph,
-            )
 
-            key = (id(state.model), K, B, dataset.data_ptr(),
-                   None if labels is None else labels.data_ptr())
-            g = graphs.get(key)
-            if g is None:
-                g = graphs[key] = TrainGraph(
-                    lambda st, check: body(state, dataset, st["idx"], st["t"],
-                                           st["x0"], check, labels),
-                    {"idx": idx, "t": torch.empty((K, B), dtype=dataset.dtype,
-                                                  device=device),
-                     "x0": torch.empty((K, B) + tuple(dataset.shape[1:]),
-                                       dtype=dataset.dtype, device=device)})
-            _draw_fm(seed, g.static["t"], g.static["x0"])
-            g.static["idx"].copy_(idx, non_blocking=True)
-            _seed_dropout(device, derive_seed(seed, 1))
-            out = g.run()
-            if nan_checks_enabled():
-                check_finite(out, "fm train loss (fused)")
-            return out
+            def prepare(st):
+                _draw_fm(seed, st["t"], st["x0"])
+                _seed_dropout(device, derive_seed(seed, 1))
+
+            return fused_macro_step(
+                graphs, state, graph,
+                key=(K, B, dataset.data_ptr(),
+                     None if labels is None else labels.data_ptr()),
+                body=lambda st, check: body(state, dataset, st["idx"],
+                                            st["t"], st["x0"], check, labels),
+                inputs={"idx": idx},
+                buffers=lambda: {
+                    "t": torch.empty((K, B), dtype=dataset.dtype,
+                                     device=device),
+                    "x0": torch.empty((K, B) + tuple(dataset.shape[1:]),
+                                      dtype=dataset.dtype, device=device)},
+                prepare=prepare, loss=lambda out: out,
+                what="fm train loss (fused)")
 
     step.graphs = graphs
     return step
@@ -517,45 +501,17 @@ def make_ratio_train_multistep(loss_type: str = "disc",
             real = real.to(device, non_blocking=True)
             K, B = xi.shape
             seed = generator.initial_seed()
-            if device.type == "cuda":
-                make_capturable(state.optimizer)
-            if not _graphed(graph, device):
-                _seed_dropout(device, derive_seed(seed, 1))
-                return body(state, x_all, y_all, xi, yi, real)
-            from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
-                TrainGraph,
-            )
-
-            key = (id(state.model), K, B, x_all.data_ptr(), y_all.data_ptr())
-            g = graphs.get(key)
-            if g is None:
-                g = graphs[key] = TrainGraph(
-                    lambda st, check: body(state, x_all, y_all, st["xi"],
-                                           st["yi"], st["real"], check),
-                    {"xi": xi, "yi": yi, "real": real})
-            for k, v in (("xi", xi), ("yi", yi), ("real", real)):
-                g.static[k].copy_(v, non_blocking=True)
-            _seed_dropout(device, derive_seed(seed, 1))
-            out = g.run()
-            if nan_checks_enabled():
-                check_finite(out["loss"], "ratio train loss (fused)")
-            return out
+            return fused_macro_step(
+                graphs, state, graph,
+                key=(K, B, x_all.data_ptr(), y_all.data_ptr()),
+                body=lambda st, check: body(state, x_all, y_all, st["xi"],
+                                            st["yi"], st["real"], check),
+                inputs={"xi": xi, "yi": yi, "real": real}, buffers=dict,
+                prepare=lambda st: _seed_dropout(device,
+                                                 derive_seed(seed, 1)),
+                loss=lambda out: out["loss"],
+                what="ratio train loss (fused)")
 
     step.graphs = graphs
     return step
 
-
-def make_capturable(optimizer: torch.optim.Optimizer) -> None:
-    """Switch an Adam to capturable=True: its step count lives on the
-    parameters' device, so bias correction is computed there in float32
-    (inside a CUDA graph, not frozen into it). A step count already taken
-    moves to the device."""
-    for group in optimizer.param_groups:
-        if group.get("capturable"):
-            continue
-        group["capturable"] = True
-        for p in group["params"]:
-            st = optimizer.state.get(p)
-            if st and "step" in st:
-                st["step"] = torch.as_tensor(
-                    st["step"], dtype=torch.float32).to(p.device)

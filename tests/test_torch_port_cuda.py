@@ -745,7 +745,7 @@ def test_capturable_adam_matches_the_current_update(card):
     """Adam with capturable=True (its step count on the card, bias
     correction in float32) against the default update on the same
     gradients, three steps: within 1e-6 relative."""
-    from ratio_guided_multimodal_fm_tpu_torch.train.steps import (
+    from ratio_guided_multimodal_fm_tpu_torch.train.graphs import (
         make_capturable,
     )
 

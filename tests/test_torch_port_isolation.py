@@ -15,6 +15,10 @@
   imports without JAX on its own.
 * The CLI runs end to end on the CPU from the reference-layout .pth files
   that the JAX package's exporter writes.
+* In ops/, only _build.py (which loads the libraries) and _capi.py (the
+  launch seam) use ctypes, the libraries' error strings or CUDA stream
+  handles, only the seam imports _build, and no module imports a private
+  name from a sibling module.
 """
 import ast
 import json
@@ -144,6 +148,34 @@ def test_no_source_imports_jax():
             else:
                 continue
             assert not any(map(_forbidden, names)), (f, names)
+
+
+OPS = PORT / "ops"
+OPS_PKG = "ratio_guided_multimodal_fm_tpu_torch.ops"
+SEAM = ("_build.py", "_capi.py")
+
+
+@pytest.mark.parametrize("module", sorted(p.name for p in OPS.glob("*.py")))
+def test_ops_reach_csrc_only_through_the_seam(module):
+    src = (OPS / module).read_text()
+    if module not in SEAM:
+        for word in ("ctypes", "rgmf_cuda_error_string", "cuda_stream"):
+            assert word not in src, (module, word)
+    for node in ast.walk(ast.parse(src, module)):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+            assert module in SEAM or "ctypes" not in names, module
+        elif isinstance(node, ast.ImportFrom) and (
+                node.module or "").startswith(OPS_PKG):
+            names = [a.name for a in node.names]
+            if node.module == OPS_PKG:
+                # the package itself: sibling modules only, and _build
+                # only in the seam
+                assert all((OPS / f"{n}.py").exists() for n in names), names
+                assert "_build" not in names or module == "_capi.py", module
+            else:
+                assert not any(n.startswith("_") for n in names), (
+                    module, node.module, names)
 
 
 def test_entry_points_require_a_gpu_by_default(tmp_path, monkeypatch):
